@@ -1,0 +1,163 @@
+"""Build and bind the package's CUDA kernels.
+
+All sources under ``nbody_tpu_torch/csrc/*.cu`` are compiled by ``nvcc``
+for Hopper (``sm_90a``) into ONE shared library with a plain C interface,
+loaded with ``ctypes``. The build runs on first use, from the sources in
+this checkout only, into ``build/nbody_tpu_torch/`` at the repository
+root; the library's file name carries a hash of the sources and flags, so
+an edited source is rebuilt and an unchanged one is reused.
+
+Every C entry point takes device pointers, sizes and a CUDA stream, launches
+on that stream, allocates nothing, and returns ``cudaGetLastError()``;
+``launch`` raises if that is not 0. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "nbody_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signature of every entry point (each returns int = cudaError_t).
+SIGNATURES = {
+    # tgt, nt, src_pos, src_mass, ns, G, eps2, acc, stream
+    "nbt_direct_forces": (_P, _I, _P, _P, _I, _F, _F, _P, _P),
+    # psort, cell_start, lo, cell, tiles, moments, d, k, stream
+    "nbt_tile_scatter": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # mom, taps, out, p, ws, stream
+    "nbt_far_taps": (_P, _P, _P, _I, _I, _P),
+    # tiles, far, n_far, counts, lo, cell, out, d, k, ws, eps2,
+    # cutoff2, use_cutoff, stream
+    "nbt_tile_near": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I,
+                      _P),
+}
+
+_lock = threading.Lock()
+_lib = None
+last_build = {"seconds": 0.0, "path": None, "built": False, "log": ""}
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.environ.get("NVCC"),
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                     "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (set NVCC or CUDA_HOME): the nbody_tpu_torch CUDA "
+        "kernels are built from source on first use"
+    )
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest(srcs: list[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs + sorted(CSRC.glob("*.cuh")):
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels if the library for the current sources is not
+    built yet; return its path."""
+    srcs = sources()
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"libnbody_kernels_{_digest(srcs)}.so"
+    if out.exists():
+        last_build.update(path=str(out), built=False, seconds=0.0)
+        return out
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    (BUILD_DIR / "nvcc.log").write_text(" ".join(cmd) + "\n" + log)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+    last_build.update(path=str(out), built=True, seconds=secs, log=log)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            lib.nbt_error_string.argtypes = [ctypes.c_int]
+            lib.nbt_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call entry point ``name`` on ``device``'s current stream; raise if
+    the launch reports a CUDA error."""
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, name)(*args, stream)
+    if err != 0:
+        msg = lib.nbt_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def check(t: torch.Tensor, name: str, shape: tuple, device: torch.device,
+          dtype=torch.float32) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device`` — the kernels take nothing else."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def require_cuda(t: torch.Tensor, what: str) -> None:
+    """A wrapper's plain version runs only for CPU tensors; any other
+    device must be CUDA, where the kernel runs or the call raises."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: tensors on {t.device} are not supported")

@@ -1,0 +1,507 @@
+"""Barnes-Hut gravity on a dense multipole grid pyramid.
+
+PyTorch counterpart of the fused tiles path of ``nbody_tpu/ops/barnes_hut.py``
+(order-2 sources, the path ``bh_engine_params`` selects whenever the finest
+cells hold ≤ 24 particles on average). One force evaluation runs:
+
+  1. bin + stable argsort by finest cell id + one payload gather
+     (``sorted_window.build_sorted_grid``);
+  2. slot placement + finest order-2 moments + exact counts (kernel K2,
+     ``scatter.tile_scatter``);
+  3. the pyramid by 2× reductions (``pyramid_from_packed``);
+  4. a far-field local expansion per finest cell (``far_field_grid``): per
+     level, the multipole-to-local tap sum (kernel K3, ``far_taps.far_taps``)
+     and the exact downward translation;
+  5. the near sweep seeded with the far expansion (kernel K4,
+     ``tile_near.tile_sweep_plane``);
+  6. the pickup gather, with rows past the k-slot cap redirected to G·A of
+     their cell (``tile_sweep._slot_pickup_raw``).
+
+A cell accepted at level ℓ has its parent inside the well-separation
+window (Chebyshev distance ≤ ws) but is itself outside it; every source
+cell is accepted at exactly one level or lands in the exact near field.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from nbody_tpu_torch.ops.far_taps import far_taps
+from nbody_tpu_torch.ops.sorted_window import build_sorted_grid
+from nbody_tpu_torch.ops.tile_sweep import tile_build, tile_sweep_pick
+from nbody_tpu_torch.types import SimulationConfig
+from nbody_tpu_torch.utils.profiling import profile_phase
+
+
+def theta_to_ws(theta: float, max_ws: int = 16, order: int = 1) -> int:
+    """Opening angle θ → well-separation width ws (ceil(1/(2θ)) with
+    quadrupole sources, ceil(1/θ) with monopoles)."""
+    if theta <= 0:
+        return max_ws
+    denom = 2.0 if order >= 2 else 1.0
+    return max(1, min(max_ws, math.ceil(1.0 / (denom * theta))))
+
+
+@dataclasses.dataclass
+class Pyramid:
+    """Order-2 multipole grids per level, coarse → fine: ``masses[ℓ]``
+    (2^ℓ)³, ``srels[ℓ]`` (2^ℓ)³×3 centre-relative dipoles Σ m·(x − ctr),
+    ``quads[ℓ]`` (2^ℓ)³×6 second moments about the cell centre
+    [xx, yy, zz, xy, xz, yz]. ``lo``/``cell``: finest-level geometry."""
+
+    masses: tuple
+    srels: tuple
+    quads: tuple
+    lo: torch.Tensor
+    cell: torch.Tensor
+
+
+def pyramid_geometry(lo: torch.Tensor, hi: torch.Tensor, levels: int):
+    """(lo, cell) of the cube grid enclosing [lo, hi] at 2^levels per axis."""
+    d = 1 << levels
+    cube = torch.clamp(torch.max(hi - lo), min=1e-6) * (1.0 + 1e-5)
+    return lo, cube / d
+
+
+def pyramid_from_packed(packed, lo, cell, levels: int) -> Pyramid:
+    """Upward pass: packed finest moments (d, d, d, 10) [m, s3, q6] → the
+    full pyramid, by the parallel-axis translation
+    q_p = Σ_c [q_c + δ⊗s_c + s_c⊗δ + m_c δ⊗δ], δ = ±(child edge)/2."""
+    dtype = packed.dtype
+    masses = [packed[..., 0]]
+    srels = [packed[..., 1:4]]
+    quads = [packed[..., 4:10]]
+    for lvl in range(levels):
+        dm = masses[-1].shape[0] // 2
+        m_c = masses[-1].reshape(dm, 2, dm, 2, dm, 2)
+        masses.append(m_c.sum(dim=(1, 3, 5)))
+        e = cell * (1 << lvl) * 0.5
+        par = torch.tensor([-0.5, 0.5], dtype=dtype, device=packed.device)
+        par = par * 2.0 * e
+        dx = par.reshape(1, 2, 1, 1, 1, 1)
+        dy = par.reshape(1, 1, 1, 2, 1, 1)
+        dz = par.reshape(1, 1, 1, 1, 1, 2)
+        s_c = srels[-1].reshape(dm, 2, dm, 2, dm, 2, 3)
+        q_c = quads[-1].reshape(dm, 2, dm, 2, dm, 2, 6)
+        sx, sy, sz = s_c[..., 0], s_c[..., 1], s_c[..., 2]
+        q_p = torch.stack(
+            [
+                q_c[..., 0] + 2 * dx * sx + m_c * dx * dx,
+                q_c[..., 1] + 2 * dy * sy + m_c * dy * dy,
+                q_c[..., 2] + 2 * dz * sz + m_c * dz * dz,
+                q_c[..., 3] + dx * sy + dy * sx + m_c * dx * dy,
+                q_c[..., 4] + dx * sz + dz * sx + m_c * dx * dz,
+                q_c[..., 5] + dy * sz + dz * sy + m_c * dy * dz,
+            ],
+            dim=-1,
+        )
+        quads.append(q_p.sum(dim=(1, 3, 5)))
+        s_p = s_c + m_c[..., None] * torch.stack(
+            [dx.expand(m_c.shape), dy.expand(m_c.shape), dz.expand(m_c.shape)],
+            dim=-1,
+        )
+        srels.append(s_p.sum(dim=(1, 3, 5)))
+    masses.reverse()
+    srels.reverse()
+    quads.reverse()
+    return Pyramid(tuple(masses), tuple(srels), tuple(quads), lo, cell)
+
+
+_KIDS = np.array(
+    [(x, y, z) for x in (0, 1) for y in (0, 1) for z in (0, 1)], np.int32
+)
+
+
+def _window_offsets_and_masks(ws: int):
+    """Parent-window offsets po (n, 3) and 8×8 child accept masks
+    accept[p, kt, ks] (child cells Chebyshev-separated by more than ws)."""
+    rng = np.arange(-ws, ws + 1)
+    po = np.array(
+        [(x, y, z) for x in rng for y in rng for z in rng], np.int32
+    )
+    delta = (
+        2 * po[:, None, None, :]
+        + _KIDS[None, None, :, :]
+        - _KIDS[None, :, None, :]
+    )  # (n, 8t, 8s, 3)
+    accept = np.abs(delta).max(axis=-1) > ws
+    return po, accept
+
+
+def _tap_table():
+    """(19, 10) gather index into the derivative bank [T1(3) | T2(9) |
+    T3(27) | T4(81) | 0] and the coefficient of each entry, for rows
+    [A3, J6, H10] × columns [m, s3, q6] of ``_conv_taps_kernel``."""
+    sym6 = [(0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2)]
+    sym10 = [
+        (0, 0, 0), (1, 1, 1), (2, 2, 2), (0, 0, 1), (0, 0, 2),
+        (0, 1, 1), (1, 1, 2), (0, 2, 2), (1, 2, 2), (0, 1, 2),
+    ]
+    q_mult = [1.0, 1.0, 1.0, 2.0, 2.0, 2.0]
+
+    def t1(i):
+        return i
+
+    def t2(i, j):
+        return 3 + 3 * i + j
+
+    def t3(i, j, k):
+        return 12 + 9 * i + 3 * j + k
+
+    def t4(i, j, k, l):
+        return 39 + 27 * i + 9 * j + 3 * k + l
+
+    zero = 120
+    idx, coef = [], []
+    for i in range(3):
+        idx.append([t1(i)] + [t2(i, j) for j in range(3)]
+                   + [t3(i, *sym6[c]) for c in range(6)])
+        coef.append([1.0] * 4 + [0.5 * q_mult[c] for c in range(6)])
+    for (i, j) in sym6:
+        idx.append([t2(i, j)] + [t3(i, j, k) for k in range(3)]
+                   + [t4(i, j, *sym6[c]) for c in range(6)])
+        coef.append([-1.0] * 4 + [-0.5 * q_mult[c] for c in range(6)])
+    for (i, j, k) in sym10:
+        idx.append([t3(i, j, k)] + [t4(i, j, k, l) for l in range(3)]
+                   + [zero] * 6)
+        coef.append([1.0] * 4 + [0.0] * 6)
+    return np.array(idx, np.int64), np.array(coef, np.float64)
+
+
+_TAP_IDX, _TAP_COEF = _tap_table()
+
+
+def _conv_taps_kernel(dvec: torch.Tensor, eps: float) -> torch.Tensor:
+    """Per-tap multipole-to-local translation matrices.
+
+    dvec (…, 3) source-centre − target-centre displacements → (…, 19, 10):
+    rows [A3, J6, H10], columns [m, s3, q6], built from the Plummer-kernel
+    derivative tensors T1..T4 of T1_i(D) = D_i·u^{-3/2}, u = |D|² + ε²:
+
+      A_i = m·T1_i + s_j·T2_ij + ½ q_jk·T3_ijk
+      J_ij = −(m·T2_ij + s_k·T3_ijk + ½ q_kl·T4_ijkl)
+      H_ijk = m·T3_ijk + s_l·T4_ijkl              (q·T5 truncated)
+
+    The same entries as the JAX package's ``_conv_taps_kernel``, built as
+    a handful of broadcast tensor ops (one bank gather) instead of one
+    scalar expression per entry.
+    """
+    lead = dvec.shape[:-1]
+    D = dvec.reshape(-1, 3)
+    dev, dt = D.device, D.dtype
+    u = D[:, 0] ** 2 + D[:, 1] ** 2 + D[:, 2] ** 2 + eps * eps
+    u = torch.clamp(u, min=1e-30)
+    u3 = u ** -1.5
+    u5 = u3 / u
+    u7 = u5 / u
+    u9 = u7 / u
+    eye = torch.eye(3, dtype=dt, device=dev)
+
+    def col(x, nd):
+        return x.reshape((-1,) + (1,) * nd)
+
+    t1 = D * col(u3, 1)
+    di, dj = D[:, :, None], D[:, None, :]
+    t2 = eye * col(u3, 2) - 3.0 * di * dj * col(u5, 2)
+    di, dj, dk = D[:, :, None, None], D[:, None, :, None], D[:, None, None, :]
+    term3 = eye[:, :, None] * dk + eye[:, None, :] * dj + eye[None, :, :] * di
+    t3 = -3.0 * term3 * col(u5, 3) + 15.0 * di * dj * dk * col(u7, 3)
+    di = D[:, :, None, None, None]
+    dj = D[:, None, :, None, None]
+    dk = D[:, None, None, :, None]
+    dl = D[:, None, None, None, :]
+    i_ij, i_kl = eye[:, :, None, None], eye[None, None, :, :]
+    i_ik, i_jl = eye[:, None, :, None], eye[None, :, None, :]
+    i_jk, i_il = eye[None, :, :, None], eye[:, None, None, :]
+    term4a = i_ij * i_kl + i_ik * i_jl + i_jk * i_il
+    term4b = (
+        i_ij * dk * dl + i_ik * dj * dl + i_jk * di * dl
+        + i_kl * di * dj + i_jl * di * dk + i_il * dj * dk
+    )
+    t4 = (
+        -3.0 * term4a * col(u5, 4)
+        + 15.0 * term4b * col(u7, 4)
+        - 105.0 * di * dj * dk * dl * col(u9, 4)
+    )
+    n = D.shape[0]
+    bank = torch.cat(
+        [t1, t2.reshape(n, 9), t3.reshape(n, 27), t4.reshape(n, 81),
+         torch.zeros((n, 1), dtype=dt, device=dev)],
+        dim=1,
+    )  # (n, 121)
+    idx = torch.as_tensor(_TAP_IDX, device=dev)
+    coef = torch.as_tensor(_TAP_COEF, dtype=dt, device=dev)
+    out = bank[:, idx.reshape(-1)].reshape(n, 19, 10) * coef
+    return out.reshape(lead + (19, 10))
+
+
+def level_tap_matrices(cell, ws: int, eps: float, levels: int,
+                       lvls=None) -> torch.Tensor:
+    """Tap matrices (len(lvls), T, 8·19, 8·10) of the listed levels
+    (default 1..levels), telescoping acceptance folded in. Rebuilt every
+    force evaluation, because ``cell`` follows the particles."""
+    lvls = list(range(1, levels + 1)) if lvls is None else list(lvls)
+    po, accept = _window_offsets_and_masks(ws)
+    t = po.shape[0]
+    delta_int = (
+        2 * po[:, None, None, :] + _KIDS[None, None, :, :]
+        - _KIDS[None, :, None, :]
+    ).reshape(t * 64, 3)
+    dev, dt = cell.device, cell.dtype
+    scale = torch.tensor([float(1 << (levels - lvl)) for lvl in lvls],
+                         dtype=dt, device=dev)
+    s_l = (cell.reshape(()) * scale).reshape(-1, 1, 1)
+    dvec = torch.as_tensor(delta_int, dtype=dt, device=dev) * s_l
+    k = _conv_taps_kernel(dvec, eps)                     # (L, T·64, 19, 10)
+    mask = torch.as_tensor(accept.reshape(t * 64), dtype=dt, device=dev)
+    k = k * mask[:, None, None]
+    return (
+        k.reshape(len(lvls), t, 8, 8, 19, 10)
+        .permute(0, 1, 2, 4, 3, 5)
+        .reshape(len(lvls), t, 8 * 19, 8 * 10)
+    )
+
+
+def level_moments(pyr: Pyramid, lvl: int) -> torch.Tensor:
+    """Child-major moment channels (80, p³) of level ``lvl``, channel =
+    kid·10 + [m, s3, q6] (the column order of the tap matrices)."""
+    p = (1 << lvl) // 2
+
+    def cm(x, c):
+        return (
+            x.reshape(p, 2, p, 2, p, 2, c)
+            .permute(1, 3, 5, 6, 0, 2, 4)
+            .reshape(8, c, p * p * p)
+        )
+
+    return torch.cat(
+        [cm(pyr.masses[lvl][..., None], 1), cm(pyr.srels[lvl], 3),
+         cm(pyr.quads[lvl], 6)],
+        dim=1,
+    ).reshape(80, p * p * p).contiguous()
+
+
+def _far_conv_level(pyr: Pyramid, lvl: int, ws: int, eps: float,
+                    levels: int, tap_mat=None):
+    """One level's accepted far-field contributions through kernel K3:
+    (A (8, 3, p³), J (8, 6, p³), H (8, 10, p³)) per target child."""
+    p = (1 << lvl) // 2
+    if tap_mat is None:
+        tap_mat = level_tap_matrices(pyr.cell, ws, eps, levels, [lvl])[0]
+    out = far_taps(level_moments(pyr, lvl), tap_mat.contiguous(), p=p, ws=ws)
+    out = out.reshape(8, 19, p * p * p)
+    return out[:, 0:3], out[:, 3:9], out[:, 9:19]
+
+
+def sym_matvec(j6: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(…, 6) symmetric matrix [xx,yy,zz,xy,xz,yz] times (…, 3) vector."""
+    jx = j6[..., 0] * v[..., 0] + j6[..., 3] * v[..., 1] + j6[..., 4] * v[..., 2]
+    jy = j6[..., 3] * v[..., 0] + j6[..., 1] * v[..., 1] + j6[..., 5] * v[..., 2]
+    jz = j6[..., 4] * v[..., 0] + j6[..., 5] * v[..., 1] + j6[..., 2] * v[..., 2]
+    return torch.stack([jx, jy, jz], dim=-1)
+
+
+def sym3_matvec(h10: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(…, 10) symmetric 3-tensor [xxx,yyy,zzz,xxy,xxz,xyy,yyz,xzz,yzz,xyz]
+    contracted with (…, 3) → the (…, 6) symmetric matrix (H·v)_ij."""
+    vx, vy, vz = v[..., 0], v[..., 1], v[..., 2]
+    xxx, yyy, zzz = h10[..., 0], h10[..., 1], h10[..., 2]
+    xxy, xxz, xyy = h10[..., 3], h10[..., 4], h10[..., 5]
+    yyz, xzz, yzz = h10[..., 6], h10[..., 7], h10[..., 8]
+    xyz = h10[..., 9]
+    return torch.stack(
+        [
+            xxx * vx + xxy * vy + xxz * vz,  # xx
+            xyy * vx + yyy * vy + yyz * vz,  # yy
+            xzz * vx + yzz * vy + zzz * vz,  # zz
+            xxy * vx + xyy * vy + xyz * vz,  # xy
+            xxz * vx + xyz * vy + xzz * vz,  # xz
+            xyz * vx + yyz * vy + yzz * vz,  # yz
+        ],
+        dim=-1,
+    )
+
+
+def far_field_grid(pyr: Pyramid, ws: int, G: float, eps: float, levels: int):
+    """Far field as an order-2 LOCAL EXPANSION per finest cell →
+    (A (d,d,d,3), J6 (d,d,d,6), H10 (d,d,d,10)) about cell centres, each
+    level's taps through kernel K3 and the exact downward translation
+    A_child = A + J·δ + ½δᵀHδ, J_child = J + H·δ, H_child = H."""
+    taps = level_tap_matrices(pyr.cell, ws, eps, levels)
+    dtype = pyr.masses[0].dtype
+    dev = pyr.masses[0].device
+    acc = jac = hes = None
+    for lvl in range(1, levels + 1):
+        dl = 1 << lvl
+        p = dl // 2
+        s_l = pyr.cell * (1 << (levels - lvl))
+        acc_pm, jac_pm, hes_pm = _far_conv_level(
+            pyr, lvl, ws, eps, levels, tap_mat=taps[lvl - 1]
+        )
+
+        def to_grid(a, c, p=p, dl=dl):
+            return (
+                a.reshape(2, 2, 2, c, p, p, p)
+                .permute(4, 0, 5, 1, 6, 2, 3)
+                .reshape(dl, dl, dl, c)
+            )
+
+        acc_lvl = to_grid(acc_pm, 3)
+        jac_lvl = to_grid(jac_pm, 6)
+        hes_lvl = to_grid(hes_pm, 10)
+        if acc is not None:
+
+            def rep8(x):
+                return (
+                    x.repeat_interleave(2, 0).repeat_interleave(2, 1)
+                    .repeat_interleave(2, 2)
+                )
+
+            a_rep, j_rep, h_rep = rep8(acc), rep8(jac), rep8(hes)
+            par = (torch.arange(dl, device=dev) % 2).to(dtype) - 0.5
+            px, py, pz = torch.meshgrid(par, par, par, indexing="ij")
+            delta = torch.stack([px, py, pz], dim=-1) * s_l
+            acc_lvl = acc_lvl + a_rep + sym_matvec(j_rep, delta)
+            jac_lvl = jac_lvl + j_rep
+            hd6 = sym3_matvec(h_rep, delta)
+            acc_lvl = acc_lvl + 0.5 * sym_matvec(hd6, delta)
+            jac_lvl = jac_lvl + hd6
+            hes_lvl = hes_lvl + h_rep
+        acc, jac, hes = acc_lvl, jac_lvl, hes_lvl
+    return G * acc, G * jac, G * hes
+
+
+def bh_engine_params(config: SimulationConfig) -> dict:
+    """Engine selection for a config (the JAX package's rule, unchanged):
+    levels, multipole_order, ws, near_engine, near_k, window."""
+    levels = config.bh_max_level
+    multipole_order = 2
+    ws = theta_to_ws(config.barnes_hut_theta, order=multipole_order)
+    window = max(2048, 8 * config.hash_max_per_cell)
+    occ = config.particle_count / float(8**levels)
+    if occ <= 24.0:
+        near_engine = "tiles"
+        raw = occ + 5.0 * math.sqrt(occ + 1.0)
+        near_k = int(min(64, max(8, -(-raw // 8) * 8)))
+    else:
+        near_engine = "window"
+        near_k = 16
+    return {
+        "levels": levels,
+        "multipole_order": multipole_order,
+        "ws": ws,
+        "near_engine": near_engine,
+        "near_k": near_k,
+        "window": window,
+    }
+
+
+def _fused_bh_force_from_grid(grid, lo, cell, *, d, levels, ws, near_k, G,
+                              softening, sorted_output):
+    """Everything downstream of the cell sort: placement + moments (K2),
+    pyramid, far expansion (K3 per level), near sweep seeded with the far
+    expansion (K4) and the pickup. Returns ``(acc, TileBuild)``."""
+    dev = grid.psort.device
+    with profile_phase("bh.placement", device=dev):
+        tb = tile_build(grid, lo, cell, d=d, k=near_k)
+    with profile_phase("bh.pyramid", device=dev):
+        packed = tb.moments[:10].T.reshape(d, d, d, 10)
+        pyr = pyramid_from_packed(packed, lo, cell, levels)
+    with profile_phase("bh.far", device=dev):
+        a_far, j_far, h_far = far_field_grid(pyr, ws, 1.0, softening, levels)
+        far_plane = (
+            torch.cat([a_far, j_far, h_far], dim=-1)
+            .reshape(d, d * d, 19).permute(0, 2, 1).contiguous()
+        )  # (d, 19, d²)
+    acc = tile_sweep_pick(
+        tb, grid, lo, cell, far_plane, d=d, ws=ws, k=near_k, G=G,
+        eps=softening, sorted_output=sorted_output,
+    )
+    return acc, tb
+
+
+def bin_particles(pos, levels: int):
+    """(lo, cell, coords): the finest grid geometry and each row's
+    clipped int32 cell coordinates."""
+    d = 1 << levels
+    lo, cell = pyramid_geometry(
+        torch.min(pos, dim=0).values, torch.max(pos, dim=0).values, levels
+    )
+    coords = torch.clamp(((pos - lo) / cell).to(torch.int32), 0, d - 1)
+    return lo, cell, coords
+
+
+def _barnes_hut_forces(pos, mass, G, softening, theta, *, levels, near_k,
+                       sorted_output=False):
+    ws = theta_to_ws(theta, order=2)
+    d = 1 << levels
+    with profile_phase("bh.sort", device=pos.device):
+        lo, cell, coords = bin_particles(pos, levels)
+        grid = build_sorted_grid(pos, mass, coords, d)
+    acc, _tb = _fused_bh_force_from_grid(
+        grid, lo, cell, d=d, levels=levels, ws=ws, near_k=near_k, G=G,
+        softening=softening, sorted_output=sorted_output,
+    )
+    if sorted_output:
+        return acc, grid.psort, grid.order
+    return acc
+
+
+def barnes_hut_forces(pos, mass, G: float = 1.0, softening: float = 0.1,
+                      theta: float = 0.5, *, levels: int = 6,
+                      near_k: int = 16):
+    """Full BH acceleration (N, 3) in original row order: order-2 pyramid
+    far field + exact tiles near field with k slots per finest cell."""
+    return _barnes_hut_forces(pos, mass, G, softening, theta, levels=levels,
+                              near_k=near_k)
+
+
+def barnes_hut_forces_sorted(pos, mass, G: float = 1.0,
+                             softening: float = 0.1, theta: float = 0.5, *,
+                             levels: int = 6, near_k: int = 16):
+    """The same forces in the engine's CELL-SORTED row order →
+    ``(acc_sorted, psort, order)``: ``psort`` (N, 4) = [pos | mass][order],
+    ``acc_sorted`` aligned with it (the sorted-stepping contract)."""
+    return _barnes_hut_forces(pos, mass, G, softening, theta, levels=levels,
+                              near_k=near_k, sorted_output=True)
+
+
+def _tiles_params(config: SimulationConfig) -> dict:
+    p = bh_engine_params(config)
+    if p["near_engine"] != "tiles":
+        raise NotImplementedError(
+            "this configuration selects the Barnes-Hut 'window' near engine "
+            f"(mean occupancy {config.particle_count / 8**p['levels']:.1f} "
+            "> 24 per finest cell), which needs the window-sweep kernel "
+            "not ported yet (ROADMAP B3); raise bh_max_level"
+        )
+    return p
+
+
+def make_barnes_hut_forces(config: SimulationConfig):
+    """``force_fn(pos, mass) -> acc`` for the config (original row order)."""
+    p = _tiles_params(config)
+    G, eps, theta = config.G, config.softening, config.barnes_hut_theta
+
+    def force_fn(pos, mass):
+        return _barnes_hut_forces(pos, mass, G, eps, theta,
+                                  levels=p["levels"], near_k=p["near_k"])
+
+    return force_fn
+
+
+def make_barnes_hut_forces_sorted(config: SimulationConfig):
+    """``sorted_force_fn(pos, mass) -> (acc_sorted, psort, order)``."""
+    p = _tiles_params(config)
+    G, eps, theta = config.G, config.softening, config.barnes_hut_theta
+
+    def sorted_force_fn(pos, mass):
+        return _barnes_hut_forces(pos, mass, G, eps, theta,
+                                  levels=p["levels"], near_k=p["near_k"],
+                                  sorted_output=True)
+
+    return sorted_force_fn

@@ -1,0 +1,106 @@
+"""Slot placement + finest-level order-2 moments (kernel K2).
+
+Counterpart of ``nbody_tpu/ops/pallas_scatter.py`` as the Barnes-Hut tiles
+path calls it (``monotone_scatter_tiles(..., with_moments=True)``). From the
+cell-sorted rows and the per-cell segment index it produces
+
+  * ``tiles``   (d, 4, k, d²): the near sweep's plane-major slot tensor —
+    the row of rank r < k in cell (x, y, z) at ``[x, :, r, y·d + z]``,
+    every other slot the cell centre with mass 0;
+  * ``moments`` (11, d³): [m, m·xr(3), m·xr⊗xr(6), count] about each cell
+    centre over ALL its rows (rows past the k cap included), the
+    ``pyramid_from_packed`` order-2 layout plus an exact count.
+
+``tile_scatter`` is the wrapper of ``csrc/scatter.cu``; ``tile_scatter_plain``
+is its plain PyTorch twin.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from nbody_tpu_torch.ops import _build
+
+
+def cell_centers(lo, cell, d: int) -> torch.Tensor:
+    """(d³, 3) centres lo + (c + 0.5)·cell of the row-major cells."""
+    ar = torch.arange(d, device=lo.device, dtype=lo.dtype)
+    gx, gy, gz = torch.meshgrid(ar, ar, ar, indexing="ij")
+    g = torch.stack([gx, gy, gz], dim=-1).reshape(d * d * d, 3)
+    return lo + (g + 0.5) * cell
+
+
+def tile_scatter_plain(psort, cell_start, lo, cell, *, d: int, k: int):
+    """Plain twin of kernel K2 → (tiles (d, 4, k, d²), moments (11, d³))."""
+    tile_scatter_plain.calls += 1
+    n = psort.shape[0]
+    nc = d * d * d
+    dev = psort.device
+    counts = (cell_start[1:] - cell_start[:-1]).to(torch.int64)
+    ids = torch.repeat_interleave(
+        torch.arange(nc, device=dev), counts, output_size=n
+    )
+    rank = torch.arange(n, device=dev) - cell_start[ids].to(torch.int64)
+    ctr = cell_centers(lo, cell, d)                          # (d³, 3)
+
+    tiles = torch.cat(
+        [ctr, torch.zeros((nc, 1), dtype=psort.dtype, device=dev)], dim=-1
+    )                                                        # (d³, 4)
+    tiles = (
+        tiles.reshape(d, d * d, 4).permute(0, 2, 1)[:, :, None, :]
+        .expand(d, 4, k, d * d).contiguous()
+    )
+    placed = rank < k
+    pid = ids[placed]
+    tiles[pid // (d * d), :, rank[placed], pid % (d * d)] = psort[placed]
+
+    xr = psort[:, :3] - ctr[ids]
+    m = psort[:, 3:4]
+    x, y, z = xr[:, 0:1], xr[:, 1:2], xr[:, 2:3]
+    vals = torch.cat(
+        [m, m * x, m * y, m * z,
+         m * (x * x), m * (y * y), m * (z * z),
+         m * (x * y), m * (x * z), m * (y * z),
+         torch.ones_like(m)],
+        dim=-1,
+    )                                                        # (N, 11)
+    moments = torch.zeros((nc, 11), dtype=psort.dtype, device=dev)
+    moments.index_add_(0, ids, vals)
+    return tiles, moments.T.contiguous()
+
+
+tile_scatter_plain.calls = 0
+
+
+def tile_scatter(psort, cell_start, lo, cell, *, d: int, k: int):
+    """Kernel K2 (``csrc/scatter.cu``, one thread per cell): placement,
+    moments and counts in one pass with no atomics. ``lo`` (3,) and
+    ``cell`` (scalar) are device tensors, so the step never syncs with the
+    host. CPU tensors take the plain twin; CUDA tensors launch the kernel
+    or raise."""
+    if psort.device.type == "cpu":
+        return tile_scatter_plain(psort, cell_start, lo, cell, d=d, k=k)
+    _build.require_cuda(psort, "tile_scatter")
+    dev = psort.device
+    nc = d * d * d
+    if nc * 4 * k >= (1 << 31):
+        raise ValueError(f"d³·4·k = {nc * 4 * k} overflows int32 indexing")
+    cell = cell.reshape(())
+    _build.check(psort, "psort", (psort.shape[0], 4), dev)
+    if psort.data_ptr() % 16:
+        raise ValueError("psort: rows must be 16-byte aligned (float4 loads)")
+    _build.check(cell_start, "cell_start", (nc + 1,), dev, torch.int32)
+    _build.check(lo, "lo", (3,), dev)
+    _build.check(cell, "cell", (), dev)
+    tiles = torch.empty((d, 4, k, d * d), dtype=torch.float32, device=dev)
+    moments = torch.empty((11, nc), dtype=torch.float32, device=dev)
+    _build.launch(
+        "nbt_tile_scatter", dev, psort.data_ptr(), cell_start.data_ptr(),
+        lo.data_ptr(), cell.data_ptr(), tiles.data_ptr(), moments.data_ptr(),
+        d, k,
+    )
+    tile_scatter.launches += 1
+    return tiles, moments
+
+
+tile_scatter.launches = 0

@@ -1,0 +1,241 @@
+"""ParticleSystem facade.
+
+PyTorch counterpart of the core of ``nbody_tpu/system.py``: validate →
+initialize → compute initial forces; ``update()`` is one Verlet step,
+``run_steps(n)`` the scale path (cell-sorted stepping for Barnes-Hut, as
+``bench.py`` measures on the TPU); pause/resume/reset; state get/set;
+energy queries. Every tensor lives on the device given to ``initialize``.
+
+Not ported yet, and rejected with ``NotImplementedError`` rather than run
+some other path: sharding (``shard_devices > 1``), amortized or audited
+re-sorting (``resort_every > 1``, ``resort_stale_frac > 0``,
+``resort_repair``), the spatial hash, and the distributions other than
+uniform and spherical. Instances are not thread-safe.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from nbody_tpu_torch.errors import (
+    ValidationError,
+    validate_config,
+    validate_particle_count,
+    validate_resource_requirements,
+)
+from nbody_tpu_torch.models.distributions import init_from_config
+from nbody_tpu_torch.ops.forces import make_force_fn, make_sorted_force_fn
+from nbody_tpu_torch.ops.integrator import (
+    initialize_forces,
+    kinetic_energy,
+    make_multi_step,
+    make_sorted_multi_step,
+    make_verlet_step,
+    potential_energy,
+)
+from nbody_tpu_torch.state import ParticleState, SimulationState
+from nbody_tpu_torch.types import SimulationConfig
+from nbody_tpu_torch.utils.profiling import profile_phase
+
+
+def _require_ported(config: SimulationConfig) -> None:
+    knobs = {
+        "shard_devices > 1": config.shard_devices > 1,
+        "resort_every > 1": config.resort_every > 1,
+        "resort_stale_frac > 0": config.resort_stale_frac > 0.0,
+        "resort_repair": config.resort_repair,
+    }
+    on = [k for k, v in knobs.items() if v]
+    if on:
+        raise NotImplementedError(
+            f"{', '.join(on)}: not ported to nbody_tpu_torch yet "
+            "(ROADMAP A10 re-sort cadence / A14 multi-device)"
+        )
+
+
+def _resolve_device(device) -> torch.device:
+    device = torch.device(device) if device is not None else (
+        torch.get_default_device()
+    )
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but torch.cuda.is_available() is False"
+        )
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+class ParticleSystem:
+    """Simulation facade."""
+
+    def __init__(self):
+        self._config: Optional[SimulationConfig] = None
+        self._state: Optional[ParticleState] = None
+        self._device: Optional[torch.device] = None
+        self._force_fn = None
+        self._step = None
+        self._paused = False
+        self._initialized = False
+
+    # ---- lifecycle -------------------------------------------------------
+
+    def initialize(self, config: SimulationConfig, device=None) -> None:
+        """Validate, build the state on ``device`` (default: torch's
+        default device) and the force strategy, compute a(t=0)."""
+        validate_config(config)
+        _require_ported(config)
+        device = _resolve_device(device)
+        validate_resource_requirements(config.particle_count, device)
+        self._config = config
+        self._device = device
+        self._install_state(init_from_config(config, device=device))
+        self._paused = False
+        self._initialized = True
+
+    def _install_state(self, state: ParticleState) -> None:
+        self._force_fn = make_force_fn(self._config)
+        self._step = make_verlet_step(self._force_fn, self._config.dt)
+        self._state = initialize_forces(state, self._force_fn)
+
+    def _require_init(self):
+        if not self._initialized:
+            raise ValidationError("ParticleSystem is not initialized")
+
+    # ---- stepping --------------------------------------------------------
+
+    def update(self, dt: Optional[float] = None) -> None:
+        """One Velocity Verlet step; no-op while paused."""
+        self._require_init()
+        if self._paused:
+            return
+        with profile_phase("simulation.update", device=self._device):
+            if dt is not None and dt != self._config.dt:
+                self.set_time_step(dt)
+            self._state = self._step(self._state)
+
+    def run_steps(self, n_steps: int) -> None:
+        """``n_steps`` Verlet steps — cell-sorted stepping when the force
+        engine has the sorted contract (Barnes-Hut), plain steps otherwise.
+        No-op while paused."""
+        self._require_init()
+        if self._paused or n_steps <= 0:
+            return
+        with profile_phase("simulation.run_steps", device=self._device):
+            sorted_force = make_sorted_force_fn(self._config)
+            if sorted_force is None:
+                multi = make_multi_step(self._force_fn, self._config.dt,
+                                        n_steps)
+            else:
+                multi = make_sorted_multi_step(sorted_force, self._config.dt,
+                                               n_steps)
+            self._state = multi(self._state)
+
+    def pause(self) -> None:
+        self._require_init()
+        self._paused = True
+
+    def resume(self) -> None:
+        self._require_init()
+        self._paused = False
+
+    @property
+    def is_paused(self) -> bool:
+        return self._paused
+
+    def reset(self) -> None:
+        """Re-initialize particles from the stored config and device."""
+        self._require_init()
+        self.initialize(self._config, device=self._device)
+
+    def set_time_step(self, dt: float) -> None:
+        self._require_init()
+        cfg = self._config.replace(dt=float(dt))
+        validate_config(cfg)
+        self._config = cfg
+        self._step = make_verlet_step(self._force_fn, cfg.dt)
+
+    # ---- accessors -------------------------------------------------------
+
+    @property
+    def config(self) -> SimulationConfig:
+        self._require_init()
+        return self._config
+
+    @property
+    def state(self) -> ParticleState:
+        """Device-side state (read-only by convention)."""
+        self._require_init()
+        return self._state
+
+    @property
+    def simulation_time(self) -> float:
+        self._require_init()
+        return float(self._state.time)
+
+    def positions(self) -> np.ndarray:
+        self._require_init()
+        return self._state.pos.detach().cpu().numpy()
+
+    def velocities(self) -> np.ndarray:
+        self._require_init()
+        return self._state.vel.detach().cpu().numpy()
+
+    # ---- state snapshot --------------------------------------------------
+
+    def get_state(self) -> SimulationState:
+        self._require_init()
+        return SimulationState.from_particle_state(
+            self._state,
+            dt=self._config.dt,
+            G=self._config.G,
+            softening=self._config.softening,
+            force_method=self._config.force_method,
+        )
+
+    def set_state(self, snapshot: SimulationState, device=None) -> None:
+        """Full re-init: validate → rebuild the strategy for the
+        snapshot's parameters → recompute forces. ``device`` defaults to the
+        current one (or torch's default device before ``initialize``)."""
+        validate_particle_count(snapshot.particle_count)
+        base = self._config if self._config is not None else SimulationConfig()
+        config = base.replace(
+            particle_count=snapshot.particle_count,
+            dt=snapshot.dt,
+            G=snapshot.G,
+            softening=snapshot.softening,
+            force_method=snapshot.force_method,
+        )
+        validate_config(config)
+        _require_ported(config)
+        if device is None:
+            device = self._device
+        self._device = _resolve_device(device)
+        self._config = config
+        self._install_state(snapshot.to_particle_state(self._device))
+        self._initialized = True
+
+    # ---- energy ----------------------------------------------------------
+
+    def compute_kinetic_energy(self) -> float:
+        self._require_init()
+        return float(kinetic_energy(self._state))
+
+    def compute_potential_energy(self) -> float:
+        self._require_init()
+        return float(potential_energy(
+            self._state.pos, self._state.mass, self._config.G,
+            self._config.softening,
+        ))
+
+    def compute_total_energy(self) -> float:
+        return self.compute_kinetic_energy() + self.compute_potential_energy()
+
+    def synchronize(self) -> None:
+        """Wait for outstanding device work (timing helper)."""
+        self._require_init()
+        if self._device.type == "cuda":
+            torch.cuda.synchronize(self._device)

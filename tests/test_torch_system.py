@@ -1,0 +1,218 @@
+"""nbody_tpu_torch facade, initializers and package boundary (CPU)."""
+
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import nbody_tpu as jnb
+import nbody_tpu_torch as tnb
+from nbody_tpu.state import SimulationState as JSnapshot
+from nbody_tpu_torch.models.distributions import init_spherical, init_uniform
+from nbody_tpu_torch.state import SimulationState, config_from_reference
+from nbody_tpu_torch.types import (
+    ForceMethod,
+    InitDistribution,
+    SimulationConfig,
+    SphericalDistParams,
+    UniformDistParams,
+)
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _uniform_snapshot(n, half, seed):
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-half, half, (n, 3)).astype(np.float32)
+    vel = rng.normal(0.0, 0.05, (n, 3)).astype(np.float32)
+    mass = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    return pos, vel, mass
+
+
+def test_facade_matches_jax_facade():
+    """Both facades from one shared uniform state (n = 500 at levels = 2:
+    no cell overflows its k slots), then 2 × update() and run_steps(2): the
+    JAX facade steps plainly with XLA forces on CPU, the port steps
+    cell-sorted in run_steps. Tolerances as the sorted-vs-plain gate of
+    the JAX package (pos rtol 2e-4 / atol 1e-5, vel rtol 2e-3 / atol
+    1e-4)."""
+    pos, vel, mass = _uniform_snapshot(500, 4.0, seed=21)
+    kw = dict(particle_count=500, dt=1e-3, G=1.0, softening=0.1)
+    jcfg = jnb.SimulationConfig(force_method=jnb.ForceMethod.BARNES_HUT,
+                                bh_max_level=2, **kw)
+    js = jnb.ParticleSystem()
+    js.initialize(jcfg)
+    js.set_state(JSnapshot(pos=pos, vel=vel, mass=mass,
+                           force_method=jnb.ForceMethod.BARNES_HUT, **{
+                               "dt": 1e-3, "G": 1.0, "softening": 0.1}))
+    ts = tnb.ParticleSystem()
+    ts.initialize(config_from_reference(jcfg), device="cpu")
+    ts.set_state(SimulationState(pos=pos, vel=vel, mass=mass,
+                                 force_method=ForceMethod.BARNES_HUT,
+                                 dt=1e-3, G=1.0, softening=0.1))
+    from nbody_tpu_torch.ops.barnes_hut import bh_engine_params, bin_particles
+    from nbody_tpu_torch.ops.sorted_window import cell_ids
+
+    coords = bin_particles(torch.from_numpy(pos), 2)[2]
+    occupancy = torch.bincount(cell_ids(coords, 4)).max()
+    assert occupancy <= bh_engine_params(ts.config)["near_k"]
+    for s in (js, ts):
+        s.update()
+        s.update()
+        s.run_steps(2)
+    assert abs(ts.simulation_time - js.simulation_time) < 1e-6
+    np.testing.assert_allclose(ts.positions(), js.positions(),
+                               rtol=2e-4, atol=1e-5)
+    np.testing.assert_allclose(ts.velocities(), js.velocities(),
+                               rtol=2e-3, atol=1e-4)
+    np.testing.assert_allclose(ts.compute_kinetic_energy(),
+                               js.compute_kinetic_energy(), rtol=1e-4)
+    np.testing.assert_allclose(ts.compute_potential_energy(),
+                               js.compute_potential_energy(), rtol=1e-5)
+
+
+def test_pause_resume_reset_and_state_round_trip():
+    cfg = SimulationConfig(particle_count=300,
+                           force_method=ForceMethod.BARNES_HUT,
+                           bh_max_level=3)
+    s = tnb.ParticleSystem()
+    s.initialize(cfg, device="cpu")
+    p0 = s.positions()
+    s.pause()
+    s.update()
+    s.run_steps(3)
+    assert s.is_paused and s.simulation_time == 0.0
+    np.testing.assert_array_equal(s.positions(), p0)
+    s.resume()
+    s.run_steps(2)
+    s.update()
+    assert abs(s.simulation_time - 3e-3) < 1e-7
+    snap = s.get_state()
+    assert snap == s.get_state() and snap.particle_count == 300
+    s.reset()
+    assert s.simulation_time == 0.0
+    np.testing.assert_array_equal(s.positions(), p0)
+    s.set_state(snap)
+    np.testing.assert_array_equal(s.positions(), snap.pos)
+    assert abs(s.simulation_time - 3e-3) < 1e-7
+    assert np.isfinite(s.compute_total_energy())
+
+
+def test_requires_initialize():
+    s = tnb.ParticleSystem()
+    with pytest.raises(tnb.ValidationError):
+        s.update()
+
+
+def test_cuda_device_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: nothing to refuse")
+    with pytest.raises(RuntimeError, match="cuda"):
+        tnb.ParticleSystem().initialize(SimulationConfig(particle_count=10),
+                                        device="cuda")
+
+
+@pytest.mark.parametrize(
+    "change",
+    [dict(force_method=ForceMethod.SPATIAL_HASH), dict(shard_devices=2),
+     dict(resort_every=4), dict(resort_stale_frac=0.1),
+     dict(resort_repair=True), dict(init_distribution=InitDistribution.DISK)],
+    ids=["hash", "shard", "resort_every", "stale_frac", "repair", "disk"],
+)
+def test_unported_paths_raise_not_implemented(change):
+    cfg = SimulationConfig(particle_count=64, **change)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tnb.ParticleSystem().initialize(cfg, device="cpu")
+
+
+def test_config_defaults_match_jax():
+    """Every field of the JAX default config maps onto the port's default."""
+    assert config_from_reference(jnb.SimulationConfig()) == SimulationConfig()
+    j = jnb.SimulationConfig(
+        force_method=jnb.ForceMethod.BARNES_HUT, particle_count=7,
+        dist_params=jnb.SphericalDistParams(radius=3.0))
+    t = config_from_reference(j)
+    assert t.force_method == ForceMethod.BARNES_HUT
+    assert t.dist_params == SphericalDistParams(radius=3.0)
+
+
+def _ks_uniform(u):
+    """Kolmogorov-Smirnov distance of samples u from U[0, 1]."""
+    u = np.sort(u)
+    n = u.size
+    grid = np.arange(1, n + 1) / n
+    return max(np.max(grid - u), np.max(u - (grid - 1.0 / n)))
+
+
+def test_spherical_statistics():
+    """Radii within R, (r/R)³ uniform (KS distance < 0.015 at n = 20000:
+    the 1% critical value is 1.63/√n = 0.0115), centre of mass near 0."""
+    g = torch.Generator()
+    g.manual_seed(1)
+    R = 5.0
+    s = init_spherical(g, 20_000, SphericalDistParams(radius=R))
+    pos = s.pos.numpy().astype(np.float64)
+    r = np.linalg.norm(pos, axis=1)
+    assert r.max() <= R * (1 + 1e-6)
+    assert _ks_uniform((r / R) ** 3) < 0.015
+    assert np.abs(pos.mean(axis=0)).max() < 0.05 * R
+    assert (s.vel.numpy() == 0).all() and (s.mass.numpy() == 1).all()
+
+
+def test_uniform_statistics_and_seed():
+    g = torch.Generator()
+    g.manual_seed(2)
+    params = UniformDistParams(min_bounds=(-1.0, 0.0, 2.0),
+                               max_bounds=(1.0, 4.0, 3.0),
+                               min_mass=0.5, max_mass=2.0)
+    s = init_uniform(g, 20_000, params)
+    pos = s.pos.numpy().astype(np.float64)
+    lo, hi = np.array(params.min_bounds), np.array(params.max_bounds)
+    assert (pos >= lo).all() and (pos <= hi).all()
+    for ax in range(3):
+        assert _ks_uniform((pos[:, ax] - lo[ax]) / (hi[ax] - lo[ax])) < 0.015
+    m = s.mass.numpy()
+    assert m.min() >= 0.5 and m.max() <= 2.0
+    g2 = torch.Generator()
+    g2.manual_seed(2)
+    assert torch.equal(init_uniform(g2, 20_000, params).pos, s.pos)
+
+
+def test_package_imports_neither_jax_nor_reference():
+    """Importing every module of nbody_tpu_torch leaves jax and nbody_tpu
+    out of sys.modules (checked in a fresh interpreter)."""
+    mods = [m.name for m in pkgutil.walk_packages(tnb.__path__,
+                                                  "nbody_tpu_torch.")]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'nbody_tpu' or m.startswith('nbody_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print(len(sys.modules))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert len(mods) >= 15
+
+
+def test_profile_phase_records_and_propagates_errors():
+    """A phase is recorded once per exit; an ImportError raised inside the
+    body reaches the caller as itself (one yield path) and records nothing."""
+    from nbody_tpu_torch.utils.profiling import PhaseProfiler, profile_phase
+
+    prof = PhaseProfiler()
+    for _ in range(2):
+        with profile_phase("p", device="cpu", profiler=prof):
+            pass
+    with pytest.raises(ImportError, match="inner"):
+        with profile_phase("q", profiler=prof):
+            raise ImportError("inner")
+    snap = prof.consume()
+    assert snap["p"].samples == 2 and "q" not in snap
+    assert prof.consume() == {}
