@@ -6,24 +6,46 @@
 From the root of a checkout, on a machine with a CUDA card and nvcc:
 
   1. prints the card (nvidia-smi name and power limit) and builds the
-     hand-written kernels from ``nbody_tpu_torch/csrc`` (build time shown);
-  2. at the main path's shapes — the 1M-particle spherical scene (radius 10,
-     seed 42), Barnes-Hut θ = 0.5 at d = 64, k = 16, ws = 1 — holds every
-     kernel against its plain PyTorch twin on the same inputs, with the
-     tolerance stated beside it, and times both (median of 7 calls after
-     warm-up, CUDA events);
-  3. drives the main path through the facade: ``ParticleSystem.initialize``
-     with the benchmark config, ``run_steps(30)`` warm, ``reset()``, then
-     ``run_steps(30)`` timed; prints steps/s, the per-phase device-time
-     breakdown and the launch counts, and checks that every kernel of the
-     path launched the expected number of times and no plain twin ran;
-  4. checks positions and velocities are finite;
-  5. holds the step-0 Barnes-Hut forces against the direct kernel over a
-     4096-row sample with all 1M sources (median relative error < 0.05).
+     hand-written kernels from ``nbody_tpu_torch/csrc`` (one nvcc per
+     source, all in parallel; build time shown);
+  2. holds every kernel against its plain PyTorch twin on the same inputs
+     at the shapes its path gives it, with the tolerance stated beside it,
+     and times both (median of 7 calls after warm-up, CUDA events): K1-K4
+     at the Barnes-Hut tiles main path (the 1M spherical scene, radius 10,
+     seed 42, θ = 0.5 at d = 64, k = 16, ws = 1), K2 and K4 again at the
+     1M sparse hash (uniform cube, cell 2.0, d = 56, k = 16, cutoff² 4, no
+     far plane), K7 (the window sweep) at the 1M dense hash (cap 64, W
+     2048, B 256, cutoff 2.0) and the 1M Barnes-Hut window engine (d = 32,
+     W 2048, B 256, ws = 1); prints each kernel's bound (the larger of its
+     FP32 operations over 67 TFLOP/s and its bytes over 3.35 TB/s, counted
+     from this run's inputs: for K7 the pairs of each target's 27-cell
+     ball, with the pair tests its live spans make beside them) and, where
+     one PyTorch call computes the same function, that call's time;
+  3. drives five paths (``path_configs``) through the facade, each with
+     every launch count set to 0 just before it and read just after,
+     checking that the path's kernels launched as expected and that no
+     plain twin ran:
+       a. 1M Barnes-Hut, tiles engine (bh_max_level 6): ``initialize``,
+          ``run_steps(30)`` warm, ``reset()``, ``run_steps(30)`` timed;
+       b. 1M dense spatial hash (the spherical scene, cell 1.0, cutoff 2.0,
+          "auto" → window engine): the same, 30 steps;
+       c. 1M sparse spatial hash (uniform cube of side 100, cell 2.0,
+          "auto" → tiles engine, d 56, k 16): the same, 30 steps;
+       d. 1M Barnes-Hut, window engine (bh_max_level 5): 10 steps;
+       e. 100K direct N² (the spherical scene): 10 steps;
+     each prints steps/s beside the card, the phase times, the launches
+     and the short-range audit, and checks the state is finite;
+  4. ground truth at step 0: Barnes-Hut (both engines) against the direct
+     kernel over 4096 sampled rows and all 1M sources (median relative
+     error < 0.05); the hash (both engines) against a float64 brute force
+     over 4096 sampled rows and all 1M sources with the same 27-cell and
+     raw-r² cutoff predicate (max |diff| ≤ 1e-4·max|a|).
 
 It stops at the first failed check with a non-zero exit. It needs one CUDA
 card and exits non-zero without one. The last two lines of its output are
-the kernels' JSON record and the device JSON line.
+the kernels' JSON record (per kernel: its numbers at its first shape, each
+shape's under ``shapes``, the launches summed over the timed paths and
+each path's own under ``launches_by_path``) and the device JSON line.
 """
 
 import json
@@ -31,6 +53,11 @@ import statistics
 import subprocess
 import sys
 import time
+
+N = 1_000_000
+FP32_OPS = 67e12   # H100 SXM FP32 outside the tensor cores, op/s
+HBM_BYTES = 3.35e12  # H100 SXM HBM3, byte/s
+PAIR_OPS = 20      # FP32 operations of one softened pair test
 
 
 def fail(msg: str) -> None:
@@ -62,10 +89,150 @@ def time_ms(fn, reps: int = 7, warm: int = 2) -> float:
     return statistics.median(times)
 
 
-def kernel_checks(pos, mass, cfg):
-    """Phase 2: each kernel against its plain twin at main-path shapes.
-    Returns {name: {max_abs_err, ms, plain_ms}} and the step-0 overflow."""
+def bound(ops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the FP32 peak and the bytes over the memory rate."""
+    t_ops, t_bytes = ops / FP32_OPS * 1e3, nbytes / HBM_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def path_configs() -> dict:
+    """The paths this script drives and ``scripts/profile_torch_paths.py``
+    profiles, as ``{label: SimulationConfig}``: the scenes ``bench.py``
+    builds for each method at full width and scale."""
+    from nbody_tpu_torch import SimulationConfig
+    from nbody_tpu_torch.types import (
+        ForceMethod,
+        InitDistribution,
+        UniformDistParams,
+    )
+
+    bh = SimulationConfig(particle_count=N, force_method=ForceMethod.BARNES_HUT,
+                          bh_max_level=6, dt=1e-3)
+    hash_ = SimulationConfig(particle_count=N,
+                             force_method=ForceMethod.SPATIAL_HASH, dt=1e-3)
+    half = max(10.0, N ** (1.0 / 3.0)) / 2.0
+    return {
+        "1M BH tiles": bh,
+        "1M dense hash": hash_,
+        "1M sparse hash": hash_.replace(
+            spatial_hash_cell_size=2.0,
+            init_distribution=InitDistribution.UNIFORM,
+            dist_params=UniformDistParams(min_bounds=(-half,) * 3,
+                                          max_bounds=(half,) * 3)),
+        "1M BH window": bh.replace(bh_max_level=5),
+        "100K direct": SimulationConfig(
+            particle_count=N // 10, force_method=ForceMethod.DIRECT_N2,
+            dt=1e-3),
+    }
+
+
+def add_shape(res: dict, name: str, label: str, rec: dict) -> None:
+    """Record one kernel's numbers at one path's shapes: the first shape
+    recorded gives the kernel's top-level keys, every shape is kept under
+    ``shapes``."""
+    if name not in res:
+        res[name] = dict(rec, shape=label, shapes={})
+    res[name]["shapes"][label] = rec
+
+
+def k2_check(res, label, grid, lo, cell, *, d, k):
+    """K2 against its plain twin → (tiles, moments, step-0 overflow)."""
     import torch
+
+    from nbody_tpu_torch.ops.scatter import tile_scatter, tile_scatter_plain
+
+    n = grid.psort.shape[0]
+    args = (grid.psort, grid.cell_start, lo, cell)
+    tk, mk = tile_scatter(*args, d=d, k=k)
+    tp, mp = tile_scatter_plain(*args, d=d, k=k)
+    counts = mp[10]
+    check(torch.equal(mk[10], counts), f"K2 {label}: counts differ from plain")
+    live = (torch.arange(k, device=counts.device)[:, None]
+            < counts.reshape(1, -1)).reshape(k, d, d * d).permute(1, 0, 2)
+    live = live[:, None].expand(d, 4, k, d * d)
+    check(torch.equal(tk[live], tp[live]),
+          f"K2 {label}: placed slots not bit-equal")
+    cube = float(cell) * d
+    fill_err = float((tk[~live] - tp[~live]).abs().max())
+    check(fill_err <= 1e-6 * cube,
+          f"K2 {label}: filler centres off by {fill_err}")
+    mom_err = (mk - mp).abs()
+    mom_tol = 1e-5 * mp.abs() + 1e-6 * mp.abs().amax(dim=1, keepdim=True)
+    check(bool((mom_err <= mom_tol).all()),
+          f"K2 {label}: moments differ by {float(mom_err.max())}")
+    overflow = int(torch.clamp(counts - k, min=0).sum())
+    nc = d ** 3
+    rec = dict(
+        max_abs_err=max(fill_err, float(mom_err.max())),
+        ms=time_ms(lambda: tile_scatter(*args, d=d, k=k)),
+        plain_ms=time_ms(lambda: tile_scatter_plain(*args, d=d, k=k)),
+        # psort in, cell_start in, tiles + moments out; ~20 ops per row
+        **bound(20 * n, 16 * n + 4 * (nc + 1) + 16 * k * nc + 44 * nc),
+        library_ms=None,
+    )
+    add_shape(res, "tile_scatter", label, rec)
+    print(f"K2 tile_scatter {label} (d={d}, k={k}): placed slots bit-equal, "
+          f"filler max|diff| {fill_err:.3e} (tol 1e-6*cube = "
+          f"{1e-6 * cube:.3e}), moments max|diff| {float(mom_err.max()):.3e}"
+          f" (tol 1e-5*|x| + 1e-6*max|ch|), counts equal; step-0 overflow "
+          f"{overflow} rows; kernel {rec['ms']:.4f} ms, plain "
+          f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']})")
+    return tk, mk, overflow
+
+
+def k4_check(res, label, tk, counts, *, d, k, ws, eps, lo, cell,
+             cutoff2=None, far_plane=None):
+    """K4 against its plain twin (same inputs, 2e-5·max|out|)."""
+    import torch
+    import torch.nn.functional as F
+
+    from nbody_tpu_torch.ops.tile_near import (
+        tile_sweep_plane,
+        tile_sweep_plane_plain,
+    )
+
+    kw = dict(k=k, d=d, ws=ws, eps=eps, cutoff2=cutoff2, far_plane=far_plane,
+              lo=lo, cell=cell, counts=counts)
+    ok_ = tile_sweep_plane(tk, **kw)
+    op_ = tile_sweep_plane_plain(tk, **kw)
+    e = float((ok_ - op_).abs().max())
+    tol = 2e-5 * float(op_.abs().max())
+    check(e <= tol, f"K4 tile_sweep_plane {label}: max|diff| {e} > {tol}")
+    w1 = 2 * ws + 1
+    slots = torch.clamp(counts, max=k).reshape(1, 1, d, d, d).double()
+    neigh = F.avg_pool3d(slots, w1, stride=1, padding=ws,
+                         count_include_pad=True) * w1 ** 3
+    pairs = float((slots * neigh).sum())
+    n_far = 0 if far_plane is None else far_plane.shape[1]
+    rec = dict(
+        max_abs_err=e,
+        ms=time_ms(lambda: tile_sweep_plane(tk, **kw)),
+        plain_ms=time_ms(lambda: tile_sweep_plane_plain(tk, **kw), reps=5,
+                         warm=1),
+        # live slot pairs of the (2ws+1)³ ball + ~80 ops of far expansion
+        # per live slot when seeded; tiles, far plane, counts in, slots out
+        **bound(PAIR_OPS * pairs + (80 * float(slots.sum()) if n_far else 0),
+                4 * (d * 4 * k * d * d + d * n_far * d * d + d ** 3
+                     + d * 3 * k * d * d)),
+        library_ms=None,
+    )
+    add_shape(res, "tile_sweep_plane", label, rec)
+    print(f"K4 tile_sweep_plane {label} (d={d}, k={k}, cutoff2={cutoff2}, "
+          f"far plane {'on' if n_far else 'off'}): max|diff| {e:.3e} (tol "
+          f"2e-5*max|out| = {tol:.3e}; dead slots are 0 in both); live slot "
+          f"pairs {pairs:.0f}; kernel {rec['ms']:.4f} ms, plain "
+          f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']})")
+
+
+def kernel_checks(res, pos, mass, cfg):
+    """Phase 2: K1-K4 against their plain twins at the BH tiles main-path
+    shapes. Returns the step-0 overflow."""
+    import torch
+    import torch.nn.functional as F
 
     from nbody_tpu_torch.ops.barnes_hut import (
         bh_engine_params,
@@ -77,13 +244,9 @@ def kernel_checks(pos, mass, cfg):
     )
     from nbody_tpu_torch.ops.direct import direct_forces, direct_forces_kernel
     from nbody_tpu_torch.ops.far_taps import far_taps, far_taps_plain
-    from nbody_tpu_torch.ops.scatter import tile_scatter, tile_scatter_plain
     from nbody_tpu_torch.ops.sorted_window import build_sorted_grid
-    from nbody_tpu_torch.ops.tile_near import (
-        tile_sweep_plane,
-        tile_sweep_plane_plain,
-    )
 
+    label = "1M BH tiles"
     p = bh_engine_params(cfg)
     levels, k, ws = p["levels"], p["near_k"], p["ws"]
     d = 1 << levels
@@ -92,36 +255,9 @@ def kernel_checks(pos, mass, cfg):
           f"near_engine={p['near_engine']}")
     lo, cell, coords = bin_particles(pos, levels)
     grid = build_sorted_grid(pos, mass, coords, d)
-    res = {}
 
     # K2: placement + moments + counts
-    args = (grid.psort, grid.cell_start, lo, cell)
-    tk, mk = tile_scatter(*args, d=d, k=k)
-    tp, mp = tile_scatter_plain(*args, d=d, k=k)
-    counts = mp[10]
-    check(torch.equal(mk[10], counts), "K2 counts differ from plain")
-    live = (torch.arange(k, device=pos.device)[:, None]
-            < counts.reshape(1, -1)).reshape(k, d, d * d).permute(1, 0, 2)
-    live = live[:, None].expand(d, 4, k, d * d)
-    check(torch.equal(tk[live], tp[live]), "K2 placed slots not bit-equal")
-    cube = float(cell) * d
-    fill_err = float((tk[~live] - tp[~live]).abs().max())
-    check(fill_err <= 1e-6 * cube, f"K2 filler centres off by {fill_err}")
-    mom_err = (mk - mp).abs()
-    mom_tol = 1e-5 * mp.abs() + 1e-6 * mp.abs().amax(dim=1, keepdim=True)
-    check(bool((mom_err <= mom_tol).all()),
-          f"K2 moments differ by {float(mom_err.max())}")
-    err = max(fill_err, float(mom_err.max()))
-    overflow = int(torch.clamp(counts - k, min=0).sum())
-    print(f"K2 tile_scatter: placed slots bit-equal, filler max|diff| "
-          f"{fill_err:.3e} (tol 1e-6*cube = {1e-6 * cube:.3e}), moments max"
-          f"|diff| {float(mom_err.max()):.3e} (tol 1e-5*|x| + 1e-6*max|ch|),"
-          f" counts equal; step-0 overflow {overflow} rows")
-    res["tile_scatter"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: tile_scatter(*args, d=d, k=k)),
-        plain_ms=time_ms(lambda: tile_scatter_plain(*args, d=d, k=k)),
-    )
+    tk, mk, overflow = k2_check(res, label, grid, lo, cell, d=d, k=k)
 
     # K3: far taps at the two finest levels (p = 16, 32)
     pyr = pyramid_from_packed(mk[:10].T.reshape(d, d, d, 10), lo, cell,
@@ -141,27 +277,34 @@ def kernel_checks(pos, mass, cfg):
         pms = time_ms(lambda: far_taps_plain(mom, taps, p=pp, ws=ws))
         print(f"K3 far_taps p={pp}: max|diff| {e:.3e} (tol 2e-5*max|out| = "
               f"{tol:.3e}); kernel {ms:.4f} ms, plain {pms:.4f} ms")
-    res["far_taps"] = dict(max_abs_err=k3_err, ms=ms, plain_ms=pms)
+    # The same function as ONE library call: a 3-D convolution of the
+    # 80 moment channels into 152 output channels, zero padding ws.
+    w1 = 2 * ws + 1
+    weight = (taps.reshape(w1, w1, w1, 152, 80).permute(3, 4, 0, 1, 2)
+              .contiguous())
+    x5 = mom.reshape(1, 80, pp, pp, pp)
+    conv = F.conv3d(x5, weight, padding=ws).reshape(152, pp ** 3)
+    e_conv = float((conv - op_).abs().max())
+    check(e_conv <= 2e-5 * float(op_.abs().max()),
+          f"K3 conv3d yardstick disagrees by {e_conv}")
+    lib_ms = time_ms(lambda: F.conv3d(x5, weight, padding=ws))
+    print(f"K3 library yardstick conv3d p={pp}: {lib_ms:.4f} ms "
+          f"(max|diff| vs plain {e_conv:.3e})")
+    add_shape(res, "far_taps", label, dict(
+        max_abs_err=k3_err, ms=ms, plain_ms=pms,
+        # 2 ops per multiply-add over the taps whose source cell is in the
+        # grid: (3p − 2)³ (cell, tap) pairs per axis product at ws = 1
+        **bound(2 * 152 * 80 * (w1 * pp - 2 * ws) ** 3,
+                4 * (80 * pp ** 3 + w1 ** 3 * 152 * 80 + 152 * pp ** 3)),
+        library_ms=lib_ms,
+    ))
 
     # K4: near sweep seeded with the far expansion
     a_f, j_f, h_f = far_field_grid(pyr, ws, 1.0, eps, levels)
     far_plane = (torch.cat([a_f, j_f, h_f], dim=-1).reshape(d, d * d, 19)
                  .permute(0, 2, 1).contiguous())
-    kw = dict(k=k, d=d, ws=ws, eps=eps, far_plane=far_plane, lo=lo,
-              cell=cell, counts=counts)
-    ok_ = tile_sweep_plane(tk, **kw)
-    op_ = tile_sweep_plane_plain(tk, **kw)
-    e = float((ok_ - op_).abs().max())
-    tol = 2e-5 * float(op_.abs().max())
-    check(e <= tol, f"K4 tile_sweep_plane max|diff| {e} > {tol}")
-    print(f"K4 tile_sweep_plane: max|diff| {e:.3e} (tol 2e-5*max|out| = "
-          f"{tol:.3e}; dead slots are 0 in both)")
-    res["tile_sweep_plane"] = dict(
-        max_abs_err=e,
-        ms=time_ms(lambda: tile_sweep_plane(tk, **kw)),
-        plain_ms=time_ms(lambda: tile_sweep_plane_plain(tk, **kw), reps=5,
-                         warm=1),
-    )
+    k4_check(res, label, tk, mk[10], d=d, k=k, ws=ws, eps=eps, lo=lo,
+             cell=cell, far_plane=far_plane)
 
     # K1: direct forces at N = 16384
     n1 = 16384
@@ -173,86 +316,203 @@ def kernel_checks(pos, mass, cfg):
     check(e <= tol, f"K1 direct max|diff| {e} > {tol}")
     print(f"K1 direct_forces N={n1}: max|diff| {e:.3e} (tol 1e-5*max|a| = "
           f"{tol:.3e})")
-    res["direct_forces"] = dict(
+    add_shape(res, "direct_forces", f"N = {n1}", dict(
         max_abs_err=e,
         ms=time_ms(lambda: direct_forces_kernel(p1, m1, G, eps)),
         plain_ms=time_ms(lambda: direct_forces(p1, m1, G, eps)),
-    )
-    for name, r in res.items():
-        print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
-    return res, overflow
+        **bound(PAIR_OPS * n1 * n1, 16 * n1 + 12 * n1 + 12 * n1),
+        library_ms=None,
+    ))
+    return overflow
 
 
-def main() -> None:
+def sparse_tile_checks(res, pos, mass):
+    """Phase 2 for the 1M sparse hash: K2 and K4 (cutoff² 4, no far
+    plane) against their plain twins at the tiles engine's d = 56, k = 16
+    on the uniform cube, cell 2.0."""
     import torch
 
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is False: this smoke run needs a card")
-    try:
-        import nbody_tpu_torch  # noqa: F401
-    except ImportError as e:
-        fail(f"cannot import nbody_tpu_torch ({e}): run from a checkout")
-    from nbody_tpu_torch import ParticleSystem, SimulationConfig
-    from nbody_tpu_torch.models.distributions import init_spherical
-    from nbody_tpu_torch.ops import _build
-    from nbody_tpu_torch.ops.barnes_hut import bh_engine_params
-    from nbody_tpu_torch.ops.direct import direct_forces, direct_forces_kernel
-    from nbody_tpu_torch.ops.far_taps import far_taps, far_taps_plain
-    from nbody_tpu_torch.ops.forces import make_force_fn
-    from nbody_tpu_torch.ops.scatter import tile_scatter, tile_scatter_plain
-    from nbody_tpu_torch.ops.tile_near import (
-        tile_sweep_plane,
-        tile_sweep_plane_plain,
+    from nbody_tpu_torch.ops.sorted_window import build_sorted_grid
+    from nbody_tpu_torch.ops.spatial_hash import tiles_bin
+
+    label, d, k = "1M sparse hash", 56, 16
+    lo, coords = tiles_bin(pos, 2.0, d)
+    grid = build_sorted_grid(pos, mass, coords, d)
+    cell = torch.full((), 2.0, dtype=pos.dtype, device=pos.device)
+    tk, mk, _ = k2_check(res, label, grid, lo, cell, d=d, k=k)
+    k4_check(res, label, tk, mk[10], d=d, k=k, ws=1, eps=0.1, lo=lo,
+             cell=cell, cutoff2=4.0)
+
+
+def k7_checks(res, pos, mass):
+    """Phase 2 for K7: the window sweep against its plain twin at the
+    dense-hash and BH-window shapes of the 1M scene. The bound counts the
+    pair tests the function needs, each target against its 27-cell ball;
+    the live-span tests the kernel makes are printed beside it."""
+    import torch
+    import torch.nn.functional as F
+
+    from nbody_tpu_torch.ops.barnes_hut import bin_particles
+    from nbody_tpu_torch.ops.sorted_window import build_sorted_grid, xy_ball
+    from nbody_tpu_torch.ops.spatial_hash import hash_bin
+    from nbody_tpu_torch.ops.window_sweep import (
+        block_rows,
+        window_starts,
+        window_sweep_kernel,
+        window_sweep_plain,
     )
-    from nbody_tpu_torch.types import ForceMethod, SphericalDistParams
+
+    n = pos.shape[0]
+    coords_h = hash_bin(pos, 1.0, 64)[2]
+    coords_b = bin_particles(pos, 5)[2]
+    shapes = [
+        ("1M dense hash", build_sorted_grid(pos, mass, coords_h, 64,
+                                            with_csort=True),
+         dict(d=64, offsets=xy_ball(1), z_hw=1, window=2048,
+              block_size=256, eps=0.1, cutoff2=2.0 * 2.0)),
+        ("1M BH window", build_sorted_grid(pos, mass, coords_b, 32,
+                                           with_csort=True),
+         dict(d=32, offsets=xy_ball(1), z_hw=1, window=2048,
+              block_size=256, eps=0.1)),
+    ]
+    for label, g, kw in shapes:
+        args = (g.psort, g.csort, g.cell_start)
+        acc_k, over_k = window_sweep_kernel(*args, **kw)
+        b, d = kw["block_size"], kw["d"]
+        nb = -(-n // b)
+        sub = torch.arange(0, nb, 8, device=pos.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc_sub, over_p = window_sweep_plain(*args, target_blocks=sub, **kw)
+        torch.cuda.synchronize()
+        est = 8 * (time.perf_counter() - t0)
+        if est <= 30.0:
+            acc_p, _ = window_sweep_plain(*args, **kw)
+            got, note = acc_k, "all target blocks"
+        else:
+            acc_p = acc_sub
+            got = acc_k[block_rows(sub, n, b)]
+            note = f"every 8th target block (full plain ~{est:.0f} s)"
+        e = float((got - acc_p).abs().max())
+        tol = 2e-5 * float(acc_p.abs().max())
+        check(e <= tol, f"K7 {label}: max|diff| {e} > {tol}")
+        check(int(over_k) == int(over_p),
+              f"K7 {label}: overflow {int(over_k)} != plain {int(over_p)}")
+        # pairs the predicate needs: each target against the occupancy of
+        # its 27-cell ball (the pair-rows the overflow drops are counted
+        # too: at most overflow × B of them)
+        cnt = (g.cell_start[1:] - g.cell_start[:-1]).double().reshape(
+            1, 1, d, d, d)
+        ball = F.avg_pool3d(cnt, 3, stride=1, padding=1,
+                            count_include_pad=True) * 27
+        needed = float((cnt * ball).sum())
+        # pair tests the kernel makes: every row of every live span
+        ws0, end, _ = window_starts(g.csort, g.cell_start, d=d,
+                                    offsets=kw["offsets"], z_hw=kw["z_hw"],
+                                    window=kw["window"], block_size=b)
+        span = torch.clamp(torch.minimum(end, ws0 + kw["window"]) - ws0,
+                           min=0)
+        rows = torch.full((nb,), b, dtype=torch.int64, device=pos.device)
+        rows[-1] = n - (nb - 1) * b
+        tested = float((span.sum(1) * rows).sum())
+        ms = time_ms(lambda: window_sweep_kernel(*args, **kw))
+        reps = 7 if est <= 2.0 else (3 if est <= 10.0 else 1)
+        pms = time_ms(lambda: window_sweep_plain(*args, **kw), reps=reps,
+                      warm=0) if est <= 30.0 else None
+        rec = dict(
+            max_abs_err=e, ms=ms, plain_ms=pms,
+            # psort, csort, cell_start in; acc + overflow out
+            **bound(PAIR_OPS * needed,
+                    16 * n + 12 * n + 4 * g.cell_start.numel() + 12 * n + 8),
+            library_ms=None,
+        )
+        add_shape(res, "window_sweep", label, rec)
+        print(f"K7 window_sweep {label}: max|diff| {e:.3e} (tol "
+              f"2e-5*max|a| = {tol:.3e}, compared on {note}); overflow "
+              f"{int(over_k)} = plain; 27-cell pairs needed {needed:.4e}, "
+              f"live-span pair tests made {tested:.4e} "
+              f"({tested / needed:.3f}x); kernel {ms:.4f} ms, plain {pms} ms "
+              f"(median of {reps}), bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']})")
+
+
+def ground_truth_hash(pos, mass, acc, coords, cutoff, eps, G, *,
+                      exclude=None, source_ok=None, samples=4096):
+    """Step-0 hash forces on ``samples`` random rows against a float64
+    brute force over all sources with the engine's predicate: cells within
+    Chebyshev distance 1, raw r² ≤ cutoff², r² > 0 (sources restricted to
+    ``source_ok`` rows; sampled rows in ``exclude`` skipped). The predicate
+    is decided on the f32 r² the kernels compute (dx² + dy² + dz², each
+    step rounded), so a pair within an ulp of the cutoff counts on both
+    sides or on neither; the sum is in float64. Returns (max |diff|,
+    max |a_ref|, median rel err, rows held)."""
+    import torch
+
+    n = pos.shape[0]
+    gen = torch.Generator(device=pos.device)
+    gen.manual_seed(0)
+    idx = torch.randperm(n, generator=gen, device=pos.device)[:samples]
+    if exclude is not None:
+        idx = idx[~exclude[idx]]
+    src_p = pos.double()
+    src_m = mass.double()
+    src_c = coords
+    if source_ok is not None:
+        src_p, src_m, src_c = src_p[source_ok], src_m[source_ok], \
+            src_c[source_ok]
+    ref = []
+    src_p32 = src_p.float()
+    for i in range(0, idx.shape[0], 32):
+        t = idx[i:i + 32]
+        d32 = src_p32[None] - pos[t][:, None]
+        r2_32 = (d32[..., 0] * d32[..., 0] + d32[..., 1] * d32[..., 1]
+                 + d32[..., 2] * d32[..., 2])
+        dvec = src_p[None] - pos[t].double()[:, None]
+        r2 = (dvec * dvec).sum(-1)
+        cheb = (src_c[None] - coords[t][:, None]).abs().amax(-1)
+        keep = (cheb <= 1) & (r2_32 <= cutoff * cutoff) & (r2_32 > 0)
+        w = torch.where(keep, src_m[None] * (r2 + eps * eps) ** -1.5,
+                        torch.zeros_like(r2))
+        ref.append(G * (w[..., None] * dvec).sum(1))
+    ref = torch.cat(ref)
+    got = acc[idx].double()
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    rel = (got - ref).norm(dim=1) / ref.norm(dim=1).clamp(min=1e-30)
+    return err, scale, float(rel.median()), int(idx.shape[0])
+
+
+def bh_vs_direct(pos, mass, acc_bh, cfg, label):
+    """BH at step 0 against the direct kernel (ground truth) on 4096
+    sampled rows with all sources: median relative error < 0.05."""
+    import torch
+
+    from nbody_tpu_torch.ops.direct import direct_forces_kernel
+
+    n = pos.shape[0]
+    sgen = torch.Generator(device=pos.device)
+    sgen.manual_seed(0)
+    idx = torch.randperm(n, generator=sgen, device=pos.device)[:4096]
+    acc_dir = direct_forces_kernel(pos, mass, cfg.G, cfg.softening,
+                                   targets=pos[idx].contiguous())
+    rel = ((acc_bh[idx] - acc_dir).norm(dim=1)
+           / acc_dir.norm(dim=1).clamp(min=1e-30))
+    med = float(rel.median())
+    print(f"{label} vs direct (4096 sampled rows, all {n} sources): median "
+          f"rel err {med:.4e}, p90 {float(rel.quantile(0.9)):.4e}, max "
+          f"{float(rel.max()):.4e} (gate: median < 0.05)")
+    check(med < 0.05, f"{label} median relative error {med} >= 0.05")
+
+
+def run_path(label, cfg, steps, want, wrappers, plains, smi, dev):
+    """Drive one path through the facade: warm run, reset, every count set
+    to 0, timed run, counts read. Checks the launches, no plain twin, a
+    finite state; prints steps/s, phases and the audit. Returns launches."""
+    import torch
+
+    from nbody_tpu_torch import ParticleSystem
     from nbody_tpu_torch.utils.profiling import consume_global_phase_snapshot
 
-    # Every matmul on the card in FP32 (the plain far-taps twin).
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(f"nvidia-smi: {smi.stdout.strip().splitlines()[0]}")
-    dev = torch.device("cuda", 0)
-    print(f"torch.cuda.get_device_name: {torch.cuda.get_device_name(0)}; "
-          f"torch {torch.__version__}, CUDA {torch.version.cuda}")
-
-    t0 = time.perf_counter()
-    _build.library()
-    print(f"kernel build: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {_build.last_build['seconds']:.2f} s, "
-          f"built={_build.last_build['built']})")
-    for line in _build.last_build["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
-
-    n = 1_000_000
-    cfg = SimulationConfig(particle_count=n,
-                           force_method=ForceMethod.BARNES_HUT,
-                           bh_max_level=6, dt=1e-3)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(cfg.seed)
-    scene = init_spherical(gen, n, SphericalDistParams(radius=10.0),
-                           device=dev)
-    pos0, mass0 = scene.pos, scene.mass
-
-    res, overflow = kernel_checks(pos0, mass0, cfg)
-
-    # Phase 3: the main path through the facade.
-    wrappers = {
-        "direct_forces": direct_forces_kernel,
-        "tile_scatter": tile_scatter,
-        "far_taps": far_taps,
-        "tile_sweep_plane": tile_sweep_plane,
-    }
-    plains = [direct_forces, tile_scatter_plain, far_taps_plain,
-              tile_sweep_plane_plain]
-    steps = 30
     ps = ParticleSystem()
     ps.initialize(cfg, device=dev)
     ps.run_steps(steps)
@@ -269,42 +529,185 @@ def main() -> None:
     ps.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: f.launches for name, f in wrappers.items()}
+    plain_calls = sum(f.calls for f in plains)
     phases = consume_global_phase_snapshot()
-    print(f"main path: {steps} steps in {wall:.4f} s = "
-          f"{steps / wall:.3f} steps/s (1M BH, {smi.stdout.strip()})")
+    print(f"{label}: {steps} steps in {wall:.4f} s = "
+          f"{steps / wall:.3f} steps/s ({smi})")
     for name, st in sorted(phases.items()):
         print(f"  phase {name}: {st.total_ms / steps:.4f} ms/step "
               f"({st.samples} samples)")
     print(f"  launches: {launches}")
-    levels = bh_engine_params(cfg)["levels"]
-    want = {"tile_scatter": steps, "far_taps": steps * levels,
-            "tile_sweep_plane": steps, "direct_forces": 0}
-    check(launches == want, f"launch counts {launches} != expected {want}")
-    check(all(f.calls == 0 for f in plains),
-          "a plain twin ran on the main path")
-
-    # Phase 4
+    check(launches == want,
+          f"{label}: launch counts {launches} != expected {want}")
+    check(plain_calls == 0, f"{label}: a plain twin ran on the path")
     st = ps.state
-    check(bool(torch.isfinite(st.pos).all()), "non-finite positions")
-    check(bool(torch.isfinite(st.vel).all()), "non-finite velocities")
+    check(bool(torch.isfinite(st.pos).all()), f"{label}: non-finite pos")
+    check(bool(torch.isfinite(st.vel).all()), f"{label}: non-finite vel")
     check(abs(ps.simulation_time - steps * cfg.dt) < 1e-6,
-          "simulation time did not advance")
-    print(f"state after {steps} steps: finite, t = {ps.simulation_time:.6f}")
+          f"{label}: simulation time did not advance")
+    print(f"  audit_short_range: {ps.audit_short_range()}")
+    return launches
 
-    # Phase 5: BH at step 0 against the direct kernel (ground truth).
-    acc_bh = make_force_fn(cfg)(pos0, mass0)
-    sgen = torch.Generator(device=dev)
-    sgen.manual_seed(0)
-    idx = torch.randperm(n, generator=sgen, device=dev)[:4096]
-    acc_dir = direct_forces_kernel(pos0, mass0, cfg.G, cfg.softening,
-                                   targets=pos0[idx].contiguous())
-    rel = ((acc_bh[idx] - acc_dir).norm(dim=1)
-           / acc_dir.norm(dim=1).clamp(min=1e-30))
-    med = float(rel.median())
-    print(f"BH vs direct (4096 sampled rows, all {n} sources): median rel "
-          f"err {med:.4e}, p90 {float(rel.quantile(0.9)):.4e}, max "
-          f"{float(rel.max()):.4e} (gate: median < 0.05)")
-    check(med < 0.05, f"BH median relative error {med} >= 0.05")
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke run needs a card")
+    try:
+        import nbody_tpu_torch  # noqa: F401
+    except ImportError as e:
+        fail(f"cannot import nbody_tpu_torch ({e}): run from a checkout")
+    from nbody_tpu_torch.models.distributions import init_from_config
+    from nbody_tpu_torch.ops import _build
+    from nbody_tpu_torch.ops.barnes_hut import bh_engine_params
+    from nbody_tpu_torch.ops.direct import direct_forces, direct_forces_kernel
+    from nbody_tpu_torch.ops.far_taps import far_taps, far_taps_plain
+    from nbody_tpu_torch.ops.forces import make_force_fn
+    from nbody_tpu_torch.ops.scatter import tile_scatter, tile_scatter_plain
+    from nbody_tpu_torch.ops.sorted_window import (
+        build_sorted_grid,
+        sorted_ranks,
+        xy_ball,
+    )
+    from nbody_tpu_torch.ops.spatial_hash import (
+        cell_index,
+        hash_bin,
+        hash_engine_params,
+        tiles_bin,
+    )
+    from nbody_tpu_torch.ops.tile_near import (
+        tile_sweep_plane,
+        tile_sweep_plane_plain,
+    )
+    from nbody_tpu_torch.ops.window_sweep import (
+        window_starts,
+        window_sweep_kernel,
+        window_sweep_plain,
+    )
+
+    # Every matmul and convolution on the card in FP32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    smi_run = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(smi_run.returncode == 0,
+          f"nvidia-smi failed: {smi_run.stderr.strip()}")
+    smi = smi_run.stdout.strip().splitlines()[0]
+    print(f"nvidia-smi: {smi}")
+    dev = torch.device("cuda")
+    print(f"torch.cuda.get_device_name: {torch.cuda.get_device_name(0)}; "
+          f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"kernel build: {time.perf_counter() - t0:.2f} s "
+          f"(nvcc {_build.last_build['seconds']:.2f} s, "
+          f"built={_build.last_build['built']})")
+    for line in _build.last_build["log"].splitlines():
+        if line.startswith("==") or "registers" in line or "spill" in line:
+            print("  ptxas:", line.strip())
+
+    cfgs = path_configs()
+    bh_cfg, hash_cfg = cfgs["1M BH tiles"], cfgs["1M dense hash"]
+    sparse_cfg, bhw_cfg = cfgs["1M sparse hash"], cfgs["1M BH window"]
+    scene = init_from_config(bh_cfg, device=dev)
+    pos0, mass0 = scene.pos, scene.mass
+    sparse = init_from_config(sparse_cfg, device=dev)
+    sp_pos, sp_mass = sparse.pos, sparse.mass
+
+    # Phase 2
+    res = {}
+    overflow = kernel_checks(res, pos0, mass0, bh_cfg)
+    sparse_tile_checks(res, sp_pos, sp_mass)
+    k7_checks(res, pos0, mass0)
+    for name, r in res.items():
+        for label, s in r["shapes"].items():
+            print(f"  {name} at {label}: kernel {s['ms']:.4f} ms, plain "
+                  f"{s['plain_ms']} ms, bound {s['bound_ms']:.4f} ms "
+                  f"({s['bound_by']}), library {s['library_ms']} ms")
+
+    # Phase 3
+    wrappers = {
+        "direct_forces": direct_forces_kernel,
+        "tile_scatter": tile_scatter,
+        "far_taps": far_taps,
+        "tile_sweep_plane": tile_sweep_plane,
+        "window_sweep": window_sweep_kernel,
+    }
+    plains = [direct_forces, tile_scatter_plain, far_taps_plain,
+              tile_sweep_plane_plain, window_sweep_plain]
+    none = {name: 0 for name in wrappers}
+    by_path = {name: {} for name in wrappers}
+
+    def drive(label, steps, **want):
+        got = run_path(label, cfgs[label], steps, {**none, **want}, wrappers,
+                       plains, smi, dev)
+        for name, c in got.items():
+            if c:
+                by_path[name][label] = c
+
+    levels = bh_engine_params(bh_cfg)["levels"]
+    drive("1M BH tiles", 30, tile_scatter=30, far_taps=30 * levels,
+          tile_sweep_plane=30)
+    drive("1M dense hash", 30, window_sweep=30)
+    drive("1M sparse hash", 30, tile_scatter=30, tile_sweep_plane=30)
+    check(bh_engine_params(bhw_cfg)["near_engine"] == "window",
+          "bh_max_level 5 at 1M must select the window engine")
+    drive("1M BH window", 10, window_sweep=10, far_taps=10 * 5)
+    drive("100K direct", 10, direct_forces=10)
+    print(f"launches by path: {by_path}")
+
+    # Phase 4: ground truth at step 0
+    bh_vs_direct(pos0, mass0, make_force_fn(bh_cfg)(pos0, mass0), bh_cfg,
+                 "BH tiles")
+    bh_vs_direct(pos0, mass0, make_force_fn(bhw_cfg)(pos0, mass0), bhw_cfg,
+                 "BH window")
+
+    p = hash_engine_params(hash_cfg, pos0)
+    check(p["engine"] == "window", f"dense hash engine {p['engine']}")
+    acc = make_force_fn(hash_cfg, pos_hint=pos0)(pos0, mass0)
+    coords = hash_bin(pos0, 1.0, 64)[2]
+    # rows of target blocks whose windows overflowed miss pairs by
+    # contract (counted by the audit); the check holds the others
+    g = build_sorted_grid(pos0, mass0, coords, 64, with_csort=True)
+    ws0, end, over = window_starts(
+        g.csort, g.cell_start, d=64, offsets=xy_ball(1), z_hw=1,
+        window=p["window"], block_size=p["block"])
+    bad_blocks = ((end - ws0) > p["window"]).any(1)
+    exclude = torch.zeros(N, dtype=torch.bool, device=dev)
+    exclude[g.order] = bad_blocks.repeat_interleave(p["block"])[:N]
+    err, scale, med, held = ground_truth_hash(
+        pos0, mass0, acc, coords, 2.0, 0.1, 1.0, exclude=exclude)
+    print(f"dense hash vs f64 brute force (27 cells, raw r² ≤ 4; {held} "
+          f"sampled rows, all {N} sources; step-0 window overflow "
+          f"{int(over)}, {int(exclude.sum())} rows in overflowing blocks "
+          f"excluded): max|diff| {err:.4e}, max|a| {scale:.4e}, median rel "
+          f"err {med:.3e} (tol 1e-4*max|a|: f32 sums of ~10^4 terms)")
+    check(err <= 1e-4 * scale, f"dense hash ground truth {err} > 1e-4*max")
+
+    p = hash_engine_params(sparse_cfg, sp_pos)
+    check((p["engine"], p["tile_d"], p["tile_k"]) == ("tiles", 56, 16),
+          f"sparse hash engine params {p}")
+    acc = make_force_fn(sparse_cfg, pos_hint=sp_pos)(sp_pos, sp_mass)
+    coords = tiles_bin(sp_pos, 2.0, 56)[1]
+    ids = cell_index(coords, 56).to(torch.int32)
+    order = torch.argsort(ids, stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = sorted_ranks(ids[order]).to(order.dtype)
+    within = rank < p["tile_k"]
+    err, scale, med, held = ground_truth_hash(
+        sp_pos, sp_mass, acc, coords, 2.0, 0.1, 1.0, exclude=~within,
+        source_ok=within)
+    print(f"sparse hash vs f64 brute force (27 cells, raw r² ≤ 4; {held} "
+          f"sampled rows within the k = {p['tile_k']} cap, the {N} sources "
+          f"minus {int((~within).sum())} past it): max|diff| {err:.4e}, "
+          f"max|a| {scale:.4e}, median rel err {med:.3e} (tol 1e-4*max|a|)")
+    check(err <= 1e-4 * scale, f"sparse hash ground truth {err} > 1e-4*max")
 
     sources = {
         "direct_forces": ("nbody_tpu_torch/csrc/direct.cu",
@@ -315,13 +718,20 @@ def main() -> None:
                      "nbody_tpu/ops/pallas_far_taps.py:143"),
         "tile_sweep_plane": ("nbody_tpu_torch/csrc/tile_near.cu",
                              "nbody_tpu/ops/pallas_tile_near.py:473"),
+        "window_sweep": ("nbody_tpu_torch/csrc/window_sweep.cu",
+                         "nbody_tpu/ops/pallas_window_sweep.py:223"),
     }
+    for name in sources:
+        check(bool(by_path[name]), f"{name} never launched on a timed path")
+    # launches: the sum over the timed paths; launches_by_path: each
+    # path's own count, read just after that path's run
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **res[name]}
+         "launches": sum(by_path[name].values()),
+         "launches_by_path": by_path[name], **res[name]}
         for name, (src, rep) in sources.items()
     ]
-    print(f"step-0 overflow rows: {overflow}")
+    print(f"step-0 BH tiles overflow rows: {overflow}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -111,7 +111,11 @@ __global__ void tile_near_kernel(const float* __restrict__ tiles,
           const float dy = sj[chs] - ty;
           const float dz = sj[2 * chs] - tz;
           const float sm = sj[3 * chs];
-          const float r2 = dx * dx + dy * dy + dz * dz;
+          // rounded as the plain twin rounds it (no FMA contraction), so
+          // both agree on every pair at the cutoff boundary
+          const float r2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx),
+                                               __fmul_rn(dy, dy)),
+                                     __fmul_rn(dz, dz));
           if (r2 == 0.f || (use_cutoff && !(r2 <= cutoff2))) continue;
           const float inv = rsqrtf(r2 + eps2);
           const float w = sm * (inv * inv * inv);

@@ -122,10 +122,16 @@ def validate_resource_requirements(
 ) -> None:
     """Device-memory pre-check: state bytes × 2 (acceleration-structure
     overhead) against 80% of the card's free memory, read with
-    ``torch.cuda.mem_get_info``. A CPU device has no such limit here."""
-    device = torch.device(device) if device is not None else torch.device("cpu")
+    ``torch.cuda.mem_get_info``, on ``device`` (default: the CUDA card,
+    as ``ParticleSystem`` resolves it). A CPU device has no such limit
+    here."""
+    device = torch.device(device if device is not None else "cuda")
     if device.type != "cuda":
         return
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but torch.cuda.is_available() is False"
+        )
     required = particle_count * STATE_BYTES_PER_PARTICLE * 2
     free, _total = torch.cuda.mem_get_info(device)
     available = int(free * 0.8)

@@ -1,7 +1,8 @@
 """Build and bind the package's CUDA kernels.
 
 All sources under ``nbody_tpu_torch/csrc/*.cu`` are compiled by ``nvcc``
-for Hopper (``sm_90a``) into ONE shared library with a plain C interface,
+for Hopper (``sm_90a``), one ``nvcc`` process per source, all started
+together, and linked into ONE shared library with a plain C interface,
 loaded with ``ctypes``. The build runs on first use, from the sources in
 this checkout only, into ``build/nbody_tpu_torch/`` at the repository
 root; the library's file name carries a hash of the sources and flags, so
@@ -28,10 +29,9 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "nbody_tpu_torch"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -49,6 +49,10 @@ SIGNATURES = {
     # cutoff2, use_cutoff, stream
     "nbt_tile_near": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I,
                       _P),
+    # psort, csort, cell_start, n, d, offsets, n_off, z_hw, window, eps2,
+    # cutoff2, use_cutoff, acc, overflow, block, stream
+    "nbt_window_sweep": (_P, _P, _P, _I, _I, _P, _I, _I, _I, _F, _F, _I, _P,
+                         _P, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -94,15 +98,34 @@ def build() -> Path:
     if out.exists():
         last_build.update(path=str(out), built=False, seconds=0.0)
         return out
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    nvcc, pid = _nvcc(), os.getpid()
+    tmp = out.with_suffix(f".{pid}.tmp")
+    objs = [BUILD_DIR / f"{s.stem}.{pid}.o" for s in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for s, o in zip(srcs, objs)
+    ]
+    log, failed = "", []
+    for s, p in zip(srcs, procs):
+        log += f"== {s.name}\n{p.communicate()[0]}"
+        if p.returncode != 0:
+            failed.append(s.name)
+    if not failed:
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True)
+        log += f"== link\n{link.stdout}{link.stderr}"
+        if link.returncode != 0:
+            failed.append("link")
+    for o in objs:
+        o.unlink(missing_ok=True)
     secs = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    (BUILD_DIR / "nvcc.log").write_text(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    (BUILD_DIR / "nvcc.log").write_text(log)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
     os.replace(tmp, out)
     last_build.update(path=str(out), built=True, seconds=secs, log=log)
     return out

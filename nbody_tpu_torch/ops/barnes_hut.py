@@ -1,8 +1,9 @@
 """Barnes-Hut gravity on a dense multipole grid pyramid.
 
-PyTorch counterpart of the fused tiles path of ``nbody_tpu/ops/barnes_hut.py``
-(order-2 sources, the path ``bh_engine_params`` selects whenever the finest
-cells hold ≤ 24 particles on average). One force evaluation runs:
+PyTorch counterpart of ``nbody_tpu/ops/barnes_hut.py`` with order-2
+sources, on either near-field engine ``bh_engine_params`` selects.
+
+The fused TILES path (finest cells hold ≤ 24 particles on average) runs:
 
   1. bin + stable argsort by finest cell id + one payload gather
      (``sorted_window.build_sorted_grid``);
@@ -16,6 +17,12 @@ cells hold ≤ 24 particles on average). One force evaluation runs:
      ``tile_near.tile_sweep_plane``);
   6. the pickup gather, with rows past the k-slot cap redirected to G·A of
      their cell (``tile_sweep._slot_pickup_raw``).
+
+The WINDOW path (denser cells) is the JAX package's non-fast branch: the
+finest moments by one scatter-add (``build_pyramid``), the same far field,
+the exact near field over the (2ws+1)³ cell ball by the sorted-window
+sweep (kernel K7, ``_near_field``), and the far pickup in original order.
+It has no sorted-stepping contract.
 
 A cell accepted at level ℓ has its parent inside the well-separation
 window (Chebyshev distance ≤ ws) but is itself outside it; every source
@@ -31,7 +38,11 @@ import numpy as np
 import torch
 
 from nbody_tpu_torch.ops.far_taps import far_taps
-from nbody_tpu_torch.ops.sorted_window import build_sorted_grid
+from nbody_tpu_torch.ops.sorted_window import (
+    build_sorted_grid,
+    window_sweep,
+    xy_ball,
+)
 from nbody_tpu_torch.ops.tile_sweep import tile_build, tile_sweep_pick
 from nbody_tpu_torch.types import SimulationConfig
 from nbody_tpu_torch.utils.profiling import profile_phase
@@ -109,6 +120,29 @@ def pyramid_from_packed(packed, lo, cell, levels: int) -> Pyramid:
     srels.reverse()
     quads.reverse()
     return Pyramid(tuple(masses), tuple(srels), tuple(quads), lo, cell)
+
+
+def scatter_finest_moments(pos, mass, coords, lo, cell, d: int):
+    """Packed order-2 finest moments (d, d, d, 10) [m, m·xr, m·xr⊗xr]
+    about each cell centre, by ONE scatter-add (``index_add_``; the JAX
+    package leaves this scatter to XLA)."""
+    cid = ((coords[:, 0] * d + coords[:, 1]) * d + coords[:, 2]).to(
+        torch.int64)
+    xr = pos - (lo + (coords.to(pos.dtype) + 0.5) * cell)
+    m = mass[:, None]
+    x, y, z = xr[:, 0:1], xr[:, 1:2], xr[:, 2:3]
+    vals = torch.cat([m, m * xr, m * (x * x), m * (y * y), m * (z * z),
+                      m * (x * y), m * (x * z), m * (y * z)], dim=-1)
+    out = torch.zeros((d * d * d, 10), dtype=pos.dtype, device=pos.device)
+    out.index_add_(0, cid, vals)
+    return out.reshape(d, d, d, 10)
+
+
+def build_pyramid(pos, mass, levels: int) -> Pyramid:
+    """Scatter-add the finest level, then 2× reductions up to the root."""
+    lo, cell, coords = bin_particles(pos, levels)
+    packed = scatter_finest_moments(pos, mass, coords, lo, cell, 1 << levels)
+    return pyramid_from_packed(packed, lo, cell, levels)
 
 
 _KIDS = np.array(
@@ -435,9 +469,54 @@ def bin_particles(pos, levels: int):
     return lo, cell, coords
 
 
+def _near_field(pos, mass, lo, cell, G: float, eps: float, ws: int,
+                levels: int, window: int, block_size: int = 256):
+    """Exact pair forces within the (2ws+1)³ finest-cell ball by the
+    sorted-window sweep (kernel K7; ``xy_ball(ws)``, z half-width ws, no
+    cutoff) → ``(G·acc (N, 3) original order, overflow, coords)``."""
+    d = 1 << levels
+    coords = torch.clamp(((pos - lo) / cell).to(torch.int32), 0, d - 1)
+    grid = build_sorted_grid(pos, mass, coords, d, with_csort=True)
+    acc, overflow = window_sweep(
+        grid, d=d, xy_offsets=xy_ball(ws), z_halfwidth=ws, window=window,
+        block_size=block_size, eps=eps,
+    )
+    return G * acc, overflow, coords
+
+
+def _window_bh_forces(pos, mass, G, softening, ws, *, levels, window):
+    """The window engine: pyramid by scatter-add, far expansion (K3 per
+    level), near field (K7), and the far pickup in original row order."""
+    dev = pos.device
+    with profile_phase("bh.pyramid", device=dev):
+        pyr = build_pyramid(pos, mass, levels)
+    with profile_phase("bh.far", device=dev):
+        a_far, j_far, h_far = far_field_grid(pyr, ws, G, softening, levels)
+    with profile_phase("bh.window", device=dev):
+        a_near, _over, coords = _near_field(pos, mass, pyr.lo, pyr.cell, G,
+                                            softening, ws, levels, window)
+    with profile_phase("bh.pickup", device=dev):
+        d = 1 << levels
+        packed = torch.cat([a_far, j_far, h_far], dim=-1).reshape(d ** 3, 19)
+        cid = ((coords[:, 0] * d + coords[:, 1]) * d + coords[:, 2]).to(
+            torch.int64)
+        vals = packed[cid]
+        delta = pos - (pyr.lo + (coords.to(pos.dtype) + 0.5) * pyr.cell)
+        pick = vals[:, :3] + sym_matvec(vals[:, 3:9], delta)
+        pick = pick + 0.5 * sym_matvec(sym3_matvec(vals[:, 9:19], delta),
+                                       delta)
+        return a_near + pick
+
+
 def _barnes_hut_forces(pos, mass, G, softening, theta, *, levels, near_k,
+                       near_engine="tiles", window=2048,
                        sorted_output=False):
     ws = theta_to_ws(theta, order=2)
+    if near_engine == "window":
+        if sorted_output:
+            raise ValueError("the window near engine has no sorted contract")
+        return _window_bh_forces(pos, mass, G, softening, ws, levels=levels,
+                                 window=window)
     d = 1 << levels
     with profile_phase("bh.sort", device=pos.device):
         lo, cell, coords = bin_particles(pos, levels)
@@ -453,50 +532,49 @@ def _barnes_hut_forces(pos, mass, G, softening, theta, *, levels, near_k,
 
 def barnes_hut_forces(pos, mass, G: float = 1.0, softening: float = 0.1,
                       theta: float = 0.5, *, levels: int = 6,
-                      near_k: int = 16):
+                      near_k: int = 16, near_engine: str = "tiles",
+                      window: int = 2048):
     """Full BH acceleration (N, 3) in original row order: order-2 pyramid
-    far field + exact tiles near field with k slots per finest cell."""
+    far field + exact near field, on k-slot tiles (``near_engine="tiles"``)
+    or by the sorted-window sweep with ``window`` rows per offset
+    (``"window"``)."""
     return _barnes_hut_forces(pos, mass, G, softening, theta, levels=levels,
-                              near_k=near_k)
+                              near_k=near_k, near_engine=near_engine,
+                              window=window)
 
 
 def barnes_hut_forces_sorted(pos, mass, G: float = 1.0,
                              softening: float = 0.1, theta: float = 0.5, *,
                              levels: int = 6, near_k: int = 16):
-    """The same forces in the engine's CELL-SORTED row order →
+    """The tiles engine's forces in its CELL-SORTED row order →
     ``(acc_sorted, psort, order)``: ``psort`` (N, 4) = [pos | mass][order],
     ``acc_sorted`` aligned with it (the sorted-stepping contract)."""
     return _barnes_hut_forces(pos, mass, G, softening, theta, levels=levels,
                               near_k=near_k, sorted_output=True)
 
 
-def _tiles_params(config: SimulationConfig) -> dict:
-    p = bh_engine_params(config)
-    if p["near_engine"] != "tiles":
-        raise NotImplementedError(
-            "this configuration selects the Barnes-Hut 'window' near engine "
-            f"(mean occupancy {config.particle_count / 8**p['levels']:.1f} "
-            "> 24 per finest cell), which needs the window-sweep kernel "
-            "not ported yet (ROADMAP B3); raise bh_max_level"
-        )
-    return p
-
-
 def make_barnes_hut_forces(config: SimulationConfig):
-    """``force_fn(pos, mass) -> acc`` for the config (original row order)."""
-    p = _tiles_params(config)
+    """``force_fn(pos, mass) -> acc`` for the config (original row order),
+    on the near engine ``bh_engine_params`` selects."""
+    p = bh_engine_params(config)
     G, eps, theta = config.G, config.softening, config.barnes_hut_theta
 
     def force_fn(pos, mass):
         return _barnes_hut_forces(pos, mass, G, eps, theta,
-                                  levels=p["levels"], near_k=p["near_k"])
+                                  levels=p["levels"], near_k=p["near_k"],
+                                  near_engine=p["near_engine"],
+                                  window=p["window"])
 
     return force_fn
 
 
 def make_barnes_hut_forces_sorted(config: SimulationConfig):
-    """``sorted_force_fn(pos, mass) -> (acc_sorted, psort, order)``."""
-    p = _tiles_params(config)
+    """``sorted_force_fn(pos, mass) -> (acc_sorted, psort, order)``, or
+    None when the config selects the window engine (no sorted contract:
+    callers step in original order)."""
+    p = bh_engine_params(config)
+    if p["near_engine"] != "tiles":
+        return None
     G, eps, theta = config.G, config.softening, config.barnes_hut_theta
 
     def sorted_force_fn(pos, mass):

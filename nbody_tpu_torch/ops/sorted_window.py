@@ -1,11 +1,19 @@
-"""Cell-sorted particle arrays.
+"""Cell-sorted particle arrays and the sorted-window sweep engine.
 
-PyTorch counterpart of the sort machinery of
-``nbody_tpu/ops/sorted_window.py`` that the Barnes-Hut tiles path uses:
-bin, stable argsort by linear cell id, one payload gather, and the per-cell
-segment index. Cell ids stay int32 throughout (the JAX package's f32 id
-columns and bitcast routes exist for TPU reasons and are not ported). The
-window sweep engine is a later port.
+PyTorch counterpart of ``nbody_tpu/ops/sorted_window.py``: bin, stable
+argsort by linear cell id, one payload gather, the per-cell segment index
+and the per-row cell coordinates; and ``window_sweep``, the short-range
+engine shared by the spatial hash and the Barnes-Hut "window" near field
+(kernel K7, ``ops/window_sweep.py``). Cell ids stay int32 throughout (the
+JAX package's f32 id columns and bitcast routes exist for TPU reasons and
+are not ported).
+
+The sweep: rows sorted by row-major cell id (x major, z fastest) make the
+sources of any contiguous z-run of cells contiguous, so a block of sorted
+targets finds every source of one (dx, dy) offset in one run of rows. Pair
+validity is exact cell-coordinate equality, so a misplaced window can only
+MISS pairs, never double count; misses are counted in ``overflow`` (raise
+``window`` until it reads 0).
 """
 
 from __future__ import annotations
@@ -13,6 +21,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from nbody_tpu_torch.ops.window_sweep import window_sweep_kernel
 
 
 @dataclasses.dataclass
@@ -25,12 +35,16 @@ class SortedGrid:
     ids:        (N,) int32 linear cell ids in sorted order (non-decreasing)
     cell_start: (C + 1,) int32 first sorted index of each linear cell id
                 (empty cells point at the next occupied one; N at the end)
+    csort:      (N, 3) int32 cell coordinates in sorted order, derived from
+                the ids with their own stride d (None when built with
+                ``with_csort=False``: only the window sweep reads them)
     """
 
     order: torch.Tensor
     psort: torch.Tensor
     ids: torch.Tensor
     cell_start: torch.Tensor
+    csort: torch.Tensor | None = None
 
 
 def cell_ids(coords: torch.Tensor, d: int) -> torch.Tensor:
@@ -41,21 +55,29 @@ def cell_ids(coords: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def build_sorted_grid(
-    pos: torch.Tensor, mass: torch.Tensor, coords: torch.Tensor, d: int
+    pos: torch.Tensor, mass: torch.Tensor, coords: torch.Tensor, d: int,
+    with_csort: bool = False,
 ) -> SortedGrid:
     """Stable sort by cell id and ONE (N, 4) payload gather. ``jnp.argsort``
     is stable too, so ``order``, ids and ranks match the JAX package's
-    ``build_sorted_grid`` exactly on the same ids."""
+    ``build_sorted_grid`` exactly on the same ids. ``d`` is the ids'
+    stride (the hash window engine bins into ``dims`` ≤ cap cells per axis
+    but strides its ids by the static cap)."""
     ids = cell_ids(coords, d)
     order = torch.argsort(ids, stable=True)
     psort = torch.cat([pos, mass[:, None]], dim=-1)[order]
     ids_sorted = ids[order]
     cells = torch.arange(d * d * d + 1, dtype=torch.int32, device=pos.device)
+    csort = None
+    if with_csort:
+        cyx = ids_sorted // d
+        csort = torch.stack([cyx // d, cyx % d, ids_sorted % d], dim=-1)
     return SortedGrid(
         order=order,
         psort=psort,
         ids=ids_sorted,
         cell_start=cell_starts_at(ids_sorted, cells),
+        csort=csort,
     )
 
 
@@ -87,3 +109,29 @@ def unsort_rows(rows_sorted: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(rows_sorted)
     out[order] = rows_sorted
     return out
+
+
+def xy_ball(ws: int):
+    """All (2ws+1)² xy offsets of the Chebyshev ball."""
+    r = range(-ws, ws + 1)
+    return tuple((x, y) for x in r for y in r)
+
+
+def window_sweep(grid: SortedGrid, *, d: int, xy_offsets, z_halfwidth: int,
+                 window: int, block_size: int, eps: float,
+                 cutoff2: float | None = None, sorted_output: bool = False):
+    """Σ_j m_j·(x_j − x_i)·(r² + ε²)^{-3/2} over the neighbour windows
+    (kernel K7), with the raw-r² cutoff when ``cutoff2`` is given.
+
+    Returns ``(acc (N, 3) un-scaled by G, overflow () int64)``, acc in
+    ORIGINAL row order, or in the grid's CELL-SORTED order with
+    ``sorted_output=True`` (the sorted-stepping contract). The grid needs
+    ``csort`` (``build_sorted_grid(..., with_csort=True)``)."""
+    acc, overflow = window_sweep_kernel(
+        grid.psort, grid.csort, grid.cell_start, d=d, offsets=xy_offsets,
+        z_hw=z_halfwidth, window=window, block_size=block_size, eps=eps,
+        cutoff2=cutoff2,
+    )
+    if sorted_output:
+        return acc, overflow
+    return unsort_rows(acc, grid.order), overflow

@@ -91,21 +91,20 @@ def tile_sweep_plane_plain(tiles_plane, *, k: int, d: int, ws: int,
                 if counts is not None:
                     sm = sm * live_pad[:, ox:ox + d, oy:oy + d,
                                        oz:oz + d].reshape(k, pc)
-                rows = []
-                for kt in range(k):
-                    dx = src[:, 0] - tgt[kt, 0]              # (k_s, pc)
-                    dy = src[:, 1] - tgt[kt, 1]
-                    dz = src[:, 2] - tgt[kt, 2]
-                    r2 = dx * dx + dy * dy + dz * dz
-                    inv = torch.rsqrt(r2 + eps2)
-                    w = sm * (inv * inv * inv)
-                    if cutoff2 is not None:
-                        w = torch.where(r2 <= cutoff2, w, 0.0)
-                    w = torch.where(r2 == 0.0, 0.0, w)
-                    rows.append(torch.stack(
-                        [(w * dx).sum(0), (w * dy).sum(0), (w * dz).sum(0)]
-                    ))
-                acc = acc + torch.stack(rows, dim=0)
+                # every (target slot, source slot) pair at once:
+                # (k_t, k_s, pc)
+                dx = src[None, :, 0] - tgt[:, None, 0]
+                dy = src[None, :, 1] - tgt[:, None, 1]
+                dz = src[None, :, 2] - tgt[:, None, 2]
+                r2 = dx * dx + dy * dy + dz * dz
+                inv = torch.rsqrt(r2 + eps2)
+                w = sm[None] * (inv * inv * inv)
+                if cutoff2 is not None:
+                    w = torch.where(r2 <= cutoff2, w, 0.0)
+                w = torch.where(r2 == 0.0, 0.0, w)
+                acc = acc + torch.stack(
+                    [(w * dx).sum(1), (w * dy).sum(1), (w * dz).sum(1)],
+                    dim=1)
     if counts is not None:
         acc = acc * live[:, None, :]
     # (k, 3, d³) → (d, 3, k, d²)

@@ -4,14 +4,14 @@ PyTorch counterpart of the fused path of ``nbody_tpu/ops/tile_sweep.py``
 (``tile_build_pallas`` → ``tile_sweep_pick`` → ``_slot_pickup_raw``). Each
 finest cell holds at most k particles in a static slot array; particles
 beyond k in a cell lose their near-field term and are counted in
-``overflow``. When the far-field expansion is folded into the sweep, those
-overflow rows receive G·A of their cell (the expansion at the cell
-centre) instead — the fused path's audited fallback, which this package
-keeps.
+``overflow``. When the far-field expansion is folded into the sweep
+(Barnes-Hut), those overflow rows receive G·A of their cell (the
+expansion at the cell centre) instead — the fused path's audited
+fallback, which this package keeps; without it (the spatial hash's tiles
+engine, ``tile_near_field``) they read zero.
 
 The JAX package's ``tile_engine_fused`` gate encodes TPU lane arithmetic;
-here the fused path applies whenever the engine is tiles with order-2
-moments.
+here the fused path applies to every (d, k).
 """
 
 from __future__ import annotations
@@ -83,12 +83,37 @@ def tile_sweep_pick(tb: TileBuild, grid: SortedGrid, lo, cell, far_plane,
                                 G, sorted_output=sorted_output)
 
 
+def tile_near_field(grid: SortedGrid, lo, cell, *, d: int, ws: int, k: int,
+                    G: float, eps: float, cutoff2: float | None = None,
+                    sorted_output: bool = False):
+    """Exact near field within the (2ws+1)³ cell ball on k-slot tiles
+    (kernels K2 and K4), no far field: with ``cutoff2`` (raw r² ≤ cutoff²,
+    tested before softening) this is the spatial hash's sparse-regime
+    engine. Rows past the k cap read zero and are counted. Returns
+    ``(acc, overflow)``, acc G-scaled in original order, or in the grid's
+    cell-sorted order with ``sorted_output=True``. ``lo`` (3,) and
+    ``cell`` are device tensors."""
+    dev = grid.psort.device
+    with profile_phase("hash.placement", device=dev):
+        tb = tile_build(grid, lo, cell, d=d, k=k)
+    with profile_phase("hash.sweep", device=dev):
+        acc_raw = tile_sweep_plane(
+            tb.tiles_plane, k=k, d=d, ws=ws, eps=eps, cutoff2=cutoff2,
+            lo=lo, cell=cell, counts=tb.counts,
+        )
+    with profile_phase("hash.pickup", device=dev):
+        acc = _slot_pickup_raw(acc_raw, grid, tb.rank_sorted, None, d, k, G,
+                               sorted_output=sorted_output)
+    return acc, tb.overflow
+
+
 def _slot_pickup_raw(acc_raw, grid: SortedGrid, rank_sorted, overflow_rows,
                      d: int, k: int, G: float, sorted_output: bool = False):
     """Per-particle pickup from the sweep's (d, 3, k, d²) output: one
     relayout to (cell·k + slot, 3) rows, then ONE row gather. Rows past the
     k cap are redirected by index to ``overflow_rows[cell]`` (d³, 3) — the
-    far A of their cell — appended to the table."""
+    far A of their cell — appended to the table; with ``overflow_rows``
+    None they read one appended zero row."""
     ids = grid.ids.to(torch.int64)
     rank = rank_sorted.to(torch.int64)
     acc_t = (
@@ -96,8 +121,13 @@ def _slot_pickup_raw(acc_raw, grid: SortedGrid, rank_sorted, overflow_rows,
         .permute(0, 3, 4, 2, 1)              # (x, y, z, slot, ch)
         .reshape(d * d * d * k, 3)
     )
+    if overflow_rows is None:
+        overflow_rows = acc_t.new_zeros((1, 3))
+        spill = torch.zeros_like(ids)
+    else:
+        spill = ids
     table = torch.cat([acc_t, overflow_rows], dim=0)
-    idx = torch.where(rank < k, ids * k + rank, d * d * d * k + ids)
+    idx = torch.where(rank < k, ids * k + rank, d * d * d * k + spill)
     acc_sorted = G * table[idx]
     if sorted_output:
         return acc_sorted

@@ -4,13 +4,15 @@ PyTorch counterpart of the core of ``nbody_tpu/system.py``: validate →
 initialize → compute initial forces; ``update()`` is one Verlet step,
 ``run_steps(n)`` the scale path (cell-sorted stepping for Barnes-Hut, as
 ``bench.py`` measures on the TPU); pause/resume/reset; state get/set;
-energy queries. Every tensor lives on the device given to ``initialize``.
+energy queries; ``audit_short_range`` for the short-range engines'
+capacity audits. Every tensor lives on the device given to
+``initialize``: the CUDA card unless the caller passes ``device="cpu"``.
 
 Not ported yet, and rejected with ``NotImplementedError`` rather than run
 some other path: sharding (``shard_devices > 1``), amortized or audited
 re-sorting (``resort_every > 1``, ``resort_stale_frac > 0``,
-``resort_repair``), the spatial hash, and the distributions other than
-uniform and spherical. Instances are not thread-safe.
+``resort_repair``), and the distributions other than uniform and
+spherical. Instances are not thread-safe.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from nbody_tpu_torch.ops.integrator import (
     potential_energy,
 )
 from nbody_tpu_torch.state import ParticleState, SimulationState
-from nbody_tpu_torch.types import SimulationConfig
+from nbody_tpu_torch.types import ForceMethod, SimulationConfig
 from nbody_tpu_torch.utils.profiling import profile_phase
 
 
@@ -57,9 +59,8 @@ def _require_ported(config: SimulationConfig) -> None:
 
 
 def _resolve_device(device) -> torch.device:
-    device = torch.device(device) if device is not None else (
-        torch.get_default_device()
-    )
+    """``device``, or the CUDA card when it is None; raises without one."""
+    device = torch.device(device if device is not None else "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "device 'cuda' requested but torch.cuda.is_available() is False"
@@ -77,6 +78,7 @@ class ParticleSystem:
         self._state: Optional[ParticleState] = None
         self._device: Optional[torch.device] = None
         self._force_fn = None
+        self._sorted_force = None
         self._step = None
         self._paused = False
         self._initialized = False
@@ -84,8 +86,9 @@ class ParticleSystem:
     # ---- lifecycle -------------------------------------------------------
 
     def initialize(self, config: SimulationConfig, device=None) -> None:
-        """Validate, build the state on ``device`` (default: torch's
-        default device) and the force strategy, compute a(t=0)."""
+        """Validate, build the state on ``device`` (default: the CUDA
+        card; ``device="cpu"`` for the plain twins) and the force
+        strategy, compute a(t=0)."""
         validate_config(config)
         _require_ported(config)
         device = _resolve_device(device)
@@ -97,8 +100,17 @@ class ParticleSystem:
         self._initialized = True
 
     def _install_state(self, state: ParticleState) -> None:
-        self._force_fn = make_force_fn(self._config)
-        self._step = make_verlet_step(self._force_fn, self._config.dt)
+        """Build the force strategy for ``state`` (both the plain and the
+        sorted force, once per strategy) and compute a(t)."""
+        cfg = self._config
+        # The hash's engine choice reads positions on the host: once here,
+        # never inside a timed run_steps.
+        hint = None
+        if cfg.force_method == ForceMethod.SPATIAL_HASH:
+            hint = state.pos.detach().cpu().numpy()
+        self._force_fn = make_force_fn(cfg, pos_hint=hint)
+        self._sorted_force = make_sorted_force_fn(cfg, pos_hint=hint)
+        self._step = make_verlet_step(self._force_fn, cfg.dt)
         self._state = initialize_forces(state, self._force_fn)
 
     def _require_init(self):
@@ -119,19 +131,18 @@ class ParticleSystem:
 
     def run_steps(self, n_steps: int) -> None:
         """``n_steps`` Verlet steps — cell-sorted stepping when the force
-        engine has the sorted contract (Barnes-Hut), plain steps otherwise.
-        No-op while paused."""
+        engine has the sorted contract (Barnes-Hut tiles, both hash
+        engines), plain steps otherwise. No-op while paused."""
         self._require_init()
         if self._paused or n_steps <= 0:
             return
         with profile_phase("simulation.run_steps", device=self._device):
-            sorted_force = make_sorted_force_fn(self._config)
-            if sorted_force is None:
+            if self._sorted_force is None:
                 multi = make_multi_step(self._force_fn, self._config.dt,
                                         n_steps)
             else:
-                multi = make_sorted_multi_step(sorted_force, self._config.dt,
-                                               n_steps)
+                multi = make_sorted_multi_step(self._sorted_force,
+                                               self._config.dt, n_steps)
             self._state = multi(self._state)
 
     def pause(self) -> None:
@@ -199,7 +210,7 @@ class ParticleSystem:
     def set_state(self, snapshot: SimulationState, device=None) -> None:
         """Full re-init: validate → rebuild the strategy for the
         snapshot's parameters → recompute forces. ``device`` defaults to the
-        current one (or torch's default device before ``initialize``)."""
+        current one (or the CUDA card before ``initialize``)."""
         validate_particle_count(snapshot.particle_count)
         base = self._config if self._config is not None else SimulationConfig()
         config = base.replace(
@@ -233,6 +244,70 @@ class ParticleSystem:
 
     def compute_total_energy(self) -> float:
         return self.compute_kinetic_energy() + self.compute_potential_energy()
+
+    def audit_short_range(self) -> dict:
+        """Capacity audit of the active short-range structure: the rows or
+        pair-windows the static-shape engines could not hold (non-zero
+        overflow means forces are being dropped — raise ``hash_window``
+        (hash window engine), or change ``bh_max_level`` (Barnes-Hut)).
+        The hash audit reads the engine parameters resolved on the live
+        closure, so it measures the configuration that runs. Keys as the
+        JAX package's ``audit_short_range``."""
+        self._require_init()
+        cfg = self._config
+        pos, mass = self._state.pos, self._state.mass
+        out = {"method": cfg.force_method.cli_name, "overflow": 0}
+        if cfg.force_method == ForceMethod.SPATIAL_HASH:
+            from nbody_tpu_torch.ops.spatial_hash import (
+                spatial_hash_forces,
+                spatial_hash_forces_tiles,
+            )
+
+            p = self._force_fn.engine_params
+            common = dict(cutoff=cfg.spatial_hash_cutoff,
+                          cell_size=cfg.spatial_hash_cell_size,
+                          return_overflow=True)
+            if p["engine"] == "tiles":
+                _, overflow = spatial_hash_forces_tiles(
+                    pos, mass, cfg.G, cfg.softening, d=p["tile_d"],
+                    k=p["tile_k"], **common)
+                out["tile_d"] = p["tile_d"]
+                out["tile_k"] = p["tile_k"]
+            else:
+                _, overflow = spatial_hash_forces(
+                    pos, mass, cfg.G, cfg.softening,
+                    cap=cfg.hash_max_grid_dim, window=p["window"],
+                    block_size=p["block"], **common)
+                out["window"] = p["window"]
+            out["overflow"] = int(overflow)
+            out["engine"] = p["engine"]
+        elif cfg.force_method == ForceMethod.BARNES_HUT:
+            from nbody_tpu_torch.ops.barnes_hut import (
+                _near_field,
+                bh_engine_params,
+                bin_particles,
+            )
+            from nbody_tpu_torch.ops.sorted_window import build_sorted_grid
+            from nbody_tpu_torch.ops.tile_sweep import tile_build
+
+            p = bh_engine_params(cfg)
+            levels, ws = p["levels"], p["ws"]
+            lo, cell, coords = bin_particles(pos, levels)
+            if p["near_engine"] == "tiles":
+                # rows past the k cap, from the exact per-cell counts
+                d = 1 << levels
+                grid = build_sorted_grid(pos, mass, coords, d)
+                overflow = tile_build(grid, lo, cell, d=d,
+                                      k=p["near_k"]).overflow
+                out["near_k"] = p["near_k"]
+            else:
+                _, overflow, _ = _near_field(pos, mass, lo, cell, cfg.G,
+                                             cfg.softening, ws, levels,
+                                             p["window"])
+                out["window"] = p["window"]
+            out["overflow"] = int(overflow)
+            out["near_engine"] = p["near_engine"]
+        return out
 
     def synchronize(self) -> None:
         """Wait for outstanding device work (timing helper)."""

@@ -1,0 +1,122 @@
+#!/usr/bin/env python3
+"""Where a step's time goes on the card, for each 1M path of the PyTorch port.
+
+    python3 scripts/profile_torch_paths.py [--steps 10] [--out build/profile_torch_paths.json]
+
+From the root of a checkout, on a machine with one CUDA card. For each path
+that ``chip_smoke.py`` drives (``chip_smoke.path_configs``: 1M Barnes-Hut
+tiles, 1M dense hash, 1M sparse hash, 1M Barnes-Hut window engine, 100K
+direct), it initializes the facade, takes a warm ``run_steps``, then:
+
+  * times ``run_steps(steps)`` with no profiler (host clock around
+    ``synchronize``) → ms/step;
+  * traces ``run_steps(steps)`` under ``torch.profiler`` (CPU + CUDA
+    activity) → device kernels per step, device busy ms/step (the union of
+    the kernel intervals of the exported trace) and the device time of
+    each kernel name per step;
+  * reports the idle share as 1 − busy / unprofiled ms/step.
+
+Prints one summary line per path and writes everything as JSON to
+``--out`` (the trace is written beside it and removed). Needs a card;
+exits non-zero without one.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def busy_ms(trace_path: str) -> tuple[float, int, dict]:
+    """(union of kernel intervals in ms, kernel count, ms by kernel name)
+    from a chrome trace exported by torch.profiler."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans, by_name = [], {}
+    for e in events:
+        if e.get("cat") == "kernel" and e.get("ph") == "X":
+            spans.append((e["ts"], e["ts"] + e["dur"]))
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
+    spans.sort()
+    total, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b <= end:
+            continue
+        total += b - max(a, end)
+        end = b
+    return total / 1e3, len(spans), by_name
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--out", default="build/profile_torch_paths.json")
+    args = ap.parse_args()
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA card")
+    from chip_smoke import path_configs
+    from nbody_tpu_torch import ParticleSystem
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(f"nvidia-smi: {smi}")
+    steps = args.steps
+    paths = path_configs()
+    report = {"card": smi, "steps": steps, "paths": {}}
+    out_dir = os.path.dirname(args.out) or "."
+    os.makedirs(out_dir, exist_ok=True)
+    trace = os.path.join(out_dir, "profile_trace.json")
+    for label, cfg in paths.items():
+        ps = ParticleSystem()
+        ps.initialize(cfg)
+        ps.run_steps(steps)
+        ps.synchronize()
+        ps.reset()
+        ps.synchronize()
+        t0 = time.perf_counter()
+        ps.run_steps(steps)
+        ps.synchronize()
+        step_ms = (time.perf_counter() - t0) / steps * 1e3
+        ps.reset()
+        ps.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            ps.run_steps(steps)
+            ps.synchronize()
+            prof_ms = (time.perf_counter() - t0) / steps * 1e3
+        prof.export_chrome_trace(trace)
+        busy, count, by_name = busy_ms(trace)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        rec = {
+            "ms_per_step": step_ms,
+            "ms_per_step_profiled": prof_ms,
+            "kernels_per_step": count / steps,
+            "busy_ms_per_step": busy / steps,
+            "idle_share": 1.0 - (busy / steps) / step_ms,
+            "top_kernels_ms_per_step": {k: v / steps for k, v in top},
+        }
+        report["paths"][label] = rec
+        print(f"{label}: {step_ms:.3f} ms/step unprofiled "
+              f"({prof_ms:.3f} profiled), {count / steps:.1f} kernels/step, "
+              f"device busy {busy / steps:.3f} ms/step, idle share "
+              f"{rec['idle_share']:.3f} ({smi})")
+        for k, v in top:
+            print(f"    {v / steps:8.4f} ms/step  {k[:90]}")
+    os.remove(trace)
+    with open(args.out, "w") as f:
+        json.dump(report, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

@@ -107,13 +107,14 @@ def test_engine_params_match_jax(n, level, theta):
 
 
 def test_window_engine_raises_not_implemented():
-    """Occupancy above 24 per finest cell selects the window engine, which
-    is not ported: the factory refuses instead of running another engine."""
+    """Occupancy above 24 per finest cell selects the window engine. It is
+    ported now: neither factory raises any longer; the plain factory runs
+    the window engine and the sorted factory returns None (no sorted
+    contract, as in the JAX package), so run_steps steps unsorted."""
     jc = JConfig(particle_count=100_000, force_method=JForceMethod.BARNES_HUT,
                  bh_max_level=3)
     cfg = config_from_reference(jc)
     assert tbh.bh_engine_params(cfg)["near_engine"] == "window"
-    for make in (tbh.make_barnes_hut_forces,
-                 tbh.make_barnes_hut_forces_sorted):
-        with pytest.raises(NotImplementedError, match="ROADMAP B3"):
-            make(cfg)
+    assert callable(tbh.make_barnes_hut_forces(cfg))
+    assert tbh.make_barnes_hut_forces_sorted(cfg) is None
+    assert jbh.make_barnes_hut_forces_sorted(jc) is None

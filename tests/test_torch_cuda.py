@@ -17,10 +17,18 @@ from nbody_tpu_torch.ops.barnes_hut import barnes_hut_forces, bin_particles
 from nbody_tpu_torch.ops.direct import direct_forces, direct_forces_kernel
 from nbody_tpu_torch.ops.far_taps import far_taps, far_taps_plain
 from nbody_tpu_torch.ops.scatter import tile_scatter, tile_scatter_plain
-from nbody_tpu_torch.ops.sorted_window import build_sorted_grid
+from nbody_tpu_torch.ops.sorted_window import build_sorted_grid, xy_ball
+from nbody_tpu_torch.ops.spatial_hash import (
+    spatial_hash_forces,
+    spatial_hash_forces_tiles,
+)
 from nbody_tpu_torch.ops.tile_near import (
     tile_sweep_plane,
     tile_sweep_plane_plain,
+)
+from nbody_tpu_torch.ops.window_sweep import (
+    window_sweep_kernel,
+    window_sweep_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -114,3 +122,55 @@ def test_barnes_hut_card_matches_cpu(dev):
     got = barnes_hut_forces(p.to(dev), m.to(dev), levels=4, near_k=16)
     assert tile_sweep_plane.launches == before + 1
     _close(got, barnes_hut_forces(p, m, levels=4, near_k=16), 2e-5)
+
+
+@pytest.mark.parametrize(
+    "form,window",
+    [("hash", 2048), ("bh", 2048), ("hash", 64)],
+    ids=["hash", "bh", "overflow"])
+def test_window_sweep_kernel(dev, form, window):
+    """K7 vs plain on a 20000-row ball (d 16): the hash form (cutoff 1.0,
+    B 256), the BH form (no cutoff, ws 1) and a too-small window: atol
+    2e-5·max|a| and the same overflow count."""
+    p, m = (t.to(dev) for t in _sphere(20000, 4.0, seed=4))
+    coords = bin_particles(p, 4)[2]
+    g = build_sorted_grid(p, m, coords, 16, with_csort=True)
+    kw = dict(d=16, offsets=xy_ball(1), z_hw=1, window=window,
+              block_size=256, eps=0.1,
+              cutoff2=None if form == "bh" else 1.0)
+    args = (g.psort, g.csort, g.cell_start)
+    before = window_sweep_kernel.launches
+    got, over = window_sweep_kernel(*args, **kw)
+    assert window_sweep_kernel.launches == before + 1
+    want, over_p = window_sweep_plain(*args, **kw)
+    assert int(over) == int(over_p)
+    assert (int(over) > 0) == (window == 64)
+    _close(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("engine", ["window", "tiles"])
+def test_spatial_hash_card_matches_cpu(dev, engine):
+    """The hash on the card (K7, or K2 + K4) vs on the CPU (plain twins),
+    same inputs: atol 2e-5·max|a|, equal overflow."""
+    p, m = _sphere(20000, 6.0, seed=5)
+    if engine == "window":
+        fn, kw = spatial_hash_forces, dict(cap=64, window=2048,
+                                           block_size=256)
+    else:
+        fn, kw = spatial_hash_forces_tiles, dict(d=16, k=32)
+    kw.update(cutoff=1.0, cell_size=1.0, return_overflow=True)
+    got, over = fn(p.to(dev), m.to(dev), 1.0, 0.1, **kw)
+    want, over_c = fn(p, m, 1.0, 0.1, **kw)
+    assert int(over) == int(over_c)
+    _close(got, want, 2e-5)
+
+
+def test_barnes_hut_window_card_matches_cpu(dev):
+    """BH with the window near engine (levels 3, occupancy 39) on the card
+    vs on the CPU: atol 2e-5·max|a|."""
+    p, m = _sphere(20000, 6.0, seed=6)
+    kw = dict(levels=3, near_engine="window", window=2048)
+    before = window_sweep_kernel.launches
+    got = barnes_hut_forces(p.to(dev), m.to(dev), **kw)
+    assert window_sweep_kernel.launches == before + 1
+    _close(got, barnes_hut_forces(p, m, **kw), 2e-5)

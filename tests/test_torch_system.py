@@ -5,12 +5,14 @@ import subprocess
 import sys
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import nbody_tpu as jnb
 import nbody_tpu_torch as tnb
+from nbody_tpu_torch.errors import validate_resource_requirements
 from nbody_tpu.state import SimulationState as JSnapshot
 from nbody_tpu_torch.models.distributions import init_spherical, init_uniform
 from nbody_tpu_torch.state import SimulationState, config_from_reference
@@ -75,6 +77,104 @@ def test_facade_matches_jax_facade():
                                js.compute_potential_energy(), rtol=1e-5)
 
 
+def _ball_snapshot(n, radius, seed):
+    rng = np.random.default_rng(seed)
+    r = np.cbrt(rng.uniform(size=n)) * radius
+    v = rng.normal(size=(n, 3))
+    pos = (v / np.linalg.norm(v, axis=1, keepdims=True) * r[:, None])
+    vel = rng.normal(0.0, 0.05, (n, 3))
+    mass = rng.uniform(0.5, 1.5, n)
+    return (pos.astype(np.float32), vel.astype(np.float32),
+            mass.astype(np.float32))
+
+
+@pytest.mark.parametrize(
+    "scene,cell,engine",
+    [(lambda: _ball_snapshot(4096, 2.5, seed=31), 1.0, "window"),
+     (lambda: _uniform_snapshot(4096, 8.0, seed=32), 2.0, "tiles")],
+    ids=["dense", "sparse"])
+def test_hash_facade_matches_jax_facade(scene, cell, engine):
+    """The spatial hash through both facades from one numpy state at
+    n = 4096 (``hash_engine="auto"`` resolves window on the dense ball,
+    tiles on the sparse cube): run_steps(5) in sorted order on both,
+    positions within rtol 2e-4 / atol 1e-5 and velocities within rtol 2e-3
+    / atol 1e-4 (the sorted-vs-plain gate of the JAX package), and equal
+    audit_short_range() dicts (engine, overflow, window / tile_d, tile_k)."""
+    pos, vel, mass = scene()
+    kw = dict(particle_count=4096, dt=1e-3, G=1.0, softening=0.1)
+    jcfg = jnb.SimulationConfig(force_method=jnb.ForceMethod.SPATIAL_HASH,
+                                spatial_hash_cell_size=cell, **kw)
+    js = jnb.ParticleSystem()
+    js.initialize(jcfg)
+    js.set_state(JSnapshot(pos=pos, vel=vel, mass=mass,
+                           force_method=jnb.ForceMethod.SPATIAL_HASH,
+                           dt=1e-3, G=1.0, softening=0.1))
+    ts = tnb.ParticleSystem()
+    ts.initialize(config_from_reference(jcfg), device="cpu")
+    ts.set_state(SimulationState(pos=pos, vel=vel, mass=mass,
+                                 force_method=ForceMethod.SPATIAL_HASH,
+                                 dt=1e-3, G=1.0, softening=0.1))
+    for s in (js, ts):
+        s.run_steps(5)
+    assert abs(ts.simulation_time - js.simulation_time) < 1e-6
+    np.testing.assert_allclose(ts.positions(), js.positions(),
+                               rtol=2e-4, atol=1e-5)
+    np.testing.assert_allclose(ts.velocities(), js.velocities(),
+                               rtol=2e-3, atol=1e-4)
+    audit = ts.audit_short_range()
+    assert audit == js.audit_short_range()
+    assert audit["engine"] == engine
+
+
+def test_barnes_hut_window_engine_through_the_facade():
+    """BH at n = 20000, bh_max_level = 3 (occupancy 39 > 24: the window
+    near engine): a(t=0) from set_state within atol 2e-5·max|a| of the
+    JAX package's ``barnes_hut_forces(near_engine="window")`` (XLA path)
+    on every row, the audit's keys as the JAX facade's with no window
+    overflow at W 2048, and run_steps(2) stepping in original order (no
+    sorted contract)."""
+    from nbody_tpu.ops import barnes_hut as jbh
+
+    pos, vel, mass = _ball_snapshot(20000, 6.0, seed=33)
+    ts = tnb.ParticleSystem()
+    ts.initialize(SimulationConfig(particle_count=100,
+                                   force_method=ForceMethod.BARNES_HUT,
+                                   bh_max_level=3), device="cpu")
+    ts.set_state(SimulationState(pos=pos, vel=vel, mass=mass,
+                                 force_method=ForceMethod.BARNES_HUT,
+                                 dt=1e-3, G=1.0, softening=0.1))
+    want = np.asarray(jbh.barnes_hut_forces(
+        jnp.asarray(pos), jnp.asarray(mass), 1.0, 0.1, 0.5, levels=3,
+        window=2048, near_engine="window", near_impl="xla"))
+    np.testing.assert_allclose(ts.state.acc.numpy(), want, rtol=0,
+                               atol=2e-5 * float(np.abs(want).max()))
+    assert ts.audit_short_range() == {
+        "method": "barnes-hut", "overflow": 0, "window": 2048,
+        "near_engine": "window"}
+    assert ts._sorted_force is None
+    ts.run_steps(2)
+    assert abs(ts.simulation_time - 2e-3) < 1e-7
+    assert np.isfinite(ts.positions()).all()
+
+
+def test_bare_initialize_means_the_card():
+    """``ParticleSystem().initialize(cfg)`` and a first ``set_state`` with
+    no device target CUDA: without a card they raise, never run quietly on
+    the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default is usable")
+    cfg = SimulationConfig(particle_count=64)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tnb.ParticleSystem().initialize(cfg)
+    pos, vel, mass = _uniform_snapshot(64, 1.0, seed=34)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tnb.ParticleSystem().set_state(SimulationState(
+            pos=pos, vel=vel, mass=mass, force_method=ForceMethod.DIRECT_N2,
+            dt=1e-3, G=1.0, softening=0.1))
+    with pytest.raises(RuntimeError):
+        validate_resource_requirements(64)
+
+
 def test_pause_resume_reset_and_state_round_trip():
     cfg = SimulationConfig(particle_count=300,
                            force_method=ForceMethod.BARNES_HUT,
@@ -118,7 +218,8 @@ def test_cuda_device_raises_without_a_card():
 
 @pytest.mark.parametrize(
     "change",
-    [dict(force_method=ForceMethod.SPATIAL_HASH), dict(shard_devices=2),
+    [dict(force_method=ForceMethod.SPATIAL_HASH, resort_every=4),
+     dict(shard_devices=2),
      dict(resort_every=4), dict(resort_stale_frac=0.1),
      dict(resort_repair=True), dict(init_distribution=InitDistribution.DISK)],
     ids=["hash", "shard", "resort_every", "stale_frac", "repair", "disk"],
