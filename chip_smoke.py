@@ -12,34 +12,50 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
      at the shapes its path gives it, with the tolerance stated beside it,
      and times both (median of 7 calls after warm-up, CUDA events): K1-K4
      at the Barnes-Hut tiles main path (the 1M spherical scene, radius 10,
-     seed 42, θ = 0.5 at d = 64, k = 16, ws = 1), K2 and K4 again at the
-     1M sparse hash (uniform cube, cell 2.0, d = 56, k = 16, cutoff² 4, no
-     far plane), K7 (the window sweep) at the 1M dense hash (cap 64, W
-     2048, B 256, cutoff 2.0) and the 1M Barnes-Hut window engine (d = 32,
-     W 2048, B 256, ws = 1); prints each kernel's bound (the larger of its
-     FP32 operations over 67 TFLOP/s and its bytes over 3.35 TB/s, counted
-     from this run's inputs: for K7 the pairs of each target's 27-cell
-     ball, with the pair tests its live spans make beside them) and, where
-     one PyTorch call computes the same function, that call's time;
-  3. drives five paths (``path_configs``) through the facade, each with
-     every launch count set to 0 just before it and read just after,
-     checking that the path's kernels launched as expected and that no
-     plain twin ran:
-       a. 1M Barnes-Hut, tiles engine (bh_max_level 6): ``initialize``,
-          ``run_steps(30)`` warm, ``reset()``, ``run_steps(30)`` timed;
+     seed 42, θ = 0.5 at d = 64, k = 16, ws = 1), K4 again at the monopole
+     path (ws = 2, no far plane), K2 and K4 at the 1M sparse hash (uniform
+     cube, cell 2.0, d = 56, k = 16, cutoff² 4, no far plane), K7 (the
+     window sweep) at the 1M dense hash (cap 64, W 2048, B 256, cutoff
+     2.0) and the 1M Barnes-Hut window engine (d = 32, W 2048, B 256,
+     ws = 1), K5 (the all-pairs potential) on the drift gate's own 1M
+     input (the twin run once) and at N = 131072 on the scene's first
+     rows (kernel: median of 3 after 1 warm-up), K6 (the segment sum) at
+     the monopole path's (1M, 4) → (4, 262144);
+     prints each kernel's bound (the larger of its FP32 operations over 67
+     TFLOP/s and its bytes over 3.35 TB/s, counted from this run's inputs:
+     for K7 the pairs of each target's 27-cell ball, with the pair tests
+     its live spans make beside them) and, where one PyTorch call computes
+     the same function, that call's time;
+  3. drives six paths, each with every launch count set to 0 just before
+     it and read just after, checking that the path's kernels launched as
+     expected and that no plain twin ran. Five go through the facade
+     (``path_configs``): ``initialize``, ``run_steps`` warm, ``reset()``,
+     ``run_steps`` timed:
+       a. 1M Barnes-Hut, tiles engine (bh_max_level 6): 30 steps;
        b. 1M dense spatial hash (the spherical scene, cell 1.0, cutoff 2.0,
-          "auto" → window engine): the same, 30 steps;
+          "auto" → window engine): 30 steps;
        c. 1M sparse spatial hash (uniform cube of side 100, cell 2.0,
-          "auto" → tiles engine, d 56, k 16): the same, 30 steps;
+          "auto" → tiles engine, d 56, k 16): 30 steps;
        d. 1M Barnes-Hut, window engine (bh_max_level 5): 10 steps;
        e. 100K direct N² (the spherical scene): 10 steps;
-     each prints steps/s beside the card, the phase times, the launches
-     and the short-range audit, and checks the state is finite;
-  4. ground truth at step 0: Barnes-Hut (both engines) against the direct
-     kernel over 4096 sampled rows and all 1M sources (median relative
-     error < 0.05); the hash (both engines) against a float64 brute force
-     over 4096 sampled rows and all 1M sources with the same 27-cell and
-     raw-r² cutoff predicate (max |diff| ≤ 1e-4·max|a|).
+     and f. 1M Barnes-Hut monopole (the tiles scene with
+     ``multipole_order=1``: ws 2, K6 moments, no far taps), which the
+     facade never selects: ``barnes_hut_forces_sorted(multipole_order=1)``
+     under ``make_sorted_multi_step``, 10 steps warm, then 10 timed from
+     the initial state. Each prints steps/s beside the card, the phase
+     times and the launches, and checks the state is finite;
+  4. ground truth at step 0: Barnes-Hut (both engines and the monopole
+     path) against the direct kernel over 4096 sampled rows and all 1M
+     sources (median relative error < 0.05); the hash (both engines)
+     against a float64 brute force over 4096 sampled rows and all 1M
+     sources with the same 27-cell and raw-r² cutoff predicate (max |diff|
+     ≤ 1e-4·max|a|);
+  5. the energy-drift gate, cut to 300 steps: ``run_drift(1_000_000, 300,
+     100)`` (``nbody_tpu_torch.drift``, the loop of
+     ``scripts/measure_drift_torch.py``), printing E at every checkpoint
+     and |ΔE/E| beside the 1e-4 target (the pass flag is printed, not
+     enforced), checking every E is finite and K5 launched once per
+     checkpoint.
 
 It stops at the first failed check with a non-zero exit. It needs one CUDA
 card and exits non-zero without one. The last two lines of its output are
@@ -126,6 +142,27 @@ def path_configs() -> dict:
             particle_count=N // 10, force_method=ForceMethod.DIRECT_N2,
             dt=1e-3),
     }
+
+
+MONOPOLE = "1M BH monopole"
+
+
+def monopole_forces(cfg):
+    """``(force_fn, sorted_force_fn)`` of the monopole path on ``cfg``'s
+    scene: ``barnes_hut_forces(_sorted)(..., multipole_order=1)`` at the
+    config's levels and k (ws = ceil(1/θ) = 2 at θ = 0.5)."""
+    from nbody_tpu_torch.ops.barnes_hut import (
+        barnes_hut_forces,
+        barnes_hut_forces_sorted,
+        bh_engine_params,
+    )
+
+    p = bh_engine_params(cfg)
+    args = (cfg.G, cfg.softening, cfg.barnes_hut_theta)
+    kw = dict(levels=p["levels"], near_k=p["near_k"], multipole_order=1)
+    return (lambda pos, mass: barnes_hut_forces(pos, mass, *args, **kw),
+            lambda pos, mass: barnes_hut_forces_sorted(pos, mass, *args,
+                                                       **kw))
 
 
 def add_shape(res: dict, name: str, label: str, rec: dict) -> None:
@@ -241,6 +278,7 @@ def kernel_checks(res, pos, mass, cfg):
         level_moments,
         level_tap_matrices,
         pyramid_from_packed,
+        theta_to_ws,
     )
     from nbody_tpu_torch.ops.direct import direct_forces, direct_forces_kernel
     from nbody_tpu_torch.ops.far_taps import far_taps, far_taps_plain
@@ -305,6 +343,10 @@ def kernel_checks(res, pos, mass, cfg):
                  .permute(0, 2, 1).contiguous())
     k4_check(res, label, tk, mk[10], d=d, k=k, ws=ws, eps=eps, lo=lo,
              cell=cell, far_plane=far_plane)
+    # K4 on the monopole path: the same tiles at ws = 2, no far plane
+    k4_check(res, MONOPOLE, tk, mk[10], d=d, k=k,
+             ws=theta_to_ws(cfg.barnes_hut_theta, order=1), eps=eps, lo=lo,
+             cell=cell)
 
     # K1: direct forces at N = 16384
     n1 = 16384
@@ -324,6 +366,111 @@ def kernel_checks(res, pos, mass, cfg):
         library_ms=None,
     ))
     return overflow
+
+
+def k5_check(res, pos, mass, cfg):
+    """K5 (the all-pairs potential) against its plain twin at relative
+    1e-5 (rsqrtf and torch.rsqrt differ by ulps on each term, the sums are
+    float64 in both): first on the drift gate's own step-0 input (the
+    Hénon sphere at N = 1M; the twin run once, ~1 min), then at N = 131072
+    on the BH scene's first rows. Kernel times are medians of 3 calls
+    after 1 warm-up."""
+    import torch
+
+    from nbody_tpu_torch.drift import drift_config, henon_sphere
+    from nbody_tpu_torch.ops.direct import (
+        pairwise_potential,
+        pairwise_potential_plain,
+    )
+
+    def held(label, p, m, G, eps, plain_reps):
+        n = p.shape[0]
+        got = float(pairwise_potential(p, m, G, eps))
+        if plain_reps:
+            want = float(pairwise_potential_plain(p, m, G, eps))
+            plain_ms = time_ms(lambda: pairwise_potential_plain(p, m, G, eps),
+                               reps=plain_reps, warm=1)
+        else:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = pairwise_potential_plain(p, m, G, eps)
+            b.record()
+            b.synchronize()
+            want, plain_ms = float(out), a.elapsed_time(b)
+        rel = abs(got - want) / abs(want)
+        check(rel <= 1e-5, f"K5 pairwise_potential {label}: rel diff {rel}")
+        rec = dict(
+            max_abs_err=abs(got - want),
+            ms=time_ms(lambda: pairwise_potential(p, m, G, eps), reps=3,
+                       warm=1),
+            plain_ms=plain_ms,
+            # n² pair terms; pos + mass in, one partial per 256 rows out
+            **bound(PAIR_OPS * n * n, 16 * n + 8 * (n // 256)),
+            library_ms=None,
+        )
+        add_shape(res, "pairwise_potential", label, rec)
+        print(f"K5 pairwise_potential {label}: kernel {got:.9e}, plain "
+              f"{want:.9e}, rel diff {rel:.3e} (tol 1e-5); kernel "
+              f"{rec['ms']:.4f} ms (median of 3), plain {plain_ms:.4f} ms "
+              f"({'median of %d' % plain_reps if plain_reps else 'one call'}"
+              f"), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+
+    n = pos.shape[0]
+    dcfg = drift_config(n)
+    h = henon_sphere(n, pos.device)
+    held(f"N = {n} (drift gate)", h.pos, h.mass, dcfg.G, dcfg.softening, 0)
+    del h
+    n1 = 131072
+    held(f"N = {n1}", pos[:n1].contiguous(), mass[:n1].contiguous(), cfg.G,
+         cfg.softening, 3)
+
+
+def k6_check(res, pos, mass, cfg):
+    """K6 (the segment sum) against its plain twin at the monopole path's
+    shapes: the sorted rows' [m, m·x] (1M, 4) into the d³ = 262144 finest
+    cells, max |diff| <= 1e-6·max|out|; ``index_add_`` of the same rows is
+    the library yardstick."""
+    import torch
+
+    from nbody_tpu_torch.ops.barnes_hut import bh_engine_params, bin_particles
+    from nbody_tpu_torch.ops.scatter import segment_sum, segment_sum_plain
+    from nbody_tpu_torch.ops.sorted_window import build_sorted_grid
+
+    levels = bh_engine_params(cfg)["levels"]
+    d = 1 << levels
+    nc = d ** 3
+    _lo, _cell, coords = bin_particles(pos, levels)
+    g = build_sorted_grid(pos, mass, coords, d, with_csort=True)
+    m = g.psort[:, 3:4]
+    vals = torch.cat([m, m * g.psort[:, :3]], dim=-1).contiguous()
+    ids = g.ids
+    got = segment_sum(vals, ids, nc)
+    want = segment_sum_plain(vals, ids, nc)
+    e = float((got - want).abs().max())
+    tol = 1e-6 * float(want.abs().max())
+    check(e <= tol, f"K6 segment_sum: max|diff| {e} > {tol}")
+    ids64 = ids.to(torch.int64)
+
+    def library():
+        return torch.zeros((nc, 4), device=pos.device).index_add_(
+            0, ids64, vals)
+
+    n = vals.shape[0]
+    rec = dict(
+        max_abs_err=e,
+        ms=time_ms(lambda: segment_sum(vals, ids, nc)),
+        plain_ms=time_ms(lambda: segment_sum_plain(vals, ids, nc)),
+        # ~4 adds per row; vals + dest in, (4, d³) out
+        **bound(4 * n, 16 * n + 4 * n + 16 * nc),
+        library_ms=time_ms(library),
+    )
+    add_shape(res, "segment_sum", MONOPOLE, rec)
+    print(f"K6 segment_sum {MONOPOLE} ({n}, 4) -> (4, {nc}): max|diff| "
+          f"{e:.3e} (tol 1e-6*max|out| = {tol:.3e}); kernel "
+          f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
+          f"(zeros + index_add_) {rec['library_ms']:.4f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
 
 
 def sparse_tile_checks(res, pos, mass):
@@ -504,29 +651,23 @@ def bh_vs_direct(pos, mass, acc_bh, cfg, label):
     check(med < 0.05, f"{label} median relative error {med} >= 0.05")
 
 
-def run_path(label, cfg, steps, want, wrappers, plains, smi, dev):
-    """Drive one path through the facade: warm run, reset, every count set
-    to 0, timed run, counts read. Checks the launches, no plain twin, a
-    finite state; prints steps/s, phases and the audit. Returns launches."""
+def counted_run(label, steps, run, want, wrappers, plains, smi):
+    """Every count set to 0, ``run()`` timed (host clock to a synchronize),
+    the counts read: checks the launches and that no plain twin ran,
+    prints steps/s, phases and launches. Returns (launches, run's
+    result)."""
     import torch
 
-    from nbody_tpu_torch import ParticleSystem
     from nbody_tpu_torch.utils.profiling import consume_global_phase_snapshot
 
-    ps = ParticleSystem()
-    ps.initialize(cfg, device=dev)
-    ps.run_steps(steps)
-    ps.synchronize()
-    ps.reset()
-    ps.synchronize()
     for f in wrappers.values():
         f.launches = 0
     for f in plains:
         f.calls = 0
     consume_global_phase_snapshot()
     t0 = time.perf_counter()
-    ps.run_steps(steps)
-    ps.synchronize()
+    out = run()
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: f.launches for name, f in wrappers.items()}
     plain_calls = sum(f.calls for f in plains)
@@ -540,12 +681,90 @@ def run_path(label, cfg, steps, want, wrappers, plains, smi, dev):
     check(launches == want,
           f"{label}: launch counts {launches} != expected {want}")
     check(plain_calls == 0, f"{label}: a plain twin ran on the path")
-    st = ps.state
+    return launches, out
+
+
+def check_finite(label, st) -> None:
+    import torch
+
     check(bool(torch.isfinite(st.pos).all()), f"{label}: non-finite pos")
     check(bool(torch.isfinite(st.vel).all()), f"{label}: non-finite vel")
+
+
+def run_path(label, cfg, steps, want, wrappers, plains, smi, dev):
+    """Drive one path through the facade: warm run, reset, then the timed
+    run under ``counted_run``; checks a finite state that advanced and
+    prints the audit. Returns launches."""
+    from nbody_tpu_torch import ParticleSystem
+
+    ps = ParticleSystem()
+    ps.initialize(cfg, device=dev)
+    ps.run_steps(steps)
+    ps.synchronize()
+    ps.reset()
+    ps.synchronize()
+    launches, _ = counted_run(label, steps, lambda: ps.run_steps(steps),
+                              want, wrappers, plains, smi)
+    check_finite(label, ps.state)
     check(abs(ps.simulation_time - steps * cfg.dt) < 1e-6,
           f"{label}: simulation time did not advance")
     print(f"  audit_short_range: {ps.audit_short_range()}")
+    return launches
+
+
+def run_monopole(cfg, scene, steps, want, wrappers, plains, smi):
+    """The monopole path: ``make_sorted_multi_step`` over
+    ``barnes_hut_forces_sorted(multipole_order=1)`` from the scene with
+    a(t=0), ``steps`` warm, then ``steps`` timed from the same initial
+    state under ``counted_run``. Prints the step-0 overflow (rows past the
+    k cap, whose near field reads zero). Returns launches."""
+    import torch
+
+    from nbody_tpu_torch.ops.barnes_hut import bh_engine_params, bin_particles
+    from nbody_tpu_torch.ops.integrator import (
+        initialize_forces,
+        make_sorted_multi_step,
+    )
+
+    force_fn, sorted_fn = monopole_forces(cfg)
+    state0 = initialize_forces(scene, force_fn)
+    multi = make_sorted_multi_step(sorted_fn, cfg.dt, steps)
+    multi(state0)
+    torch.cuda.synchronize()
+    launches, st = counted_run(MONOPOLE, steps, lambda: multi(state0), want,
+                               wrappers, plains, smi)
+    check_finite(MONOPOLE, st)
+    check(abs(float(st.time) - steps * cfg.dt) < 1e-6,
+          f"{MONOPOLE}: simulation time did not advance")
+    p = bh_engine_params(cfg)
+    d, k = 1 << p["levels"], p["near_k"]
+    coords = bin_particles(scene.pos, p["levels"])[2]
+    ids = (coords[:, 0] * d + coords[:, 1]) * d + coords[:, 2]
+    counts = torch.bincount(ids.to(torch.int64), minlength=d ** 3)
+    print(f"  step-0 overflow (rows past k = {k}): "
+          f"{int(torch.clamp(counts - k, min=0).sum())}")
+    return launches
+
+
+def drift_phase(steps, chunk, want, wrappers, plains, smi, dev):
+    """Phase 5: the energy-drift gate cut to ``steps`` steps at 1M: prints
+    every checkpoint and |ΔE/E| beside the 1e-4 target (printed, not
+    enforced); checks every E is finite. Returns launches."""
+    import math
+
+    from nbody_tpu_torch.drift import drift_metric, run_drift
+
+    label = "1M drift gate"
+    launches, recs = counted_run(
+        label, steps, lambda: list(run_drift(N, steps, chunk, dev)), want,
+        wrappers, plains, smi)
+    for rec in recs:
+        print(f"  {json.dumps(rec)}")
+        check(math.isfinite(rec["E"]), f"{label}: E not finite at "
+              f"step {rec['step']}")
+    line = drift_metric(N, steps, recs[-1])
+    print(f"  {json.dumps(line)} (|dE/E| after {recs[-1]['step']} steps "
+          f"{line['value']:.4e} against the target 1e-4; {smi})")
     return launches
 
 
@@ -561,10 +780,20 @@ def main() -> None:
     from nbody_tpu_torch.models.distributions import init_from_config
     from nbody_tpu_torch.ops import _build
     from nbody_tpu_torch.ops.barnes_hut import bh_engine_params
-    from nbody_tpu_torch.ops.direct import direct_forces, direct_forces_kernel
+    from nbody_tpu_torch.ops.direct import (
+        direct_forces,
+        direct_forces_kernel,
+        pairwise_potential,
+        pairwise_potential_plain,
+    )
     from nbody_tpu_torch.ops.far_taps import far_taps, far_taps_plain
     from nbody_tpu_torch.ops.forces import make_force_fn
-    from nbody_tpu_torch.ops.scatter import tile_scatter, tile_scatter_plain
+    from nbody_tpu_torch.ops.scatter import (
+        segment_sum,
+        segment_sum_plain,
+        tile_scatter,
+        tile_scatter_plain,
+    )
     from nbody_tpu_torch.ops.sorted_window import (
         build_sorted_grid,
         sorted_ranks,
@@ -625,6 +854,8 @@ def main() -> None:
     overflow = kernel_checks(res, pos0, mass0, bh_cfg)
     sparse_tile_checks(res, sp_pos, sp_mass)
     k7_checks(res, pos0, mass0)
+    k5_check(res, pos0, mass0, bh_cfg)
+    k6_check(res, pos0, mass0, bh_cfg)
     for name, r in res.items():
         for label, s in r["shapes"].items():
             print(f"  {name} at {label}: kernel {s['ms']:.4f} ms, plain "
@@ -638,18 +869,23 @@ def main() -> None:
         "far_taps": far_taps,
         "tile_sweep_plane": tile_sweep_plane,
         "window_sweep": window_sweep_kernel,
+        "pairwise_potential": pairwise_potential,
+        "segment_sum": segment_sum,
     }
     plains = [direct_forces, tile_scatter_plain, far_taps_plain,
-              tile_sweep_plane_plain, window_sweep_plain]
+              tile_sweep_plane_plain, window_sweep_plain,
+              pairwise_potential_plain, segment_sum_plain]
     none = {name: 0 for name in wrappers}
     by_path = {name: {} for name in wrappers}
 
-    def drive(label, steps, **want):
-        got = run_path(label, cfgs[label], steps, {**none, **want}, wrappers,
-                       plains, smi, dev)
+    def keep(label, got):
         for name, c in got.items():
             if c:
                 by_path[name][label] = c
+
+    def drive(label, steps, **want):
+        keep(label, run_path(label, cfgs[label], steps, {**none, **want},
+                             wrappers, plains, smi, dev))
 
     levels = bh_engine_params(bh_cfg)["levels"]
     drive("1M BH tiles", 30, tile_scatter=30, far_taps=30 * levels,
@@ -660,13 +896,18 @@ def main() -> None:
           "bh_max_level 5 at 1M must select the window engine")
     drive("1M BH window", 10, window_sweep=10, far_taps=10 * 5)
     drive("100K direct", 10, direct_forces=10)
-    print(f"launches by path: {by_path}")
+    keep(MONOPOLE, run_monopole(
+        bh_cfg, scene, 10,
+        {**none, "segment_sum": 10, "tile_scatter": 10,
+         "tile_sweep_plane": 10}, wrappers, plains, smi))
 
     # Phase 4: ground truth at step 0
     bh_vs_direct(pos0, mass0, make_force_fn(bh_cfg)(pos0, mass0), bh_cfg,
                  "BH tiles")
     bh_vs_direct(pos0, mass0, make_force_fn(bhw_cfg)(pos0, mass0), bhw_cfg,
                  "BH window")
+    bh_vs_direct(pos0, mass0, monopole_forces(bh_cfg)[0](pos0, mass0),
+                 bh_cfg, "BH monopole")
 
     p = hash_engine_params(hash_cfg, pos0)
     check(p["engine"] == "window", f"dense hash engine {p['engine']}")
@@ -709,6 +950,16 @@ def main() -> None:
           f"max|a| {scale:.4e}, median rel err {med:.3e} (tol 1e-4*max|a|)")
     check(err <= 1e-4 * scale, f"sparse hash ground truth {err} > 1e-4*max")
 
+    # Phase 5: the drift gate, 300 steps in chunks of 100 (one K5 launch
+    # per checkpoint; the BH tiles kernels once more for a(t=0))
+    steps, chunk = 300, 100
+    keep("1M drift gate", drift_phase(
+        steps, chunk,
+        {**none, "pairwise_potential": 1 + steps // chunk,
+         "tile_scatter": steps + 1, "far_taps": (steps + 1) * levels,
+         "tile_sweep_plane": steps + 1}, wrappers, plains, smi, dev))
+    print(f"launches by path: {by_path}")
+
     sources = {
         "direct_forces": ("nbody_tpu_torch/csrc/direct.cu",
                           "nbody_tpu/ops/direct.py:157"),
@@ -720,6 +971,10 @@ def main() -> None:
                              "nbody_tpu/ops/pallas_tile_near.py:473"),
         "window_sweep": ("nbody_tpu_torch/csrc/window_sweep.cu",
                          "nbody_tpu/ops/pallas_window_sweep.py:223"),
+        "pairwise_potential": ("nbody_tpu_torch/csrc/pair_potential.cu",
+                               "nbody_tpu/ops/direct.py:257"),
+        "segment_sum": ("nbody_tpu_torch/csrc/segment_sum.cu",
+                        "nbody_tpu/ops/pallas_scatter.py:416"),
     }
     for name in sources:
         check(bool(by_path[name]), f"{name} never launched on a timed path")

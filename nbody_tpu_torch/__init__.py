@@ -5,10 +5,12 @@ A port of ``nbody_tpu`` (JAX on TPU), which stays beside it as the
 reference. This package imports ``torch`` and never ``jax`` or
 ``nbody_tpu``. Ported so far: the configuration and state types, the
 uniform and spherical initializers, direct N², Barnes-Hut (tiles and
-window near engines) and spatial-hash (window and tiles engines) forces,
-Velocity Verlet with cell-sorted stepping, energies and the
-``ParticleSystem`` core. The CUDA kernels (``csrc/``) build on first use;
-see ``ops/_build.py``.
+window near engines; quadrupole, or monopole sources on request) and
+spatial-hash (window and tiles engines) forces, Velocity Verlet with
+cell-sorted stepping, energies (the exact all-pairs potential), the
+energy-drift measurement (``drift.run_drift``) and the ``ParticleSystem``
+core. The CUDA kernels (``csrc/``) build on first use; see
+``ops/_build.py``.
 """
 
 from nbody_tpu_torch.errors import ResourceError, ValidationError

@@ -53,6 +53,10 @@ SIGNATURES = {
     # cutoff2, use_cutoff, acc, overflow, block, stream
     "nbt_window_sweep": (_P, _P, _P, _I, _I, _P, _I, _I, _I, _F, _F, _I, _P,
                          _P, _I, _P),
+    # pos, mass, n, eps2, partial, stream
+    "nbt_pair_potential": (_P, _P, _I, _F, _P, _P),
+    # vals, C, n, dest, num_dest, out, stream
+    "nbt_segment_sum": (_P, _I, _I, _P, _I, _P, _P),
 }
 
 _lock = threading.Lock()

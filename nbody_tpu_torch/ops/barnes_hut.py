@@ -1,7 +1,9 @@
 """Barnes-Hut gravity on a dense multipole grid pyramid.
 
-PyTorch counterpart of ``nbody_tpu/ops/barnes_hut.py`` with order-2
-sources, on either near-field engine ``bh_engine_params`` selects.
+PyTorch counterpart of ``nbody_tpu/ops/barnes_hut.py``, with order-2
+(quadrupole) sources on either near-field engine ``bh_engine_params``
+selects, or with order-1 (COM monopole) sources when the caller asks for
+``multipole_order=1``.
 
 The fused TILES path (finest cells hold ≤ 24 particles on average) runs:
 
@@ -24,6 +26,13 @@ the exact near field over the (2ws+1)³ cell ball by the sorted-window
 sweep (kernel K7, ``_near_field``), and the far pickup in original order.
 It has no sorted-stepping contract.
 
+The MONOPOLE tiles path (``multipole_order=1``, ws = ceil(1/θ)) is the JAX
+package's non-fused sorted branch: the same sort, the finest [m, m·x]
+moments by the segment sum (kernel K6, ``_sorted_finest_moments``), the
+order-1 pyramid and COM-monopole far field (plain torch, as the JAX
+package leaves it to XLA), the near field on K2 + K4 with no far plane,
+and the far pickup A + J·δ. The window engine takes order 1 too.
+
 A cell accepted at level ℓ has its parent inside the well-separation
 window (Chebyshev distance ≤ ws) but is itself outside it; every source
 cell is accepted at exactly one level or lands in the exact near field.
@@ -32,18 +41,25 @@ cell is accepted at exactly one level or lands in the exact near field.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
 import torch
 
 from nbody_tpu_torch.ops.far_taps import far_taps
+from nbody_tpu_torch.ops.scatter import segment_sum
 from nbody_tpu_torch.ops.sorted_window import (
     build_sorted_grid,
+    unsort_rows,
     window_sweep,
     xy_ball,
 )
-from nbody_tpu_torch.ops.tile_sweep import tile_build, tile_sweep_pick
+from nbody_tpu_torch.ops.tile_sweep import (
+    tile_build,
+    tile_near_field,
+    tile_sweep_pick,
+)
 from nbody_tpu_torch.types import SimulationConfig
 from nbody_tpu_torch.utils.profiling import profile_phase
 
@@ -59,16 +75,20 @@ def theta_to_ws(theta: float, max_ws: int = 16, order: int = 1) -> int:
 
 @dataclasses.dataclass
 class Pyramid:
-    """Order-2 multipole grids per level, coarse → fine: ``masses[ℓ]``
-    (2^ℓ)³, ``srels[ℓ]`` (2^ℓ)³×3 centre-relative dipoles Σ m·(x − ctr),
-    ``quads[ℓ]`` (2^ℓ)³×6 second moments about the cell centre
-    [xx, yy, zz, xy, xz, yz]. ``lo``/``cell``: finest-level geometry."""
+    """Multipole grids per level, coarse → fine: ``masses[ℓ]`` (2^ℓ)³;
+    order 2: ``srels[ℓ]`` (2^ℓ)³×3 centre-relative dipoles Σ m·(x − ctr)
+    and ``quads[ℓ]`` (2^ℓ)³×6 second moments about the cell centre
+    [xx, yy, zz, xy, xz, yz]; order 1: ``msums[ℓ]`` (2^ℓ)³×3 absolute
+    Σ m·x (COM = msum / m). ``lo``/``cell``: finest-level geometry. (The
+    JAX package's order-2 pyramid also carries absolute msums; no order-2
+    path here reads them, so they are not built.)"""
 
     masses: tuple
-    srels: tuple
-    quads: tuple
     lo: torch.Tensor
     cell: torch.Tensor
+    srels: tuple = ()
+    quads: tuple = ()
+    msums: tuple = ()
 
 
 def pyramid_geometry(lo: torch.Tensor, hi: torch.Tensor, levels: int):
@@ -78,10 +98,22 @@ def pyramid_geometry(lo: torch.Tensor, hi: torch.Tensor, levels: int):
     return lo, cube / d
 
 
-def pyramid_from_packed(packed, lo, cell, levels: int) -> Pyramid:
-    """Upward pass: packed finest moments (d, d, d, 10) [m, s3, q6] → the
-    full pyramid, by the parallel-axis translation
-    q_p = Σ_c [q_c + δ⊗s_c + s_c⊗δ + m_c δ⊗δ], δ = ±(child edge)/2."""
+def pyramid_from_packed(packed, lo, cell, levels: int,
+                        order: int = 2) -> Pyramid:
+    """Upward pass: packed finest moments → the full pyramid. Order 2:
+    (d, d, d, 10) [m, s3, q6], by the parallel-axis translation
+    q_p = Σ_c [q_c + δ⊗s_c + s_c⊗δ + m_c δ⊗δ], δ = ±(child edge)/2.
+    Order 1: (d, d, d, 4) [m, m·x], by plain 2× sums."""
+    if order < 2:
+        masses, msums = [packed[..., 0]], [packed[..., 1:4]]
+        for _ in range(levels):
+            dm = masses[-1].shape[0] // 2
+            masses.append(
+                masses[-1].reshape(dm, 2, dm, 2, dm, 2).sum(dim=(1, 3, 5)))
+            msums.append(
+                msums[-1].reshape(dm, 2, dm, 2, dm, 2, 3).sum(dim=(1, 3, 5)))
+        return Pyramid(tuple(reversed(masses)), lo, cell,
+                       msums=tuple(reversed(msums)))
     dtype = packed.dtype
     masses = [packed[..., 0]]
     srels = [packed[..., 1:4]]
@@ -119,30 +151,55 @@ def pyramid_from_packed(packed, lo, cell, levels: int) -> Pyramid:
     masses.reverse()
     srels.reverse()
     quads.reverse()
-    return Pyramid(tuple(masses), tuple(srels), tuple(quads), lo, cell)
+    return Pyramid(tuple(masses), lo, cell, srels=tuple(srels),
+                   quads=tuple(quads))
 
 
-def scatter_finest_moments(pos, mass, coords, lo, cell, d: int):
-    """Packed order-2 finest moments (d, d, d, 10) [m, m·xr, m·xr⊗xr]
-    about each cell centre, by ONE scatter-add (``index_add_``; the JAX
-    package leaves this scatter to XLA)."""
+def _moment_rows(pos, mass, ctr, order: int):
+    """Per-row finest moments: order 2 → (N, 10) [m, m·xr, m·xr⊗xr] with
+    xr = pos − ctr (the cell centre); order 1 → (N, 4) [m, m·x] absolute."""
+    m = mass[:, None]
+    if order < 2:
+        return torch.cat([m, m * pos], dim=-1)
+    xr = pos - ctr
+    x, y, z = xr[:, 0:1], xr[:, 1:2], xr[:, 2:3]
+    return torch.cat([m, m * xr, m * (x * x), m * (y * y), m * (z * z),
+                      m * (x * y), m * (x * z), m * (y * z)], dim=-1)
+
+
+def scatter_finest_moments(pos, mass, coords, lo, cell, d: int,
+                           order: int = 2):
+    """Packed finest moments by ONE scatter-add (``index_add_``; the JAX
+    package leaves this scatter to XLA): order 2 → (d, d, d, 10)
+    [m, m·xr, m·xr⊗xr] about each cell centre; order 1 → (d, d, d, 4)
+    [m, m·x] absolute."""
     cid = ((coords[:, 0] * d + coords[:, 1]) * d + coords[:, 2]).to(
         torch.int64)
-    xr = pos - (lo + (coords.to(pos.dtype) + 0.5) * cell)
-    m = mass[:, None]
-    x, y, z = xr[:, 0:1], xr[:, 1:2], xr[:, 2:3]
-    vals = torch.cat([m, m * xr, m * (x * x), m * (y * y), m * (z * z),
-                      m * (x * y), m * (x * z), m * (y * z)], dim=-1)
-    out = torch.zeros((d * d * d, 10), dtype=pos.dtype, device=pos.device)
+    ctr = lo + (coords.to(pos.dtype) + 0.5) * cell if order >= 2 else None
+    vals = _moment_rows(pos, mass, ctr, order)
+    out = torch.zeros((d * d * d, vals.shape[1]), dtype=pos.dtype,
+                      device=pos.device)
     out.index_add_(0, cid, vals)
-    return out.reshape(d, d, d, 10)
+    return out.reshape(d, d, d, vals.shape[1])
 
 
-def build_pyramid(pos, mass, levels: int) -> Pyramid:
-    """Scatter-add the finest level, then 2× reductions up to the root."""
+def _sorted_finest_moments(grid, d: int):
+    """Packed order-1 finest moments (d, d, d, 4) [m, m·x] from the
+    CELL-SORTED rows by the segment sum (kernel K6) over the sorted ids.
+    Order 2 takes the fused K2 path instead."""
+    psort = grid.psort
+    vals = _moment_rows(psort[:, :3], psort[:, 3], None, 1)
+    packed = segment_sum(vals.contiguous(), grid.ids, d * d * d)
+    return packed.T.reshape(d, d, d, 4)
+
+
+def build_pyramid(pos, mass, levels: int, order: int = 2) -> Pyramid:
+    """Scatter-add the finest level, then 2× reductions up to the root
+    (order 2: quadrupole pyramid; order 1: monopoles [m, Σ m·x])."""
     lo, cell, coords = bin_particles(pos, levels)
-    packed = scatter_finest_moments(pos, mass, coords, lo, cell, 1 << levels)
-    return pyramid_from_packed(packed, lo, cell, levels)
+    packed = scatter_finest_moments(pos, mass, coords, lo, cell, 1 << levels,
+                                    order)
+    return pyramid_from_packed(packed, lo, cell, levels, order)
 
 
 _KIDS = np.array(
@@ -360,22 +417,117 @@ def sym3_matvec(h10: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     )
 
 
+# Pair terms (target child × offset × source child × cell) one chunk of
+# parent offsets of the monopole far field evaluates at once.
+MONOPOLE_CHUNK_TERMS = 1 << 26
+
+
+@functools.lru_cache(maxsize=None)
+def _monopole_tables(p: int, ws: int, dev: torch.device, dt: torch.dtype):
+    """Static tables of one monopole level on ``dev``, made once: the
+    source cell of each (parent offset, target parent) in the ws-padded
+    grid, flattened (T, p³); the accept masks (8t, 8s, T); and the target
+    child centres in cell units, 2q + kid + ½, (3, 8t, p³)."""
+    pp = p + 2 * ws
+    po, accept = _window_offsets_and_masks(ws)                # (T,3), (T,8,8)
+    q = np.stack(np.meshgrid(*(np.arange(p),) * 3, indexing="ij"),
+                 -1).reshape(p ** 3, 3)
+    src = q[None, :, :] + po[:, None, :] + ws                  # (T, p³, 3)
+    idx = (src[..., 0] * pp + src[..., 1]) * pp + src[..., 2]
+    ctr = 2.0 * q.T[:, None, :] + _KIDS.T[:, :, None] + 0.5    # (3, 8, p³)
+
+    def on(a, dtype=None):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=dev)
+
+    return (on(idx.astype(np.int64)), on(accept.transpose(1, 2, 0), dt),
+            on(ctr, dt))
+
+
+def _far_monopole_level(pyr: Pyramid, lvl: int, ws: int, eps: float,
+                        levels: int):
+    """One level's accepted COM monopoles as an order-1 local expansion
+    about each target child's centre: (A (8, 3, p³), J6 (8, 6, p³)), with
+    a += w·d and ∇a = w·(3·d⊗d/u − I), w = m/u^{3/2}, u = |d|² + ε².
+
+    The JAX package scans the (2ws+1)³ parent offsets and loops over the 8
+    target children inside; here chunks of offsets are evaluated for all
+    (target child, source child) pairs at once as (8t, 8s·offsets, p³)
+    tensors, so a level takes a handful of chunks of ~35 tensor ops
+    (``MONOPOLE_CHUNK_TERMS`` bounds a chunk's temporaries). Empty cells
+    stay inert: m = 0 ⇒ w = 0."""
+    p = (1 << lvl) // 2
+    pc = p * p * p
+    pp = p + 2 * ws
+    s_l = pyr.cell.reshape(()) * (1 << (levels - lvl))
+    dev, dt = pyr.masses[0].device, pyr.masses[0].dtype
+    idx_all, acc_all, grid_ctr = _monopole_tables(p, ws, dev, dt)
+    m = (pyr.masses[lvl].reshape(p, 2, p, 2, p, 2)
+         .permute(1, 3, 5, 0, 2, 4).reshape(8, p, p, p))
+    s = (pyr.msums[lvl].reshape(p, 2, p, 2, p, 2, 3)
+         .permute(1, 3, 5, 6, 0, 2, 4).reshape(8, 3, p, p, p))
+    com = s * (1.0 / torch.clamp(m, min=1e-30))[:, None]
+    # padded source grids, cells flattened: (8, pp³), (3, 8, pp³)
+    m_pad = torch.nn.functional.pad(m, [ws] * 6).reshape(8, pp ** 3)
+    com_pad = (torch.nn.functional.pad(com, [ws] * 6)
+               .permute(1, 0, 2, 3, 4).reshape(3, 8, pp ** 3))
+    # target child centres (3, 8t, 1, pc)
+    ctr = (pyr.lo.reshape(3, 1, 1) + grid_ctr * s_l)[:, :, None, :]
+    eps2 = eps * eps
+    chunk = max(1, MONOPOLE_CHUNK_TERMS // (64 * pc))
+    a_out = torch.zeros((3, 8, pc), dtype=dt, device=dev)
+    j_raw = torch.zeros((6, 8, pc), dtype=dt, device=dev)  # Σ w·d⊗d/u
+    w_sum = torch.zeros((8, pc), dtype=dt, device=dev)
+    for t0 in range(0, idx_all.shape[0], chunk):
+        idx = idx_all[t0:t0 + chunk]                            # (To, pc)
+        to = idx.shape[0]
+        # sources along one axis, (source child, offset): (8t, 8s·To, pc)
+        mw = (m_pad[:, idx].reshape(1, 8 * to, pc)
+              * acc_all[:, :, t0:t0 + to].reshape(8, 8 * to, 1))
+        src = com_pad[:, :, idx].reshape(3, 1, 8 * to, pc)
+        dx, dy, dz = (src[i] - ctr[i] for i in range(3))
+        inv = (dx * dx).addcmul_(dy, dy).addcmul_(dz, dz).add_(eps2)
+        inv = inv.clamp_(min=1e-30).rsqrt_()
+        inv2 = inv * inv
+        w = mw.mul_(inv2 * inv)
+        t = inv2.mul_(w)
+        w_sum += w.sum(1)
+        for i, dv in enumerate((dx, dy, dz)):
+            a_out[i] += (w * dv).sum(1)
+        tdx, tdy = t * dx, t * dy
+        for i, prod in enumerate((tdx * dx, tdy * dy, t.mul_(dz) * dz,
+                                  tdx * dy, tdx.mul_(dz), tdy.mul_(dz))):
+            j_raw[i] += prod.sum(1)
+    j_out = 3.0 * j_raw
+    j_out[:3] -= w_sum
+    return a_out.permute(1, 0, 2), j_out.permute(1, 0, 2)
+
+
 def far_field_grid(pyr: Pyramid, ws: int, G: float, eps: float, levels: int):
-    """Far field as an order-2 LOCAL EXPANSION per finest cell →
-    (A (d,d,d,3), J6 (d,d,d,6), H10 (d,d,d,10)) about cell centres, each
-    level's taps through kernel K3 and the exact downward translation
-    A_child = A + J·δ + ½δᵀHδ, J_child = J + H·δ, H_child = H."""
-    taps = level_tap_matrices(pyr.cell, ws, eps, levels)
+    """Far field as a LOCAL EXPANSION per finest cell about cell centres,
+    with the exact downward translation to child centres.
+
+    Order-2 pyramids → (A (d,d,d,3), J6 (d,d,d,6), H10 (d,d,d,10)): each
+    level's taps through kernel K3; A_child = A + J·δ + ½δᵀHδ,
+    J_child = J + H·δ, H_child = H. Order-1 pyramids (``msums``, no
+    ``quads``) → (A, J6, None): COM monopoles per level
+    (``_far_monopole_level``; the JAX package computes them outside any
+    Pallas kernel too); A_child = A + J·δ, J_child = J."""
+    quad = len(pyr.quads) > 0
+    taps = level_tap_matrices(pyr.cell, ws, eps, levels) if quad else None
     dtype = pyr.masses[0].dtype
     dev = pyr.masses[0].device
-    acc = jac = hes = None
+    acc = jac = hes = hes_lvl = None
     for lvl in range(1, levels + 1):
         dl = 1 << lvl
         p = dl // 2
         s_l = pyr.cell * (1 << (levels - lvl))
-        acc_pm, jac_pm, hes_pm = _far_conv_level(
-            pyr, lvl, ws, eps, levels, tap_mat=taps[lvl - 1]
-        )
+        if quad:
+            acc_pm, jac_pm, hes_pm = _far_conv_level(
+                pyr, lvl, ws, eps, levels, tap_mat=taps[lvl - 1]
+            )
+        else:
+            acc_pm, jac_pm = _far_monopole_level(pyr, lvl, ws, eps, levels)
 
         def to_grid(a, c, p=p, dl=dl):
             return (
@@ -386,7 +538,8 @@ def far_field_grid(pyr: Pyramid, ws: int, G: float, eps: float, levels: int):
 
         acc_lvl = to_grid(acc_pm, 3)
         jac_lvl = to_grid(jac_pm, 6)
-        hes_lvl = to_grid(hes_pm, 10)
+        if quad:
+            hes_lvl = to_grid(hes_pm, 10)
         if acc is not None:
 
             def rep8(x):
@@ -395,18 +548,20 @@ def far_field_grid(pyr: Pyramid, ws: int, G: float, eps: float, levels: int):
                     .repeat_interleave(2, 2)
                 )
 
-            a_rep, j_rep, h_rep = rep8(acc), rep8(jac), rep8(hes)
+            a_rep, j_rep = rep8(acc), rep8(jac)
             par = (torch.arange(dl, device=dev) % 2).to(dtype) - 0.5
             px, py, pz = torch.meshgrid(par, par, par, indexing="ij")
             delta = torch.stack([px, py, pz], dim=-1) * s_l
             acc_lvl = acc_lvl + a_rep + sym_matvec(j_rep, delta)
             jac_lvl = jac_lvl + j_rep
-            hd6 = sym3_matvec(h_rep, delta)
-            acc_lvl = acc_lvl + 0.5 * sym_matvec(hd6, delta)
-            jac_lvl = jac_lvl + hd6
-            hes_lvl = hes_lvl + h_rep
+            if quad:
+                h_rep = rep8(hes)
+                hd6 = sym3_matvec(h_rep, delta)
+                acc_lvl = acc_lvl + 0.5 * sym_matvec(hd6, delta)
+                jac_lvl = jac_lvl + hd6
+                hes_lvl = hes_lvl + h_rep
         acc, jac, hes = acc_lvl, jac_lvl, hes_lvl
-    return G * acc, G * jac, G * hes
+    return G * acc, G * jac, (G * hes if quad else None)
 
 
 def bh_engine_params(config: SimulationConfig) -> dict:
@@ -484,47 +639,89 @@ def _near_field(pos, mass, lo, cell, G: float, eps: float, ws: int,
     return G * acc, overflow, coords
 
 
-def _window_bh_forces(pos, mass, G, softening, ws, *, levels, window):
+def _far_pickup(far_cells, delta):
+    """The far expansion A + J·δ (+ ½(H·δ)·δ with 19 channels) at offsets
+    ``delta`` (N, 3) from the cell centres, ``far_cells`` (N, 9 | 19) the
+    packed [A3 | J6 (| H10)] of each row's cell."""
+    pick = far_cells[:, :3] + sym_matvec(far_cells[:, 3:9], delta)
+    if far_cells.shape[1] > 9:
+        pick = pick + 0.5 * sym_matvec(
+            sym3_matvec(far_cells[:, 9:19], delta), delta)
+    return pick
+
+
+def _window_bh_forces(pos, mass, G, softening, ws, *, levels, window,
+                      order=2):
     """The window engine: pyramid by scatter-add, far expansion (K3 per
-    level), near field (K7), and the far pickup in original row order."""
+    level at order 2, COM monopoles at order 1), near field (K7), and the
+    far pickup in original row order."""
     dev = pos.device
     with profile_phase("bh.pyramid", device=dev):
-        pyr = build_pyramid(pos, mass, levels)
+        pyr = build_pyramid(pos, mass, levels, order)
     with profile_phase("bh.far", device=dev):
-        a_far, j_far, h_far = far_field_grid(pyr, ws, G, softening, levels)
+        far = [f for f in far_field_grid(pyr, ws, G, softening, levels)
+               if f is not None]
     with profile_phase("bh.window", device=dev):
         a_near, _over, coords = _near_field(pos, mass, pyr.lo, pyr.cell, G,
                                             softening, ws, levels, window)
     with profile_phase("bh.pickup", device=dev):
         d = 1 << levels
-        packed = torch.cat([a_far, j_far, h_far], dim=-1).reshape(d ** 3, 19)
+        packed = torch.cat(far, dim=-1).reshape(d ** 3, -1)
         cid = ((coords[:, 0] * d + coords[:, 1]) * d + coords[:, 2]).to(
             torch.int64)
-        vals = packed[cid]
         delta = pos - (pyr.lo + (coords.to(pos.dtype) + 0.5) * pyr.cell)
-        pick = vals[:, :3] + sym_matvec(vals[:, 3:9], delta)
-        pick = pick + 0.5 * sym_matvec(sym3_matvec(vals[:, 9:19], delta),
-                                       delta)
-        return a_near + pick
+        return a_near + _far_pickup(packed[cid], delta)
+
+
+def _monopole_bh_force_from_grid(grid, lo, cell, *, d, levels, ws, near_k,
+                                 G, softening, sorted_output):
+    """The monopole (order-1) tiles path downstream of the cell sort, the
+    JAX package's non-fused sorted branch: finest [m, m·x] moments by the
+    segment sum (K6), the order-1 pyramid and far field, the exact near
+    field on k-slot tiles (K2 + K4, no far plane: rows past the k cap read
+    zero near field, counted by the audit), then the far pickup A + J·δ at
+    the sorted rows' cell centres. Returns acc in cell-sorted order when
+    ``sorted_output``, else in original order."""
+    dev = grid.psort.device
+    with profile_phase("bh.moments", device=dev):
+        packed = _sorted_finest_moments(grid, d)
+    with profile_phase("bh.pyramid", device=dev):
+        pyr = pyramid_from_packed(packed, lo, cell, levels, order=1)
+    with profile_phase("bh.far", device=dev):
+        a_far, j_far, _ = far_field_grid(pyr, ws, G, softening, levels)
+    a_near, _over = tile_near_field(grid, lo, cell, d=d, ws=ws, k=near_k,
+                                    G=G, eps=softening, sorted_output=True)
+    with profile_phase("bh.pickup", device=dev):
+        psort = grid.psort
+        far = torch.cat([a_far, j_far], dim=-1).reshape(d ** 3, 9)
+        delta = psort[:, :3] - (lo + (grid.csort.to(psort.dtype) + 0.5)
+                                * cell)
+        acc = a_near + _far_pickup(far[grid.ids.to(torch.int64)], delta)
+    if sorted_output:
+        return acc
+    return unsort_rows(acc, grid.order)
 
 
 def _barnes_hut_forces(pos, mass, G, softening, theta, *, levels, near_k,
-                       near_engine="tiles", window=2048,
+                       near_engine="tiles", window=2048, multipole_order=2,
                        sorted_output=False):
-    ws = theta_to_ws(theta, order=2)
+    ws = theta_to_ws(theta, order=multipole_order)
     if near_engine == "window":
         if sorted_output:
             raise ValueError("the window near engine has no sorted contract")
         return _window_bh_forces(pos, mass, G, softening, ws, levels=levels,
-                                 window=window)
+                                 window=window, order=multipole_order)
     d = 1 << levels
+    monopole = multipole_order < 2
     with profile_phase("bh.sort", device=pos.device):
         lo, cell, coords = bin_particles(pos, levels)
-        grid = build_sorted_grid(pos, mass, coords, d)
-    acc, _tb = _fused_bh_force_from_grid(
-        grid, lo, cell, d=d, levels=levels, ws=ws, near_k=near_k, G=G,
-        softening=softening, sorted_output=sorted_output,
-    )
+        grid = build_sorted_grid(pos, mass, coords, d, with_csort=monopole)
+    kw = dict(d=d, levels=levels, ws=ws, near_k=near_k, G=G,
+              softening=softening, sorted_output=sorted_output)
+    if monopole:
+        acc = _monopole_bh_force_from_grid(grid, lo, cell, **kw)
+    else:
+        acc, _tb = _fused_bh_force_from_grid(grid, lo, cell, **kw)
     if sorted_output:
         return acc, grid.psort, grid.order
     return acc
@@ -533,24 +730,27 @@ def _barnes_hut_forces(pos, mass, G, softening, theta, *, levels, near_k,
 def barnes_hut_forces(pos, mass, G: float = 1.0, softening: float = 0.1,
                       theta: float = 0.5, *, levels: int = 6,
                       near_k: int = 16, near_engine: str = "tiles",
-                      window: int = 2048):
-    """Full BH acceleration (N, 3) in original row order: order-2 pyramid
-    far field + exact near field, on k-slot tiles (``near_engine="tiles"``)
-    or by the sorted-window sweep with ``window`` rows per offset
-    (``"window"``)."""
+                      window: int = 2048, multipole_order: int = 2):
+    """Full BH acceleration (N, 3) in original row order: pyramid far
+    field + exact near field, on k-slot tiles (``near_engine="tiles"``) or
+    by the sorted-window sweep with ``window`` rows per offset
+    (``"window"``). ``multipole_order`` 2: quadrupole sources at
+    ws = ceil(1/(2θ)); 1: COM monopoles at ws = ceil(1/θ)."""
     return _barnes_hut_forces(pos, mass, G, softening, theta, levels=levels,
                               near_k=near_k, near_engine=near_engine,
-                              window=window)
+                              window=window, multipole_order=multipole_order)
 
 
 def barnes_hut_forces_sorted(pos, mass, G: float = 1.0,
                              softening: float = 0.1, theta: float = 0.5, *,
-                             levels: int = 6, near_k: int = 16):
+                             levels: int = 6, near_k: int = 16,
+                             multipole_order: int = 2):
     """The tiles engine's forces in its CELL-SORTED row order →
     ``(acc_sorted, psort, order)``: ``psort`` (N, 4) = [pos | mass][order],
     ``acc_sorted`` aligned with it (the sorted-stepping contract)."""
     return _barnes_hut_forces(pos, mass, G, softening, theta, levels=levels,
-                              near_k=near_k, sorted_output=True)
+                              near_k=near_k, multipole_order=multipole_order,
+                              sorted_output=True)
 
 
 def make_barnes_hut_forces(config: SimulationConfig):
@@ -563,7 +763,8 @@ def make_barnes_hut_forces(config: SimulationConfig):
         return _barnes_hut_forces(pos, mass, G, eps, theta,
                                   levels=p["levels"], near_k=p["near_k"],
                                   near_engine=p["near_engine"],
-                                  window=p["window"])
+                                  window=p["window"],
+                                  multipole_order=p["multipole_order"])
 
     return force_fn
 
@@ -580,6 +781,7 @@ def make_barnes_hut_forces_sorted(config: SimulationConfig):
     def sorted_force_fn(pos, mass):
         return _barnes_hut_forces(pos, mass, G, eps, theta,
                                   levels=p["levels"], near_k=p["near_k"],
+                                  multipole_order=p["multipole_order"],
                                   sorted_output=True)
 
     return sorted_force_fn

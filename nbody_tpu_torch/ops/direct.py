@@ -7,7 +7,11 @@ PyTorch counterpart of ``nbody_tpu/ops/direct.py``:
   * ``direct_forces`` — the plain blocked version (i-blocks against the
     full j axis), the plain twin of the kernel;
   * ``direct_forces_kernel`` — the wrapper of the hand-written CUDA kernel
-    ``csrc/direct.cu`` (kernel K1, replacing ``direct_forces_pallas``).
+    ``csrc/direct.cu`` (kernel K1, replacing ``direct_forces_pallas``);
+  * ``pairwise_potential`` — the all-pairs potential energy, wrapper of
+    ``csrc/pair_potential.cu`` (kernel K5, replacing
+    ``pairwise_potential_pallas``), and ``pairwise_potential_plain``, its
+    plain twin.
 
 Physics: a_i = G · Σ_j m_j · (x_j − x_i) / (|x_j − x_i|² + ε²)^{3/2}, with
 self/coincident pairs contributing exactly zero.
@@ -84,3 +88,55 @@ def direct_forces_kernel(pos, mass, G=1.0, softening=0.1, *, targets=None):
 
 
 direct_forces_kernel.launches = 0
+
+
+# Pair terms one row block of the plain potential evaluates at once (2048
+# rows at N = 131072: a few hundred launches, ~1 GB per temporary).
+PE_BLOCK_TERMS = 1 << 28
+
+
+def pairwise_potential_plain(pos, mass, G=1.0, softening=0.1):
+    """Plain twin of kernel K5: PE = −½G Σ_{i≠j} m_i·m_j/√(r² + ε²), pairs
+    with raw r² == 0 excluded, over row blocks of ``PE_BLOCK_TERMS`` pair
+    terms, each block's terms summed in float64. Returns a float32 scalar
+    tensor."""
+    pairwise_potential_plain.calls += 1
+    n = pos.shape[0]
+    b = max(1, min(n, PE_BLOCK_TERMS // max(n, 1)))
+    eps2 = float(softening) ** 2
+    x, y, z = pos[:, 0], pos[:, 1], pos[:, 2]
+    total = torch.zeros((), dtype=torch.float64, device=pos.device)
+    for i in range(0, n, b):
+        dx = x[None, :] - x[i:i + b, None]
+        dy = y[None, :] - y[i:i + b, None]
+        dz = z[None, :] - z[i:i + b, None]
+        r2 = dx * dx + dy * dy + dz * dz
+        e = (mass[i:i + b, None] * mass[None, :]) * torch.rsqrt(r2 + eps2)
+        total = total + torch.where(r2 == 0.0, 0.0, e).sum(
+            dtype=torch.float64)
+    return (-0.5 * G * total).to(torch.float32)
+
+
+pairwise_potential_plain.calls = 0
+
+
+def pairwise_potential(pos, mass, G=1.0, softening=0.1):
+    """Kernel K5 (``csrc/pair_potential.cu``): the all-pairs potential, one
+    thread per row, float64 partial per block of 256 rows, the partials
+    summed in float64 here. Returns a float32 scalar tensor. CPU tensors
+    take the plain twin; CUDA tensors launch the kernel or raise."""
+    if pos.device.type == "cpu":
+        return pairwise_potential_plain(pos, mass, G, softening)
+    _build.require_cuda(pos, "pairwise_potential")
+    dev = pos.device
+    n = pos.shape[0]
+    _build.check(pos, "pos", (n, 3), dev)
+    _build.check(mass, "mass", (n,), dev)
+    partial = torch.empty((-(-n // 256),), dtype=torch.float64, device=dev)
+    _build.launch("nbt_pair_potential", dev, pos.data_ptr(), mass.data_ptr(),
+                  n, float(softening) ** 2, partial.data_ptr())
+    pairwise_potential.launches += 1
+    return (-0.5 * G * partial.sum()).to(torch.float32)
+
+
+pairwise_potential.launches = 0

@@ -13,6 +13,11 @@ cell-sorted rows and the per-cell segment index it produces
 
 ``tile_scatter`` is the wrapper of ``csrc/scatter.cu``; ``tile_scatter_plain``
 is its plain PyTorch twin.
+
+Beside it, the sorted segment sum (kernel K6, ``monotone_segment_sum``):
+``segment_sum`` sums C ≤ 15 channels of rows sorted by destination into
+(C, num_dest) — the Barnes-Hut monopole path's finest moments — and
+``segment_sum_plain`` is its twin (``index_add_``).
 """
 
 from __future__ import annotations
@@ -104,3 +109,47 @@ def tile_scatter(psort, cell_start, lo, cell, *, d: int, k: int):
 
 
 tile_scatter.launches = 0
+
+# Destination ids at or above this are sentinel rows: they may interleave
+# with the sorted real ids and add nothing (``monotone_segment_sum``).
+SENTINEL_DEST = 1 << 24
+
+
+def segment_sum_plain(vals, dest, num_dest: int):
+    """Plain twin of kernel K6: ``index_add_`` of the rows with
+    0 ≤ dest < num_dest → (C, num_dest)."""
+    segment_sum_plain.calls += 1
+    ok = (dest >= 0) & (dest < num_dest)
+    out = torch.zeros((num_dest, vals.shape[1]), dtype=vals.dtype,
+                      device=vals.device)
+    out.index_add_(0, dest[ok].to(torch.int64), vals[ok])
+    return out.T.contiguous()
+
+
+segment_sum_plain.calls = 0
+
+
+def segment_sum(vals, dest, num_dest: int):
+    """Kernel K6 (``csrc/segment_sum.cu``, one thread per segment, rows
+    summed in row order, no atomics): per-segment sums (C, num_dest) of
+    ``vals`` (N, C ≤ 15) over the non-decreasing int32 ``dest`` (N,);
+    rows with dest ≥ 2²⁴ may interleave and add nothing (the kernel reads
+    such a row as the last real id before it). CPU tensors take the plain
+    twin; CUDA tensors launch the kernel or raise."""
+    if vals.device.type == "cpu":
+        return segment_sum_plain(vals, dest, num_dest)
+    _build.require_cuda(vals, "segment_sum")
+    dev = vals.device
+    n, c = vals.shape
+    if not 1 <= c <= 15:
+        raise ValueError(f"segment_sum takes 1..15 channels, got {c}")
+    _build.check(vals, "vals", (n, c), dev)
+    _build.check(dest, "dest", (n,), dev, torch.int32)
+    out = torch.empty((c, num_dest), dtype=torch.float32, device=dev)
+    _build.launch("nbt_segment_sum", dev, vals.data_ptr(), c, n,
+                  dest.data_ptr(), num_dest, out.data_ptr())
+    segment_sum.launches += 1
+    return out
+
+
+segment_sum.launches = 0

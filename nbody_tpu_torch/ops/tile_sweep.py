@@ -89,19 +89,21 @@ def tile_near_field(grid: SortedGrid, lo, cell, *, d: int, ws: int, k: int,
     """Exact near field within the (2ws+1)³ cell ball on k-slot tiles
     (kernels K2 and K4), no far field: with ``cutoff2`` (raw r² ≤ cutoff²,
     tested before softening) this is the spatial hash's sparse-regime
-    engine. Rows past the k cap read zero and are counted. Returns
-    ``(acc, overflow)``, acc G-scaled in original order, or in the grid's
-    cell-sorted order with ``sorted_output=True``. ``lo`` (3,) and
-    ``cell`` are device tensors."""
+    engine; without it, the Barnes-Hut monopole path's near field. Rows
+    past the k cap read zero and are counted. Returns ``(acc, overflow)``,
+    acc G-scaled in original order, or in the grid's cell-sorted order
+    with ``sorted_output=True``. ``lo`` (3,) and ``cell`` are device
+    tensors; the phases are timed as ``near.placement``, ``near.sweep``
+    and ``near.pickup``."""
     dev = grid.psort.device
-    with profile_phase("hash.placement", device=dev):
+    with profile_phase("near.placement", device=dev):
         tb = tile_build(grid, lo, cell, d=d, k=k)
-    with profile_phase("hash.sweep", device=dev):
+    with profile_phase("near.sweep", device=dev):
         acc_raw = tile_sweep_plane(
             tb.tiles_plane, k=k, d=d, ws=ws, eps=eps, cutoff2=cutoff2,
             lo=lo, cell=cell, counts=tb.counts,
         )
-    with profile_phase("hash.pickup", device=dev):
+    with profile_phase("near.pickup", device=dev):
         acc = _slot_pickup_raw(acc_raw, grid, tb.rank_sorted, None, d, k, G,
                                sorted_output=sorted_output)
     return acc, tb.overflow

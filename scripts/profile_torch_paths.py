@@ -4,13 +4,16 @@
     python3 scripts/profile_torch_paths.py [--steps 10] [--out build/profile_torch_paths.json]
 
 From the root of a checkout, on a machine with one CUDA card. For each path
-that ``chip_smoke.py`` drives (``chip_smoke.path_configs``: 1M Barnes-Hut
-tiles, 1M dense hash, 1M sparse hash, 1M Barnes-Hut window engine, 100K
-direct), it initializes the facade, takes a warm ``run_steps``, then:
+that ``chip_smoke.py`` drives — the five facade paths of
+``chip_smoke.path_configs`` (1M Barnes-Hut tiles, 1M dense hash, 1M
+sparse hash, 1M Barnes-Hut window engine, 100K direct), through
+``ParticleSystem.run_steps``, and the 1M Barnes-Hut monopole path
+(``chip_smoke.monopole_forces`` under ``make_sorted_multi_step``) — it
+takes a warm run of ``steps`` steps from the initial state, then:
 
-  * times ``run_steps(steps)`` with no profiler (host clock around
-    ``synchronize``) → ms/step;
-  * traces ``run_steps(steps)`` under ``torch.profiler`` (CPU + CUDA
+  * times ``steps`` steps from the initial state with no profiler (host
+    clock around ``synchronize``) → ms/step;
+  * traces the same steps under ``torch.profiler`` (CPU + CUDA
     activity) → device kernels per step, device busy ms/step (the union of
     the kernel intervals of the exported trace) and the device time of
     each kernel name per step;
@@ -62,8 +65,13 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
-    from chip_smoke import path_configs
+    from chip_smoke import MONOPOLE, monopole_forces, path_configs
     from nbody_tpu_torch import ParticleSystem
+    from nbody_tpu_torch.models.distributions import init_from_config
+    from nbody_tpu_torch.ops.integrator import (
+        initialize_forces,
+        make_sorted_multi_step,
+    )
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -76,24 +84,27 @@ def main() -> None:
     out_dir = os.path.dirname(args.out) or "."
     os.makedirs(out_dir, exist_ok=True)
     trace = os.path.join(out_dir, "profile_trace.json")
-    for label, cfg in paths.items():
-        ps = ParticleSystem()
-        ps.initialize(cfg)
-        ps.run_steps(steps)
-        ps.synchronize()
-        ps.reset()
-        ps.synchronize()
+    def sync():
+        torch.cuda.synchronize()
+
+    def measure(label, run, reset):
+        """``run()`` takes ``steps`` steps from the initial state after
+        ``reset()``."""
+        run()
+        sync()
+        reset()
+        sync()
         t0 = time.perf_counter()
-        ps.run_steps(steps)
-        ps.synchronize()
+        run()
+        sync()
         step_ms = (time.perf_counter() - t0) / steps * 1e3
-        ps.reset()
-        ps.synchronize()
+        reset()
+        sync()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            ps.run_steps(steps)
-            ps.synchronize()
+            run()
+            sync()
             prof_ms = (time.perf_counter() - t0) / steps * 1e3
         prof.export_chrome_trace(trace)
         busy, count, by_name = busy_ms(trace)
@@ -113,6 +124,17 @@ def main() -> None:
               f"{rec['idle_share']:.3f} ({smi})")
         for k, v in top:
             print(f"    {v / steps:8.4f} ms/step  {k[:90]}")
+
+    for label, cfg in paths.items():
+        ps = ParticleSystem()
+        ps.initialize(cfg)
+        measure(label, lambda: ps.run_steps(steps), ps.reset)
+
+    bh = paths["1M BH tiles"]
+    force_fn, sorted_fn = monopole_forces(bh)
+    state0 = initialize_forces(init_from_config(bh, device="cuda"), force_fn)
+    multi = make_sorted_multi_step(sorted_fn, bh.dt, steps)
+    measure(MONOPOLE, lambda: multi(state0), lambda: None)
     os.remove(trace)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)

@@ -14,9 +14,21 @@ import pytest
 import torch
 
 from nbody_tpu_torch.ops.barnes_hut import barnes_hut_forces, bin_particles
-from nbody_tpu_torch.ops.direct import direct_forces, direct_forces_kernel
+from nbody_tpu_torch.ops import _build
+from nbody_tpu_torch.ops.direct import (
+    direct_forces,
+    direct_forces_kernel,
+    pairwise_potential,
+    pairwise_potential_plain,
+)
 from nbody_tpu_torch.ops.far_taps import far_taps, far_taps_plain
-from nbody_tpu_torch.ops.scatter import tile_scatter, tile_scatter_plain
+from nbody_tpu_torch.ops.scatter import (
+    SENTINEL_DEST,
+    segment_sum,
+    segment_sum_plain,
+    tile_scatter,
+    tile_scatter_plain,
+)
 from nbody_tpu_torch.ops.sorted_window import build_sorted_grid, xy_ball
 from nbody_tpu_torch.ops.spatial_hash import (
     spatial_hash_forces,
@@ -173,4 +185,66 @@ def test_barnes_hut_window_card_matches_cpu(dev):
     before = window_sweep_kernel.launches
     got = barnes_hut_forces(p.to(dev), m.to(dev), **kw)
     assert window_sweep_kernel.launches == before + 1
+    _close(got, barnes_hut_forces(p, m, **kw), 2e-5)
+
+
+def test_pair_potential_kernel(dev):
+    """K5 vs plain at N = 20000 with a coincident pair and a zero-mass
+    row: relative 1e-5 (rsqrtf and torch.rsqrt differ by ulps per term;
+    the sums are float64 in both)."""
+    p, m = _sphere(20000, 5.0, seed=7)
+    p[1] = p[0]
+    m[2] = 0.0
+    p, m = p.to(dev), m.to(dev)
+    before = pairwise_potential.launches
+    got = float(pairwise_potential(p, m, 1.0, 0.1))
+    assert pairwise_potential.launches == before + 1
+    np.testing.assert_allclose(
+        got, float(pairwise_potential_plain(p, m, 1.0, 0.1)), rtol=1e-5)
+
+
+def test_segment_sum_kernel(dev):
+    """K6 vs plain on sorted ids with interleaved sentinel rows and
+    without: max|diff| <= 1e-6·max|out|."""
+    rng = np.random.default_rng(8)
+    n, nd = 50000, 4096
+    ids = np.sort(rng.integers(0, nd, n)).astype(np.int32)
+    at = np.sort(rng.integers(0, n + 1, 500))
+    ids_s = np.insert(ids, at, SENTINEL_DEST + rng.integers(0, 9, 500))
+    for dest in (ids_s.astype(np.int32), ids):
+        vals = torch.from_numpy(
+            rng.normal(size=(dest.shape[0], 4)).astype(np.float32)).to(dev)
+        d = torch.from_numpy(dest).to(dev)
+        before = segment_sum.launches
+        got = segment_sum(vals, d, nd)
+        assert segment_sum.launches == before + 1
+        _close(got, segment_sum_plain(vals, d, nd), 1e-6)
+
+
+def test_k5_k6_raise_without_their_build(dev, monkeypatch):
+    """A CUDA tensor never reaches the plain twin: with the kernel library
+    unavailable both wrappers raise."""
+    def missing():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "library", missing)
+    p, m = (t.to(dev) for t in _sphere(1000, 5.0, seed=9))
+    calls = (pairwise_potential_plain.calls, segment_sum_plain.calls)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        pairwise_potential(p, m, 1.0, 0.1)
+    ids = torch.zeros(1000, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        segment_sum(p.contiguous(), ids, 8)
+    assert (pairwise_potential_plain.calls, segment_sum_plain.calls) == calls
+
+
+@pytest.mark.parametrize("engine", ["tiles", "window"])
+def test_monopole_card_matches_cpu(dev, engine):
+    """Monopole Barnes-Hut (levels 4, ws 2) on the card (K6 + K2 + K4, or
+    K7) vs on the CPU (plain twins), same inputs: atol 2e-5·max|a|."""
+    p, m = _sphere(20000, 6.0, seed=10)
+    kw = dict(levels=4, near_k=16, near_engine=engine, multipole_order=1)
+    before = segment_sum.launches
+    got = barnes_hut_forces(p.to(dev), m.to(dev), **kw)
+    assert segment_sum.launches == before + (engine == "tiles")
     _close(got, barnes_hut_forces(p, m, **kw), 2e-5)
