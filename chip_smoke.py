@@ -20,7 +20,13 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
      ws = 1), K5 (the all-pairs potential) on the drift gate's own 1M
      input (the twin run once) and at N = 131072 on the scene's first
      rows (kernel: median of 3 after 1 warm-up), K6 (the segment sum) at
-     the monopole path's (1M, 4) → (4, 262144);
+     the monopole path's (1M, 4) → (4, 262144), K8 (the bitonic sort) on
+     the sort benchmark's 1M keys below 2^18 (numpy seed 0), on the 1M
+     Barnes-Hut scene's finest cell ids (d = 64) and at n = 1000 and
+     2^11 + 1 (keys and values bit for bit; ``torch.sort`` is its library
+     yardstick); then frozen(fresh meta) against the sorted step, bit for
+     bit, at 1M for Barnes-Hut tiles and the sparse hash, and each audit
+     against a host recount after a move;
      prints each kernel's bound (the larger of its FP32 operations over 67
      TFLOP/s and its bytes over 3.35 TB/s, counted from this run's inputs:
      for K7 the pairs of each target's 27-cell ball, with the pair tests
@@ -38,12 +44,21 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
           "auto" → tiles engine, d 56, k 16): 30 steps;
        d. 1M Barnes-Hut, window engine (bh_max_level 5): 10 steps;
        e. 100K direct N² (the spherical scene): 10 steps;
-     and f. 1M Barnes-Hut monopole (the tiles scene with
+       g. the 1M sparse hash with ``resort_every=8``: 30 steps, a sort
+          every 8th (4 sorted steps, 26 frozen);
+       h. 1M Barnes-Hut tiles with ``resort_stale_frac=0.01`` (cap 16):
+          30 steps, re-sorted when the audit asks, with the trace of the
+          same steps (stale counts, re-sorts) and the cost of the host
+          read of the audit count;
+     f. 1M Barnes-Hut monopole (the tiles scene with
      ``multipole_order=1``: ws 2, K6 moments, no far taps), which the
      facade never selects: ``barnes_hut_forces_sorted(multipole_order=1)``
      under ``make_sorted_multi_step``, 10 steps warm, then 10 timed from
-     the initial state. Each prints steps/s beside the card, the phase
-     times and the launches, and checks the state is finite;
+     the initial state; and the sort benchmark (K8 through
+     ``bitonic_argsort`` on its two 1M inputs, the path of
+     ``scripts/profile_sort_torch.py``). Each prints steps/s beside the
+     card, the phase times and the launches, and checks the state is
+     finite;
   4. ground truth at step 0: Barnes-Hut (both engines and the monopole
      path) against the direct kernel over 4096 sampled rows and all 1M
      sources (median relative error < 0.05); the hash (both engines)
@@ -129,22 +144,28 @@ def path_configs() -> dict:
     hash_ = SimulationConfig(particle_count=N,
                              force_method=ForceMethod.SPATIAL_HASH, dt=1e-3)
     half = max(10.0, N ** (1.0 / 3.0)) / 2.0
+    sparse = hash_.replace(
+        spatial_hash_cell_size=2.0,
+        init_distribution=InitDistribution.UNIFORM,
+        dist_params=UniformDistParams(min_bounds=(-half,) * 3,
+                                      max_bounds=(half,) * 3))
     return {
         "1M BH tiles": bh,
         "1M dense hash": hash_,
-        "1M sparse hash": hash_.replace(
-            spatial_hash_cell_size=2.0,
-            init_distribution=InitDistribution.UNIFORM,
-            dist_params=UniformDistParams(min_bounds=(-half,) * 3,
-                                          max_bounds=(half,) * 3)),
+        "1M sparse hash": sparse,
         "1M BH window": bh.replace(bh_max_level=5),
         "100K direct": SimulationConfig(
             particle_count=N // 10, force_method=ForceMethod.DIRECT_N2,
             dt=1e-3),
+        SPARSE_RESORT: sparse.replace(resort_every=8),
+        BH_ADAPTIVE: bh.replace(resort_stale_frac=0.01),
     }
 
 
 MONOPOLE = "1M BH monopole"
+SPARSE_RESORT = "1M sparse hash, resort_every 8"
+BH_ADAPTIVE = "1M BH tiles, resort_stale_frac 0.01"
+SORT_PATH = "1M sort benchmark"
 
 
 def monopole_forces(cfg):
@@ -473,6 +494,140 @@ def k6_check(res, pos, mass, cfg):
           f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
 
 
+def sort_inputs(pos, cfg):
+    """K8's inputs at the shapes its path gives it, as ``{label: keys}``:
+    the sort benchmark's N keys below 2^18 (numpy default_rng(0), as
+    scripts/profile_sort.py), the BH scene's finest cell ids, and two small
+    shapes — n = 1000 (one tile with pads) and 2^11 + 1 (pads past a
+    whole tile, many ties)."""
+    import numpy as np
+    import torch
+
+    from nbody_tpu_torch.ops.barnes_hut import bh_engine_params, bin_particles
+    from nbody_tpu_torch.ops.sorted_window import cell_ids
+
+    n, dev = pos.shape[0], pos.device
+    levels = bh_engine_params(cfg)["levels"]
+    rng = np.random.default_rng(0)
+    small = np.random.default_rng(1)
+
+    def on(a):
+        return torch.from_numpy(a.astype(np.int32)).to(dev)
+
+    return {
+        f"{n} keys < 2^18": on(rng.integers(0, 1 << 18, size=n)),
+        f"{n} BH cell ids (d = {1 << levels})": cell_ids(
+            bin_particles(pos, levels)[2], 1 << levels),
+        "n = 1000": on(small.integers(0, 5000, size=1000)),
+        "n = 2^11 + 1": on(small.integers(0, 7, size=(1 << 11) + 1)),
+    }
+
+
+def k8_checks(res, inputs):
+    """K8 (the bitonic sort) against its plain twin on each input, keys
+    and values bit for bit, and the result a sorting permutation; at the
+    1M shapes the kernel, the twin (median of 3) and ``torch.sort`` (the
+    library yardstick) are timed."""
+    import math
+
+    import torch
+
+    from nbody_tpu_torch.ops.sort import (
+        bitonic_sort_pairs,
+        bitonic_sort_pairs_plain,
+        kernel_launches,
+    )
+
+    for label, keys in inputs.items():
+        n = keys.shape[0]
+        vals = torch.arange(n, dtype=torch.int32, device=keys.device)
+        ks, vs = bitonic_sort_pairs(keys, vals)
+        kp, vp = bitonic_sort_pairs_plain(keys, vals)
+        check(torch.equal(ks, kp) and torch.equal(vs, vp),
+              f"K8 {label}: kernel and twin differ")
+        check(torch.equal(ks, torch.sort(keys).values)
+              and torch.equal(keys[vs.long()], ks)
+              and torch.equal(torch.sort(vs).values, vals),
+              f"K8 {label}: not a sorting permutation")
+        big = n >= 1 << 16
+        rec = dict(
+            max_abs_err=0.0,
+            ms=time_ms(lambda: bitonic_sort_pairs(keys, vals)),
+            plain_ms=time_ms(lambda: bitonic_sort_pairs_plain(keys, vals),
+                             reps=3 if big else 7, warm=1),
+            # keys + values read once and written once; n·log2(n)
+            # comparisons, the least a comparison sort makes
+            **bound(n * math.log2(n), 16 * n),
+            library_ms=time_ms(lambda: torch.sort(keys)),
+        )
+        add_shape(res, "bitonic_sort", label, rec)
+        print(f"K8 bitonic_sort {label}: keys and values bit-equal to the "
+              f"twin, a sorting permutation; {kernel_launches(n)} kernel "
+              f"launches a sort; kernel {rec['ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.4f} ms, torch.sort {rec['library_ms']:.4f}"
+              f" ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+
+
+def frozen_checks(pos, mass, bh_cfg, sp_pos, sp_mass, sp_cfg):
+    """The frozen-grid contract at 1M: frozen(psort, fresh meta) equals
+    the sorted step bit for bit and audits 0 stale rows, for Barnes-Hut
+    tiles and the sparse hash (tiles engine); after a move of 0.02·N(0, 1)
+    per coordinate the audit equals a recount on the host."""
+    import torch
+
+    from nbody_tpu_torch.ops.barnes_hut import (
+        barnes_hut_forces_frozen,
+        barnes_hut_forces_sorted,
+        bh_engine_params,
+    )
+    from nbody_tpu_torch.ops.spatial_hash import (
+        hash_engine_params,
+        spatial_hash_forces_tiles_frozen,
+        spatial_hash_forces_tiles_sorted,
+    )
+
+    p = bh_engine_params(bh_cfg)
+    bkw = dict(levels=p["levels"], near_k=p["near_k"])
+    args = (bh_cfg.G, bh_cfg.softening, bh_cfg.barnes_hut_theta)
+    h = hash_engine_params(sp_cfg, sp_pos)
+    hkw = dict(cutoff=sp_cfg.spatial_hash_cutoff,
+               cell_size=sp_cfg.spatial_hash_cell_size, d=h["tile_d"],
+               k=h["tile_k"])
+    cases = [
+        ("BH tiles", 1 << p["levels"], lambda x: x.to(torch.int32),
+         barnes_hut_forces_sorted(pos, mass, *args, with_grid_meta=True,
+                                  **bkw),
+         lambda q, meta: barnes_hut_forces_frozen(q, meta, *args,
+                                                  with_audit=True, **bkw)),
+        ("sparse hash", h["tile_d"], lambda x: torch.floor(x).to(torch.int32),
+         spatial_hash_forces_tiles_sorted(sp_pos, sp_mass, sp_cfg.G,
+                                          sp_cfg.softening,
+                                          with_grid_meta=True, **hkw),
+         lambda q, meta: spatial_hash_forces_tiles_frozen(
+             q, meta, sp_cfg.G, sp_cfg.softening, with_audit=True, **hkw)),
+    ]
+    for label, d, bins, (acc, psort, _order, meta), frozen in cases:
+        acc_f, stale = frozen(psort, meta)
+        check(torch.equal(acc_f, acc),
+              f"frozen {label}: fresh meta not bit-equal to the sorted step")
+        check(int(stale) == 0, f"frozen {label}: fresh audit {int(stale)}")
+        gen = torch.Generator(device=psort.device)
+        gen.manual_seed(0)
+        moved = psort.clone()
+        moved[:, :3] += 0.02 * torch.randn(moved.shape[0], 3, generator=gen,
+                                           device=psort.device)
+        _, stale = frozen(moved, meta)
+        c = torch.clamp(bins((moved[:, :3].cpu() - meta.lo.cpu())
+                             / meta.cell.cpu()), 0, d - 1)
+        ids = (c[:, 0] * d + c[:, 1]) * d + c[:, 2]
+        recount = int((ids != meta.ids.cpu()).sum())
+        check(int(stale) == recount,
+              f"frozen {label}: audit {int(stale)} != host {recount}")
+        print(f"frozen {label} (N={psort.shape[0]}, d={d}): fresh meta "
+              f"bit-equal to the sorted step, audit 0; after a move of "
+              f"0.02*N(0,1) audit {int(stale)} = host recount")
+
+
 def sparse_tile_checks(res, pos, mass):
     """Phase 2 for the 1M sparse hash: K2 and K4 (cutoff² 4, no far
     plane) against their plain twins at the tiles engine's d = 56, k = 16
@@ -655,7 +810,7 @@ def counted_run(label, steps, run, want, wrappers, plains, smi):
     """Every count set to 0, ``run()`` timed (host clock to a synchronize),
     the counts read: checks the launches and that no plain twin ran,
     prints steps/s, phases and launches. Returns (launches, run's
-    result)."""
+    result, phases)."""
     import torch
 
     from nbody_tpu_torch.utils.profiling import consume_global_phase_snapshot
@@ -681,7 +836,7 @@ def counted_run(label, steps, run, want, wrappers, plains, smi):
     check(launches == want,
           f"{label}: launch counts {launches} != expected {want}")
     check(plain_calls == 0, f"{label}: a plain twin ran on the path")
-    return launches, out
+    return launches, out, phases
 
 
 def check_finite(label, st) -> None:
@@ -694,7 +849,8 @@ def check_finite(label, st) -> None:
 def run_path(label, cfg, steps, want, wrappers, plains, smi, dev):
     """Drive one path through the facade: warm run, reset, then the timed
     run under ``counted_run``; checks a finite state that advanced and
-    prints the audit. Returns launches."""
+    prints the audit. Returns (launches, phases, the system, the state the
+    timed run started from)."""
     from nbody_tpu_torch import ParticleSystem
 
     ps = ParticleSystem()
@@ -703,12 +859,103 @@ def run_path(label, cfg, steps, want, wrappers, plains, smi, dev):
     ps.synchronize()
     ps.reset()
     ps.synchronize()
-    launches, _ = counted_run(label, steps, lambda: ps.run_steps(steps),
-                              want, wrappers, plains, smi)
+    state0 = ps.state
+    launches, _, phases = counted_run(
+        label, steps, lambda: ps.run_steps(steps), want, wrappers, plains,
+        smi)
     check_finite(label, ps.state)
     check(abs(ps.simulation_time - steps * cfg.dt) < 1e-6,
           f"{label}: simulation time did not advance")
     print(f"  audit_short_range: {ps.audit_short_range()}")
+    return launches, phases, ps, state0
+
+
+def adaptive_report(ps, state0, steps, phases):
+    """Path h after its timed run: the trace of the same steps from the
+    same state (``with_trace=True``), whose re-sorts must match the timed
+    run's ``bh.sort`` samples; then the host read of the audit count,
+    timed as the difference between the stale cap N − 1 (read after every
+    frozen step, never exceeded) and N (never read) over the same steps,
+    both at cap 16: medians of 4 runs each, in turns (the host-bound step
+    varies between runs by more than a read costs); and the host's wait
+    inside each read, on audited frozen force evaluations in a row."""
+    import torch
+
+    from nbody_tpu_torch.ops.integrator import make_adaptive_multi_step
+
+    cfg, sf, n = ps.config, ps._sorted_force, state0.n
+    _, (stale, resorted) = make_adaptive_multi_step(
+        sf, cfg.dt, steps, max_stale_frac=cfg.resort_stale_frac,
+        max_cadence=16, with_trace=True)(state0)
+    sorts = 1 + int(resorted.sum())
+    print(f"  trace: {sorts} sorted steps of {steps} (the first and "
+          f"{int(resorted.sum())} re-sorts at steps "
+          f"{(torch.nonzero(resorted)[:, 0] + 2).tolist()}); stale counts "
+          f"after steps 2..{steps}: {stale.tolist()} (cap "
+          f"{int(cfg.resort_stale_frac * n)})")
+    check(phases["bh.sort"].samples == sorts,
+          f"adaptive: {phases['bh.sort'].samples} sorts timed, trace {sorts}")
+
+    multis = {frac: make_adaptive_multi_step(sf, cfg.dt, steps,
+                                             max_stale_frac=frac,
+                                             max_cadence=16)
+              for frac in ((n - 1) / n, 1.0)}
+    walls = {frac: [] for frac in multis}
+    for frac in multis:
+        multis[frac](state0)
+    for turn in range(8):
+        frac = list(multis)[(turn + turn // 2) % 2]  # r n n r r n n r
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        multis[frac](state0)
+        torch.cuda.synchronize()
+        walls[frac].append((time.perf_counter() - t0) * 1e3)
+    # reads: frozen steps followed by a decision the cadence cap does not
+    # already make (since < 15)
+    reads = sum(1 for s in range(1, steps) if 0 < (s - 1) % 16 < 15)
+    t_read, t_none = (statistics.median(w) for w in walls.values())
+    spread = "; ".join(f"{min(w):.3f}-{max(w):.3f}" for w in walls.values())
+    print(f"  audit read: {steps} steps with {reads} host reads of the "
+          f"count {t_read:.3f} ms, without reads {t_none:.3f} ms (medians "
+          f"of 4; ranges {spread} ms): {(t_read - t_none) / reads:.4f} ms "
+          "a read")
+    # the wait inside a read: the host clock around each read of the count
+    # after an audited frozen evaluation (the host idles while the device
+    # finishes what it queued)
+    _, psort, _, meta = sf.with_meta(state0.pos, state0.mass)
+    int(sf.frozen(psort, meta, with_audit=True)[1])
+    waits, t0 = [], time.perf_counter()
+    for _ in range(reads):
+        count = sf.frozen(psort, meta, with_audit=True)[1]
+        t1 = time.perf_counter()
+        int(count)
+        waits.append((time.perf_counter() - t1) * 1e3)
+    per = (time.perf_counter() - t0) * 1e3 / reads
+    print(f"  host wait in a read: median {statistics.median(waits):.4f} ms "
+          f"(range {min(waits):.4f}-{max(waits):.4f}) of {reads} reads, each "
+          f"after one audited frozen force evaluation ({per:.3f} ms with "
+          "its read)")
+
+
+def sort_path(inputs, want, wrappers, plains, smi):
+    """K8's path: ``bitonic_argsort`` (the entry point of
+    scripts/profile_sort_torch.py) on the sort benchmark's two 1M inputs,
+    each result checked sorted. Returns launches."""
+    import torch
+
+    from nbody_tpu_torch.ops.sort import bitonic_argsort
+
+    big = [k for k in inputs.values() if k.shape[0] > 1 << 16]
+
+    def run():
+        return [bitonic_argsort(k) for k in big]
+
+    launches, outs, _ = counted_run(SORT_PATH, len(big), run, want,
+                                    wrappers, plains, smi)
+    for k, (ks, perm) in zip(big, outs):
+        check(torch.equal(ks, k[perm.long()]) and bool((ks[1:] >= ks[:-1])
+                                                       .all()),
+              f"{SORT_PATH}: a result is not sorted")
     return launches
 
 
@@ -731,8 +978,8 @@ def run_monopole(cfg, scene, steps, want, wrappers, plains, smi):
     multi = make_sorted_multi_step(sorted_fn, cfg.dt, steps)
     multi(state0)
     torch.cuda.synchronize()
-    launches, st = counted_run(MONOPOLE, steps, lambda: multi(state0), want,
-                               wrappers, plains, smi)
+    launches, st, _ = counted_run(MONOPOLE, steps, lambda: multi(state0),
+                                  want, wrappers, plains, smi)
     check_finite(MONOPOLE, st)
     check(abs(float(st.time) - steps * cfg.dt) < 1e-6,
           f"{MONOPOLE}: simulation time did not advance")
@@ -755,7 +1002,7 @@ def drift_phase(steps, chunk, want, wrappers, plains, smi, dev):
     from nbody_tpu_torch.drift import drift_metric, run_drift
 
     label = "1M drift gate"
-    launches, recs = counted_run(
+    launches, recs, _ = counted_run(
         label, steps, lambda: list(run_drift(N, steps, chunk, dev)), want,
         wrappers, plains, smi)
     for rec in recs:
@@ -793,6 +1040,10 @@ def main() -> None:
         segment_sum_plain,
         tile_scatter,
         tile_scatter_plain,
+    )
+    from nbody_tpu_torch.ops.sort import (
+        bitonic_sort_pairs,
+        bitonic_sort_pairs_plain,
     )
     from nbody_tpu_torch.ops.sorted_window import (
         build_sorted_grid,
@@ -856,6 +1107,9 @@ def main() -> None:
     k7_checks(res, pos0, mass0)
     k5_check(res, pos0, mass0, bh_cfg)
     k6_check(res, pos0, mass0, bh_cfg)
+    sorts = sort_inputs(pos0, bh_cfg)
+    k8_checks(res, sorts)
+    frozen_checks(pos0, mass0, bh_cfg, sp_pos, sp_mass, sparse_cfg)
     for name, r in res.items():
         for label, s in r["shapes"].items():
             print(f"  {name} at {label}: kernel {s['ms']:.4f} ms, plain "
@@ -871,10 +1125,12 @@ def main() -> None:
         "window_sweep": window_sweep_kernel,
         "pairwise_potential": pairwise_potential,
         "segment_sum": segment_sum,
+        "bitonic_sort": bitonic_sort_pairs,
     }
     plains = [direct_forces, tile_scatter_plain, far_taps_plain,
               tile_sweep_plane_plain, window_sweep_plain,
-              pairwise_potential_plain, segment_sum_plain]
+              pairwise_potential_plain, segment_sum_plain,
+              bitonic_sort_pairs_plain]
     none = {name: 0 for name in wrappers}
     by_path = {name: {} for name in wrappers}
 
@@ -884,8 +1140,10 @@ def main() -> None:
                 by_path[name][label] = c
 
     def drive(label, steps, **want):
-        keep(label, run_path(label, cfgs[label], steps, {**none, **want},
-                             wrappers, plains, smi, dev))
+        got = run_path(label, cfgs[label], steps, {**none, **want}, wrappers,
+                       plains, smi, dev)
+        keep(label, got[0])
+        return got
 
     levels = bh_engine_params(bh_cfg)["levels"]
     drive("1M BH tiles", 30, tile_scatter=30, far_taps=30 * levels,
@@ -900,6 +1158,20 @@ def main() -> None:
         bh_cfg, scene, 10,
         {**none, "segment_sum": 10, "tile_scatter": 10,
          "tile_sweep_plane": 10}, wrappers, plains, smi))
+    # g: frozen steps between sorts every 8th step, so the sort phase runs
+    # in ceil(30 / 8) = 4 of the 30 steps
+    _, phases, ps, _ = drive(SPARSE_RESORT, 30, tile_scatter=30,
+                             tile_sweep_plane=30)
+    check(hasattr(ps._sorted_force, "frozen"),
+          f"{SPARSE_RESORT}: the engine has no frozen-grid contract")
+    check(phases["hash.sort"].samples == 4,
+          f"{SPARSE_RESORT}: {phases['hash.sort'].samples} sorted steps")
+    # h: re-sorted when the audit asks (cap 16)
+    _, phases, ps, state0 = drive(BH_ADAPTIVE, 30, tile_scatter=30,
+                                  far_taps=30 * levels, tile_sweep_plane=30)
+    adaptive_report(ps, state0, 30, phases)
+    keep(SORT_PATH, sort_path(sorts, {**none, "bitonic_sort": 2}, wrappers,
+                              plains, smi))
 
     # Phase 4: ground truth at step 0
     bh_vs_direct(pos0, mass0, make_force_fn(bh_cfg)(pos0, mass0), bh_cfg,
@@ -975,6 +1247,8 @@ def main() -> None:
                                "nbody_tpu/ops/direct.py:257"),
         "segment_sum": ("nbody_tpu_torch/csrc/segment_sum.cu",
                         "nbody_tpu/ops/pallas_scatter.py:416"),
+        "bitonic_sort": ("nbody_tpu_torch/csrc/bitonic_sort.cu",
+                         "nbody_tpu/ops/pallas_sort.py:192,217,232"),
     }
     for name in sources:
         check(bool(by_path[name]), f"{name} never launched on a timed path")

@@ -7,10 +7,11 @@ reference. This package imports ``torch`` and never ``jax`` or
 uniform and spherical initializers, direct N², Barnes-Hut (tiles and
 window near engines; quadrupole, or monopole sources on request) and
 spatial-hash (window and tiles engines) forces, Velocity Verlet with
-cell-sorted stepping, energies (the exact all-pairs potential), the
-energy-drift measurement (``drift.run_drift``) and the ``ParticleSystem``
-core. The CUDA kernels (``csrc/``) build on first use; see
-``ops/_build.py``.
+cell-sorted stepping and the frozen-grid re-sort cadence and audited
+re-sort, energies (the exact all-pairs potential), the energy-drift
+measurement (``drift.run_drift``), the bitonic sort (``ops.sort``) and the
+``ParticleSystem`` core. The CUDA kernels (``csrc/``) build on first use;
+see ``ops/_build.py``.
 """
 
 from nbody_tpu_torch.errors import ResourceError, ValidationError

@@ -26,6 +26,13 @@ the exact near field over the (2ws+1)³ cell ball by the sorted-window
 sweep (kernel K7, ``_near_field``), and the far pickup in original order.
 It has no sorted-stepping contract.
 
+FROZEN-GRID steps (``barnes_hut_forces_frozen``, the contract of
+``integrator.make_resort_multi_step``) run steps 2-6 of the tiles path
+against the cell assignment cached by the last sort
+(``sorted_window.FrozenGridMeta``): no bin, sort, payload gather or rank
+pass. As in the JAX package only the order-2 tiles path has the contract,
+and only where ``tile_sweep.tile_engine_fused`` holds.
+
 The MONOPOLE tiles path (``multipole_order=1``, ws = ceil(1/θ)) is the JAX
 package's non-fused sorted branch: the same sort, the finest [m, m·x]
 moments by the segment sum (kernel K6, ``_sorted_finest_moments``), the
@@ -50,13 +57,17 @@ import torch
 from nbody_tpu_torch.ops.far_taps import far_taps
 from nbody_tpu_torch.ops.scatter import segment_sum
 from nbody_tpu_torch.ops.sorted_window import (
+    FrozenGridMeta,
+    SortedGrid,
     build_sorted_grid,
+    cell_ids,
     unsort_rows,
     window_sweep,
     xy_ball,
 )
 from nbody_tpu_torch.ops.tile_sweep import (
     tile_build,
+    tile_engine_fused,
     tile_near_field,
     tile_sweep_pick,
 )
@@ -590,13 +601,15 @@ def bh_engine_params(config: SimulationConfig) -> dict:
 
 
 def _fused_bh_force_from_grid(grid, lo, cell, *, d, levels, ws, near_k, G,
-                              softening, sorted_output):
+                              softening, sorted_output, rank_sorted=None):
     """Everything downstream of the cell sort: placement + moments (K2),
     pyramid, far expansion (K3 per level), near sweep seeded with the far
-    expansion (K4) and the pickup. Returns ``(acc, TileBuild)``."""
+    expansion (K4) and the pickup. ``rank_sorted``: the ranks a frozen
+    step reuses. Returns ``(acc, TileBuild)``."""
     dev = grid.psort.device
     with profile_phase("bh.placement", device=dev):
-        tb = tile_build(grid, lo, cell, d=d, k=near_k)
+        tb = tile_build(grid, lo, cell, d=d, k=near_k,
+                        rank_sorted=rank_sorted)
     with profile_phase("bh.pyramid", device=dev):
         packed = tb.moments[:10].T.reshape(d, d, d, 10)
         pyr = pyramid_from_packed(packed, lo, cell, levels)
@@ -689,8 +702,8 @@ def _monopole_bh_force_from_grid(grid, lo, cell, *, d, levels, ws, near_k,
         pyr = pyramid_from_packed(packed, lo, cell, levels, order=1)
     with profile_phase("bh.far", device=dev):
         a_far, j_far, _ = far_field_grid(pyr, ws, G, softening, levels)
-    a_near, _over = tile_near_field(grid, lo, cell, d=d, ws=ws, k=near_k,
-                                    G=G, eps=softening, sorted_output=True)
+    a_near, _tb = tile_near_field(grid, lo, cell, d=d, ws=ws, k=near_k,
+                                  G=G, eps=softening, sorted_output=True)
     with profile_phase("bh.pickup", device=dev):
         psort = grid.psort
         far = torch.cat([a_far, j_far], dim=-1).reshape(d ** 3, 9)
@@ -702,9 +715,16 @@ def _monopole_bh_force_from_grid(grid, lo, cell, *, d, levels, ws, near_k,
     return unsort_rows(acc, grid.order)
 
 
+def _require_frozen_contract(d: int, near_k: int, multipole_order: int):
+    if not (tile_engine_fused(d, near_k) and multipole_order >= 2):
+        raise ValueError(
+            "frozen-grid stepping requires the fused order-2 tiles path "
+            f"(d={d}, near_k={near_k}, multipole_order={multipole_order})")
+
+
 def _barnes_hut_forces(pos, mass, G, softening, theta, *, levels, near_k,
                        near_engine="tiles", window=2048, multipole_order=2,
-                       sorted_output=False):
+                       sorted_output=False, with_grid_meta=False):
     ws = theta_to_ws(theta, order=multipole_order)
     if near_engine == "window":
         if sorted_output:
@@ -713,6 +733,8 @@ def _barnes_hut_forces(pos, mass, G, softening, theta, *, levels, near_k,
                                  window=window, order=multipole_order)
     d = 1 << levels
     monopole = multipole_order < 2
+    if with_grid_meta:
+        _require_frozen_contract(d, near_k, multipole_order)
     with profile_phase("bh.sort", device=pos.device):
         lo, cell, coords = bin_particles(pos, levels)
         grid = build_sorted_grid(pos, mass, coords, d, with_csort=monopole)
@@ -721,10 +743,54 @@ def _barnes_hut_forces(pos, mass, G, softening, theta, *, levels, near_k,
     if monopole:
         acc = _monopole_bh_force_from_grid(grid, lo, cell, **kw)
     else:
-        acc, _tb = _fused_bh_force_from_grid(grid, lo, cell, **kw)
+        acc, tb = _fused_bh_force_from_grid(grid, lo, cell, **kw)
+    if with_grid_meta:
+        # the engine's own ids, ranks and segment index: frozen(fresh
+        # meta) runs the same ops on the same inputs, bit for bit
+        meta = FrozenGridMeta(ids=grid.ids, rank=tb.rank_sorted, lo=lo,
+                              cell=cell, cell_start=grid.cell_start)
+        return acc, grid.psort, grid.order, meta
     if sorted_output:
         return acc, grid.psort, grid.order
     return acc
+
+
+def stale_count(psort, meta: FrozenGridMeta, d: int) -> torch.Tensor:
+    """Rows whose cell under the frozen binning (``meta.lo``,
+    ``meta.cell``, the Barnes-Hut formula of ``bin_particles``) differs
+    from the cached ``meta.ids`` → () int64."""
+    coords = torch.clamp(
+        ((psort[:, :3] - meta.lo) / meta.cell).to(torch.int32), 0, d - 1)
+    return (cell_ids(coords, d) != meta.ids).sum()
+
+
+def barnes_hut_forces_frozen(psort, meta: FrozenGridMeta, G: float = 1.0,
+                             softening: float = 0.1, theta: float = 0.5, *,
+                             levels: int = 6, near_k: int = 16,
+                             multipole_order: int = 2,
+                             with_audit: bool = False):
+    """BH forces on a FROZEN cell assignment, the stale-sort step of the
+    re-sort cadence: ``psort`` (N, 4) holds the current [pos | mass] in the
+    last re-sort's row order, ``meta`` the assignment that re-sort cached
+    (``barnes_hut_forces_sorted(..., with_grid_meta=True)``). Placement +
+    moments (K2), pyramid, far field (K3), sweep (K4) and pickup run on the
+    current positions with the cached ids, ranks, segment index and grid
+    geometry; a row that crossed a cell boundary since is evaluated in its
+    old cell. Returns ``acc_sorted`` (the rows of ``psort``), or
+    ``(acc_sorted, n_stale)`` with ``with_audit`` (``stale_count``).
+    Order 1 raises ``ValueError``, as in the JAX package."""
+    d = 1 << levels
+    _require_frozen_contract(d, near_k, multipole_order)
+    # order is unused under sorted_output=True
+    grid = SortedGrid(order=None, psort=psort, ids=meta.ids,
+                      cell_start=meta.cell_start)
+    acc, _tb = _fused_bh_force_from_grid(
+        grid, meta.lo, meta.cell, d=d, levels=levels,
+        ws=theta_to_ws(theta, order=multipole_order), near_k=near_k, G=G,
+        softening=softening, sorted_output=True, rank_sorted=meta.rank)
+    if not with_audit:
+        return acc
+    return acc, stale_count(psort, meta, d)
 
 
 def barnes_hut_forces(pos, mass, G: float = 1.0, softening: float = 0.1,
@@ -744,13 +810,17 @@ def barnes_hut_forces(pos, mass, G: float = 1.0, softening: float = 0.1,
 def barnes_hut_forces_sorted(pos, mass, G: float = 1.0,
                              softening: float = 0.1, theta: float = 0.5, *,
                              levels: int = 6, near_k: int = 16,
-                             multipole_order: int = 2):
+                             multipole_order: int = 2,
+                             with_grid_meta: bool = False):
     """The tiles engine's forces in its CELL-SORTED row order →
     ``(acc_sorted, psort, order)``: ``psort`` (N, 4) = [pos | mass][order],
-    ``acc_sorted`` aligned with it (the sorted-stepping contract)."""
+    ``acc_sorted`` aligned with it (the sorted-stepping contract);
+    ``with_grid_meta=True`` appends the ``FrozenGridMeta`` that
+    ``barnes_hut_forces_frozen`` steps on."""
     return _barnes_hut_forces(pos, mass, G, softening, theta, levels=levels,
                               near_k=near_k, multipole_order=multipole_order,
-                              sorted_output=True)
+                              sorted_output=True,
+                              with_grid_meta=with_grid_meta)
 
 
 def make_barnes_hut_forces(config: SimulationConfig):
@@ -772,16 +842,33 @@ def make_barnes_hut_forces(config: SimulationConfig):
 def make_barnes_hut_forces_sorted(config: SimulationConfig):
     """``sorted_force_fn(pos, mass) -> (acc_sorted, psort, order)``, or
     None when the config selects the window engine (no sorted contract:
-    callers step in original order)."""
+    callers step in original order). As in the JAX package the closure
+    carries the frozen-grid contract of ``integrator.make_resort_multi_step``:
+    ``with_meta(pos, mass)`` (the sorted step plus its ``FrozenGridMeta``;
+    raises where ``tile_engine_fused`` does not hold), ``frozen(psort, meta,
+    with_audit=False)`` and ``stale_count(psort, meta)``."""
     p = bh_engine_params(config)
     if p["near_engine"] != "tiles":
         return None
     G, eps, theta = config.G, config.softening, config.barnes_hut_theta
+    kw = dict(levels=p["levels"], near_k=p["near_k"],
+              multipole_order=p["multipole_order"])
 
     def sorted_force_fn(pos, mass):
         return _barnes_hut_forces(pos, mass, G, eps, theta,
-                                  levels=p["levels"], near_k=p["near_k"],
-                                  multipole_order=p["multipole_order"],
-                                  sorted_output=True)
+                                  sorted_output=True, **kw)
 
+    def with_meta(pos, mass):
+        return _barnes_hut_forces(pos, mass, G, eps, theta,
+                                  sorted_output=True, with_grid_meta=True,
+                                  **kw)
+
+    def frozen(psort, meta, with_audit=False):
+        return barnes_hut_forces_frozen(psort, meta, G, eps, theta,
+                                        with_audit=with_audit, **kw)
+
+    sorted_force_fn.with_meta = with_meta
+    sorted_force_fn.frozen = frozen
+    sorted_force_fn.stale_count = (
+        lambda psort, meta: stale_count(psort, meta, 1 << p["levels"]))
     return sorted_force_fn

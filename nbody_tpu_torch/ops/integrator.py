@@ -2,12 +2,14 @@
 
 PyTorch counterpart of ``nbody_tpu/ops/integrator.py``. A ``lax.scan`` of
 steps becomes a Python loop; each step is a handful of tensor ops around
-one force evaluation, queued on the device without host synchronization.
+one force evaluation, queued on the device without host synchronization
+(the adaptive re-sort reads one count per frozen step: see
+``make_adaptive_multi_step``).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -60,6 +62,60 @@ def initialize_forces(state: ParticleState, force_fn: ForceFn) -> ParticleState:
                          mass=state.mass, time=state.time)
 
 
+class _Rows(NamedTuple):
+    """The carry of cell-sorted stepping: rows in the engine's last sorted
+    order, ``tag`` the original row of each."""
+
+    pos: torch.Tensor
+    vel: torch.Tensor
+    acc: torch.Tensor
+    mass: torch.Tensor
+    tag: torch.Tensor
+    time: torch.Tensor
+
+
+def _rows_from(state: ParticleState) -> _Rows:
+    tag = torch.arange(state.n, dtype=torch.int32, device=state.pos.device)
+    return _Rows(state.pos, state.vel, state.acc, state.mass, tag,
+                 state.time)
+
+
+def _state_from(r: _Rows) -> ParticleState:
+    """Original row order, restored with one index store per field."""
+
+    def unsort(rows):
+        out = torch.empty_like(rows)
+        out[r.tag] = rows
+        return out
+
+    return ParticleState(pos=unsort(r.pos), vel=unsort(r.vel),
+                         acc=unsort(r.acc), mass=unsort(r.mass), time=r.time)
+
+
+def _sorted_step(r: _Rows, force, dt):
+    """One Verlet step through a sorting force ``force(pos, mass) ->
+    (acc_sorted, psort, order, *rest)``: the half-kicked velocity and the
+    tag follow the permutation by gather. Returns ``(rows, rest)``."""
+    pos_d = r.pos + r.vel * dt + (0.5 * dt * dt) * r.acc
+    vel_h = r.vel + (0.5 * dt) * r.acc
+    acc, psort, order, *rest = force(pos_d, r.mass)
+    return _Rows(psort[:, :3], vel_h[order] + (0.5 * dt) * acc, acc,
+                 psort[:, 3], r.tag[order], r.time + dt), rest
+
+
+def _frozen_step(r: _Rows, frozen, meta, dt, with_audit: bool = False):
+    """One Verlet step on a frozen cell assignment: the rows stay in place
+    (no permutation, no gather), with the sorted step's kick arithmetic.
+    Returns ``(rows, n_stale)`` (None without the audit)."""
+    pos_d = r.pos + r.vel * dt + (0.5 * dt * dt) * r.acc
+    vel_h = r.vel + (0.5 * dt) * r.acc
+    psort = torch.cat([pos_d, r.mass[:, None]], dim=-1)
+    out = frozen(psort, meta, with_audit=with_audit)
+    acc, n_stale = out if with_audit else (out, None)
+    return _Rows(psort[:, :3], vel_h + (0.5 * dt) * acc, acc, r.mass, r.tag,
+                 r.time + dt), n_stale
+
+
 def make_sorted_multi_step(sorted_force_fn: SortedForceFn, dt: float,
                            n_steps: int):
     """``n_steps`` Verlet steps in the force engine's cell-sorted row order.
@@ -73,25 +129,109 @@ def make_sorted_multi_step(sorted_force_fn: SortedForceFn, dt: float,
     """
 
     def multi(state: ParticleState) -> ParticleState:
-        pos, vel, acc, mass, t = (state.pos, state.vel, state.acc,
-                                  state.mass, state.time)
-        tag = torch.arange(state.n, dtype=torch.int32, device=pos.device)
+        r = _rows_from(state)
         for _ in range(n_steps):
-            pos_d = pos + vel * dt + (0.5 * dt * dt) * acc
-            vel_h = vel + (0.5 * dt) * acc
-            acc, psort, order = sorted_force_fn(pos_d, mass)
-            vel = vel_h[order] + (0.5 * dt) * acc
-            tag = tag[order]
-            pos, mass = psort[:, :3], psort[:, 3]
-            t = t + dt
+            r, _ = _sorted_step(r, sorted_force_fn, dt)
+        return _state_from(r)
 
-        def unsort(rows):
-            out = torch.empty_like(rows)
-            out[tag] = rows
+    return multi
+
+
+def _frozen_contract(sorted_force_fn):
+    with_meta = getattr(sorted_force_fn, "with_meta", None)
+    frozen = getattr(sorted_force_fn, "frozen", None)
+    if with_meta is None or frozen is None:
+        raise ValueError(
+            "sorted_force_fn has no frozen-grid contract "
+            "(with_meta/frozen attributes) — use make_sorted_multi_step")
+    return with_meta, frozen
+
+
+def make_resort_multi_step(sorted_force_fn: SortedForceFn, dt: float,
+                           n_steps: int, resort_every: int):
+    """``n_steps`` Verlet steps that re-sort once every ``resort_every``.
+
+    The steps go in chunks of ``resort_every`` (⌊n/c⌋ chunks, then a
+    remainder chunk): each chunk's first step sorts through
+    ``sorted_force_fn.with_meta`` and caches the cell assignment
+    (``FrozenGridMeta``); its other steps run ``sorted_force_fn.frozen``
+    against it, with no sort and no payload gather. A frozen step with a
+    fresh meta is the sorted step bit for bit; later, rows that crossed a
+    cell boundary keep exact positions in a stale cell, so how far a
+    cadence can go depends on the scene (audit it with
+    ``frozen(..., with_audit=True)`` or step with
+    ``make_adaptive_multi_step``). ``resort_every=1`` is
+    ``make_sorted_multi_step``. Needs the engine's frozen-grid contract
+    (the Barnes-Hut and hash tiles factories). Returns ``multi(state) ->
+    state``, original row order in and out; the int32 row tag takes any N.
+    """
+    if resort_every < 1:
+        raise ValueError("resort_every must be >= 1")
+    with_meta, frozen = _frozen_contract(sorted_force_fn)
+
+    def multi(state: ParticleState) -> ParticleState:
+        r = _rows_from(state)
+        for start in range(0, n_steps, resort_every):
+            r, (meta,) = _sorted_step(r, with_meta, dt)
+            for _ in range(min(resort_every, n_steps - start) - 1):
+                r, _ = _frozen_step(r, frozen, meta, dt)
+        return _state_from(r)
+
+    return multi
+
+
+def make_adaptive_multi_step(sorted_force_fn: SortedForceFn, dt: float,
+                             n_steps: int, *, max_stale_frac: float = 0.01,
+                             max_cadence: int = 16, with_trace: bool = False):
+    """``n_steps`` Verlet steps that re-sort when the scene asks.
+
+    The first step sorts. Every frozen step audits itself
+    (``frozen(..., with_audit=True)``), and step s+1 re-sorts when step
+    s's stale count exceeded ⌊max_stale_frac·N⌋ or when ``max_cadence``
+    steps have run since the last sort (``since ≥ max_cadence − 1``); the
+    trigger lags the audit by one step, as in the JAX package. The JAX
+    package decides on the device (``lax.cond``); here the count is read
+    on the host, one device→host synchronization per frozen step, and
+    only when a count could exceed the cap at all (the cap below N) and
+    the cadence cap does not already decide. ``max_cadence=1`` is
+    cadence-1 stepping and ``max_stale_frac=1`` the fixed ``max_cadence``
+    cadence, both bit for bit.
+
+    Returns ``multi(state) -> state``, or with ``with_trace=True``
+    ``multi(state) -> (state, (stale_counts, resorted))``: int32 and bool
+    tensors (n_steps − 1,), the stale count after each step after the
+    first (0 after a sort) and whether that step sorted."""
+    if not 0.0 <= max_stale_frac <= 1.0:
+        raise ValueError("max_stale_frac must be in [0, 1]")
+    if max_cadence < 1:
+        raise ValueError("max_cadence must be >= 1")
+    with_meta, frozen = _frozen_contract(sorted_force_fn)
+
+    def multi(state: ParticleState):
+        n = state.n
+        stale_cap = int(max_stale_frac * n)
+        r, (meta,) = _sorted_step(_rows_from(state), with_meta, dt)
+        since, stale = 0, 0
+        stales, resorted = [], []
+        for _ in range(n_steps - 1):
+            resort = since >= max_cadence - 1 or (
+                stale_cap < n and int(stale) > stale_cap)
+            if resort:
+                r, (meta,) = _sorted_step(r, with_meta, dt)
+                since, stale = 0, 0
+            else:
+                r, stale = _frozen_step(r, frozen, meta, dt, with_audit=True)
+                since += 1
+            stales.append(stale)
+            resorted.append(resort)
+        out = _state_from(r)
+        if not with_trace:
             return out
-
-        return ParticleState(pos=unsort(pos), vel=unsort(vel),
-                             acc=unsort(acc), mass=unsort(mass), time=t)
+        dev = state.pos.device
+        return out, (
+            torch.tensor([int(c) for c in stales], dtype=torch.int32,
+                         device=dev),
+            torch.tensor(resorted, dtype=torch.bool, device=dev))
 
     return multi
 

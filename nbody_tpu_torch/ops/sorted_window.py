@@ -47,6 +47,29 @@ class SortedGrid:
     csort: torch.Tensor | None = None
 
 
+@dataclasses.dataclass
+class FrozenGridMeta:
+    """What a cell-sorted tiles engine derives from its sort, cached so a
+    FROZEN-GRID step (``integrator.make_resort_multi_step``) can skip the
+    sort and the payload gather: the rows keep the last re-sort's order
+    and cell assignment while their positions move. Counterpart of the JAX
+    package's ``FrozenGridMeta``.
+
+    ids:        (N,) int32 non-decreasing cell ids (sorted order)
+    rank:       (N,) int32 rank within the cell run
+    lo:         (3,) grid origin at the last re-sort (the frozen binning)
+    cell:       () cell size
+    cell_start: (d³ + 1,) int32 segment index of ``ids`` (kernel K2 reads
+                it; frozen with the ids)
+    """
+
+    ids: torch.Tensor
+    rank: torch.Tensor
+    lo: torch.Tensor
+    cell: torch.Tensor
+    cell_start: torch.Tensor
+
+
 def cell_ids(coords: torch.Tensor, d: int) -> torch.Tensor:
     """(N, 3) int cell coords → (N,) int32 row-major ids (z fastest)."""
     return ((coords[:, 0] * d + coords[:, 1]) * d + coords[:, 2]).to(

@@ -18,6 +18,12 @@ both packages run the same engine, d, k and window on the same positions.
 The binning stays on the device (``floor((pos − lo)/cell_size)`` clipped to
 ``dims`` or d); only the engine choice reads positions on the host, once,
 when a strategy is built.
+
+The tiles engine also has the frozen-grid contract of
+``integrator.make_resort_multi_step`` (``with_grid_meta=True``,
+``spatial_hash_forces_tiles_frozen``), attached to its sorted factory where
+``tile_sweep.tile_engine_fused`` holds, as in the JAX package; the window
+engine has none.
 """
 
 from __future__ import annotations
@@ -29,12 +35,15 @@ import numpy as np
 import torch
 
 from nbody_tpu_torch.ops.sorted_window import (
+    FrozenGridMeta,
+    SortedGrid,
     build_sorted_grid,
+    cell_ids,
     cell_starts_at,
     window_sweep,
     xy_ball,
 )
-from nbody_tpu_torch.ops.tile_sweep import tile_near_field
+from nbody_tpu_torch.ops.tile_sweep import tile_engine_fused, tile_near_field
 from nbody_tpu_torch.types import SimulationConfig
 from nbody_tpu_torch.utils.profiling import profile_phase
 
@@ -80,9 +89,11 @@ def hash_bin(pos, cell_size: float, cap: int):
     return lo, dims, coords
 
 
-def tiles_bin(pos, cell_size: float, d: int):
-    """(lo, coords) on the tiles engine's static d-per-axis grid."""
-    lo = torch.min(pos, dim=0).values
+def tiles_bin(pos, cell_size: float, d: int, lo=None):
+    """(lo, coords) on the tiles engine's static d-per-axis grid, with its
+    origin at the bbox corner or at ``lo`` when given (a frozen binning)."""
+    if lo is None:
+        lo = torch.min(pos, dim=0).values
     coords = torch.clamp(torch.floor((pos - lo) / cell_size).to(torch.int32),
                          0, d - 1)
     return lo, coords
@@ -165,16 +176,28 @@ def spatial_hash_forces_window_sorted(pos, mass, G=1.0, softening=0.1, *,
 
 
 def _tiles_forces(pos, mass, G, softening, *, cutoff, cell_size, d, k,
-                  sorted_output):
+                  sorted_output, with_grid_meta=False):
+    if with_grid_meta:
+        _require_frozen_contract(d, k)
     with profile_phase("hash.sort", device=pos.device):
         lo, coords = tiles_bin(pos, cell_size, d)
         grid = build_sorted_grid(pos, mass, coords, d)
     cell = torch.full((), float(cell_size), dtype=pos.dtype,
                       device=pos.device)
-    acc, overflow = tile_near_field(
+    acc, tb = tile_near_field(
         grid, lo, cell, d=d, ws=1, k=k, G=G, eps=softening,
         cutoff2=float(cutoff) * float(cutoff), sorted_output=sorted_output)
-    return acc, overflow, grid
+    # the engine's own ids, ranks and segment index: frozen(fresh meta)
+    # runs the same ops on the same inputs, bit for bit
+    meta = FrozenGridMeta(ids=grid.ids, rank=tb.rank_sorted, lo=lo,
+                          cell=cell, cell_start=grid.cell_start)
+    return acc, tb.overflow, grid, meta
+
+
+def _require_frozen_contract(d: int, k: int) -> None:
+    if not tile_engine_fused(d, k):
+        raise ValueError("frozen-grid stepping requires the fused tiles "
+                         f"path (d={d}, k={k})")
 
 
 def spatial_hash_forces_tiles(pos, mass, G: float = 1.0,
@@ -184,20 +207,49 @@ def spatial_hash_forces_tiles(pos, mass, G: float = 1.0,
     """Tiles-engine short-range forces in original row order: the same
     predicate on a static (d³, k) slot grid (kernels K2, K4). Rows beyond k
     in a cell lose their short-range term and are counted."""
-    acc, overflow, _ = _tiles_forces(
+    acc, overflow, _, _ = _tiles_forces(
         pos, mass, G, softening, cutoff=cutoff, cell_size=cell_size, d=d,
         k=k, sorted_output=False)
     return (acc, overflow) if return_overflow else acc
 
 
 def spatial_hash_forces_tiles_sorted(pos, mass, G=1.0, softening=0.1, *,
-                                     cutoff=2.0, cell_size=1.0, d=64, k=8):
+                                     cutoff=2.0, cell_size=1.0, d=64, k=8,
+                                     with_grid_meta=False):
     """The tiles engine in CELL-SORTED row order →
-    ``(acc_sorted, psort, order)``."""
-    acc, _, grid = _tiles_forces(
+    ``(acc_sorted, psort, order)``; ``with_grid_meta=True`` appends the
+    ``FrozenGridMeta`` that ``spatial_hash_forces_tiles_frozen`` steps on
+    (raises where ``tile_engine_fused`` does not hold)."""
+    acc, _, grid, meta = _tiles_forces(
         pos, mass, G, softening, cutoff=cutoff, cell_size=cell_size, d=d,
-        k=k, sorted_output=True)
+        k=k, sorted_output=True, with_grid_meta=with_grid_meta)
+    if with_grid_meta:
+        return acc, grid.psort, grid.order, meta
     return acc, grid.psort, grid.order
+
+
+def spatial_hash_forces_tiles_frozen(psort, meta: FrozenGridMeta, G=1.0,
+                                     softening=0.1, *, cutoff=2.0,
+                                     cell_size=1.0, d=64, k=8,
+                                     with_audit=False):
+    """Tiles-engine forces on a FROZEN cell assignment (the contract and
+    error class of ``barnes_hut.barnes_hut_forces_frozen``): placement
+    (K2), sweep with the cutoff (K4) and pickup of ``psort``'s current
+    rows with the cached ids, ranks, segment index and origin. Returns
+    ``acc_sorted``, or ``(acc_sorted, n_stale)`` with ``with_audit``: the
+    rows whose cell under the frozen binning differs from ``meta.ids``."""
+    _require_frozen_contract(d, k)
+    # order is unused under sorted_output=True
+    grid = SortedGrid(order=None, psort=psort, ids=meta.ids,
+                      cell_start=meta.cell_start)
+    acc, _tb = tile_near_field(
+        grid, meta.lo, meta.cell, d=d, ws=1, k=k, G=G, eps=softening,
+        cutoff2=float(cutoff) * float(cutoff), sorted_output=True,
+        rank_sorted=meta.rank)
+    if not with_audit:
+        return acc
+    coords = tiles_bin(psort[:, :3], cell_size, d, lo=meta.lo)[1]
+    return acc, (cell_ids(coords, d) != meta.ids).sum()
 
 
 def hash_window_defaults(config: SimulationConfig):
@@ -292,17 +344,32 @@ def make_spatial_hash_forces(config: SimulationConfig, pos_hint=None):
 
 def make_spatial_hash_forces_sorted(config: SimulationConfig, pos_hint=None):
     """``sorted_force_fn(pos, mass) -> (acc_sorted, psort, order)``; both
-    engines have the sorted contract."""
+    engines have the sorted contract. The tiles engine's closure carries
+    the frozen-grid contract (``with_meta``, ``frozen``) where
+    ``tile_engine_fused`` holds, as the JAX factory does."""
     G, eps = config.G, config.softening
     cutoff, cell = config.spatial_hash_cutoff, config.spatial_hash_cell_size
     cap = config.hash_max_grid_dim
     p = hash_engine_params(config, pos_hint)
     if p["engine"] == "tiles":
+        kw = dict(cutoff=cutoff, cell_size=cell, d=p["tile_d"],
+                  k=p["tile_k"])
 
         def sorted_force_fn(pos, mass):
-            return spatial_hash_forces_tiles_sorted(
-                pos, mass, G, eps, cutoff=cutoff, cell_size=cell,
-                d=p["tile_d"], k=p["tile_k"])
+            return spatial_hash_forces_tiles_sorted(pos, mass, G, eps, **kw)
+
+        if tile_engine_fused(p["tile_d"], p["tile_k"]):
+
+            def with_meta(pos, mass):
+                return spatial_hash_forces_tiles_sorted(
+                    pos, mass, G, eps, with_grid_meta=True, **kw)
+
+            def frozen(psort, meta, with_audit=False):
+                return spatial_hash_forces_tiles_frozen(
+                    psort, meta, G, eps, with_audit=with_audit, **kw)
+
+            sorted_force_fn.with_meta = with_meta
+            sorted_force_fn.frozen = frozen
 
     else:
 

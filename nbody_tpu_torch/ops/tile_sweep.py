@@ -11,12 +11,15 @@ fallback, which this package keeps; without it (the spatial hash's tiles
 engine, ``tile_near_field``) they read zero.
 
 The JAX package's ``tile_engine_fused`` gate encodes TPU lane arithmetic;
-here the fused path applies to every (d, k).
+here the fused path applies to every (d, k). The gate survives only as the
+condition of the frozen-grid contract (``tile_engine_fused``), so that both
+packages choose the same stepping for the same config.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -24,6 +27,18 @@ from nbody_tpu_torch.ops.scatter import tile_scatter
 from nbody_tpu_torch.ops.sorted_window import SortedGrid, unsort_rows
 from nbody_tpu_torch.ops.tile_near import tile_sweep_plane
 from nbody_tpu_torch.utils.profiling import profile_phase
+
+
+def tile_engine_fused(d: int, k: int) -> bool:
+    """The JAX package's ``tile_engine_fused(d, k, "pallas")``: whole
+    z-column scatter chunks of 128-lane blocks, 8-sublane slot groups and
+    f32-exact dest ids (d³·k < 2²⁴). None of it limits the kernels here;
+    this copy is kept so that both packages attach the frozen-grid contract
+    (``with_meta``/``frozen``), and so choose the same stepping, for the
+    same (d, k)."""
+    g = 128 // math.gcd(d * k, 128)
+    return (d % g == 0 and g * d * k <= 4096 and (k <= 8 or k % 8 == 0)
+            and d * d * d * k < (1 << 24))
 
 
 @dataclasses.dataclass
@@ -47,14 +62,19 @@ class TileBuild:
         return self.moments[10]
 
 
-def tile_build(grid: SortedGrid, lo, cell, *, d: int, k: int) -> TileBuild:
+def tile_build(grid: SortedGrid, lo, cell, *, d: int, k: int,
+               rank_sorted=None) -> TileBuild:
     """Placement + moments (kernel K2) from a cell-sorted grid, ranks from
-    the segment index, and the overflow audit from the exact counts."""
-    n = grid.psort.shape[0]
-    rank = (
-        torch.arange(n, dtype=torch.int32, device=grid.ids.device)
-        - grid.cell_start[grid.ids]
-    )
+    the segment index (or ``rank_sorted``, cached by a frozen-grid caller:
+    it depends only on the frozen ids), and the overflow audit from the
+    exact counts."""
+    rank = rank_sorted
+    if rank is None:
+        n = grid.psort.shape[0]
+        rank = (
+            torch.arange(n, dtype=torch.int32, device=grid.ids.device)
+            - grid.cell_start[grid.ids]
+        )
     tiles, moments = tile_scatter(
         grid.psort, grid.cell_start, lo, cell, d=d, k=k
     )
@@ -85,19 +105,20 @@ def tile_sweep_pick(tb: TileBuild, grid: SortedGrid, lo, cell, far_plane,
 
 def tile_near_field(grid: SortedGrid, lo, cell, *, d: int, ws: int, k: int,
                     G: float, eps: float, cutoff2: float | None = None,
-                    sorted_output: bool = False):
+                    sorted_output: bool = False, rank_sorted=None):
     """Exact near field within the (2ws+1)³ cell ball on k-slot tiles
     (kernels K2 and K4), no far field: with ``cutoff2`` (raw r² ≤ cutoff²,
     tested before softening) this is the spatial hash's sparse-regime
     engine; without it, the Barnes-Hut monopole path's near field. Rows
-    past the k cap read zero and are counted. Returns ``(acc, overflow)``,
-    acc G-scaled in original order, or in the grid's cell-sorted order
-    with ``sorted_output=True``. ``lo`` (3,) and ``cell`` are device
-    tensors; the phases are timed as ``near.placement``, ``near.sweep``
-    and ``near.pickup``."""
+    past the k cap read zero and are counted (``TileBuild.overflow``).
+    Returns ``(acc, TileBuild)``, acc G-scaled in original order, or in the
+    grid's cell-sorted order with ``sorted_output=True``. ``lo`` (3,) and
+    ``cell`` are device tensors; ``rank_sorted`` as in ``tile_build``; the
+    phases are timed as ``near.placement``, ``near.sweep`` and
+    ``near.pickup``."""
     dev = grid.psort.device
     with profile_phase("near.placement", device=dev):
-        tb = tile_build(grid, lo, cell, d=d, k=k)
+        tb = tile_build(grid, lo, cell, d=d, k=k, rank_sorted=rank_sorted)
     with profile_phase("near.sweep", device=dev):
         acc_raw = tile_sweep_plane(
             tb.tiles_plane, k=k, d=d, ws=ws, eps=eps, cutoff2=cutoff2,
@@ -106,7 +127,7 @@ def tile_near_field(grid: SortedGrid, lo, cell, *, d: int, ws: int, k: int,
     with profile_phase("near.pickup", device=dev):
         acc = _slot_pickup_raw(acc_raw, grid, tb.rank_sorted, None, d, k, G,
                                sorted_output=sorted_output)
-    return acc, tb.overflow
+    return acc, tb
 
 
 def _slot_pickup_raw(acc_raw, grid: SortedGrid, rank_sorted, overflow_rows,

@@ -3,16 +3,17 @@
 PyTorch counterpart of the core of ``nbody_tpu/system.py``: validate →
 initialize → compute initial forces; ``update()`` is one Verlet step,
 ``run_steps(n)`` the scale path (cell-sorted stepping for Barnes-Hut, as
-``bench.py`` measures on the TPU); pause/resume/reset; state get/set;
+``bench.py`` measures on the TPU, with the re-sort cadence
+``resort_every`` or the audited re-sort ``resort_stale_frac`` where the
+engine has the frozen-grid contract); pause/resume/reset; state get/set;
 energy queries; ``audit_short_range`` for the short-range engines'
 capacity audits. Every tensor lives on the device given to
 ``initialize``: the CUDA card unless the caller passes ``device="cpu"``.
 
 Not ported yet, and rejected with ``NotImplementedError`` rather than run
-some other path: sharding (``shard_devices > 1``), amortized or audited
-re-sorting (``resort_every > 1``, ``resort_stale_frac > 0``,
-``resort_repair``), and the distributions other than uniform and
-spherical. Instances are not thread-safe.
+some other path: sharding (``shard_devices > 1``), the table-resident
+repair stepping (``resort_repair``), and the distributions other than
+uniform and spherical. Instances are not thread-safe.
 """
 
 from __future__ import annotations
@@ -33,7 +34,9 @@ from nbody_tpu_torch.ops.forces import make_force_fn, make_sorted_force_fn
 from nbody_tpu_torch.ops.integrator import (
     initialize_forces,
     kinetic_energy,
+    make_adaptive_multi_step,
     make_multi_step,
+    make_resort_multi_step,
     make_sorted_multi_step,
     make_verlet_step,
     potential_energy,
@@ -46,15 +49,13 @@ from nbody_tpu_torch.utils.profiling import profile_phase
 def _require_ported(config: SimulationConfig) -> None:
     knobs = {
         "shard_devices > 1": config.shard_devices > 1,
-        "resort_every > 1": config.resort_every > 1,
-        "resort_stale_frac > 0": config.resort_stale_frac > 0.0,
         "resort_repair": config.resort_repair,
     }
     on = [k for k, v in knobs.items() if v]
     if on:
         raise NotImplementedError(
             f"{', '.join(on)}: not ported to nbody_tpu_torch yet "
-            "(ROADMAP A10 re-sort cadence / A14 multi-device)"
+            "(ROADMAP A13 table stepping and repair / A14 multi-device)"
         )
 
 
@@ -137,13 +138,26 @@ class ParticleSystem:
         if self._paused or n_steps <= 0:
             return
         with profile_phase("simulation.run_steps", device=self._device):
-            if self._sorted_force is None:
-                multi = make_multi_step(self._force_fn, self._config.dt,
-                                        n_steps)
-            else:
-                multi = make_sorted_multi_step(self._sorted_force,
-                                               self._config.dt, n_steps)
-            self._state = multi(self._state)
+            self._state = self._multi_step(n_steps)(self._state)
+
+    def _multi_step(self, n_steps: int):
+        """The JAX facade's choice off the TPU: plain steps without a
+        sorted contract; with the engine's frozen-grid contract and
+        N < 2²⁴, the audited re-sort when ``resort_stale_frac > 0`` (capped
+        at ``resort_every``, 16 when unset), else the fixed cadence when
+        ``resort_every > 1``; else a sort every step."""
+        cfg, sf = self._config, self._sorted_force
+        if sf is None:
+            return make_multi_step(self._force_fn, cfg.dt, n_steps)
+        frozen = hasattr(sf, "frozen") and self._state.n < (1 << 24)
+        cadence = cfg.resort_every
+        if frozen and cfg.resort_stale_frac > 0.0:
+            return make_adaptive_multi_step(
+                sf, cfg.dt, n_steps, max_stale_frac=cfg.resort_stale_frac,
+                max_cadence=cadence if cadence > 1 else 16)
+        if frozen and cadence > 1:
+            return make_resort_multi_step(sf, cfg.dt, n_steps, cadence)
+        return make_sorted_multi_step(sf, cfg.dt, n_steps)
 
     def pause(self) -> None:
         self._require_init()

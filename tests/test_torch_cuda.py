@@ -13,7 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from nbody_tpu_torch.ops.barnes_hut import barnes_hut_forces, bin_particles
+from nbody_tpu_torch.ops.barnes_hut import (
+    barnes_hut_forces,
+    barnes_hut_forces_frozen,
+    barnes_hut_forces_sorted,
+    bin_particles,
+)
 from nbody_tpu_torch.ops import _build
 from nbody_tpu_torch.ops.direct import (
     direct_forces,
@@ -29,10 +34,18 @@ from nbody_tpu_torch.ops.scatter import (
     tile_scatter,
     tile_scatter_plain,
 )
+from nbody_tpu_torch.ops.sort import (
+    INT_MAX,
+    bitonic_argsort,
+    bitonic_sort_pairs,
+    bitonic_sort_pairs_plain,
+)
 from nbody_tpu_torch.ops.sorted_window import build_sorted_grid, xy_ball
 from nbody_tpu_torch.ops.spatial_hash import (
     spatial_hash_forces,
     spatial_hash_forces_tiles,
+    spatial_hash_forces_tiles_frozen,
+    spatial_hash_forces_tiles_sorted,
 )
 from nbody_tpu_torch.ops.tile_near import (
     tile_sweep_plane,
@@ -248,3 +261,86 @@ def test_monopole_card_matches_cpu(dev, engine):
     got = barnes_hut_forces(p.to(dev), m.to(dev), **kw)
     assert segment_sum.launches == before + (engine == "tiles")
     _close(got, barnes_hut_forces(p, m, **kw), 2e-5)
+
+
+@pytest.mark.parametrize(
+    "n,hi", [(1000, 5000), (2049, 7), (100_000, 1 << 18), (1 << 17, 50)],
+    ids=["1000", "2049_ties", "100000", "131072_ties"])
+def test_bitonic_sort_kernel(dev, n, hi):
+    """K8 vs its plain twin, keys and values bit for bit (one tile, one
+    stage above it with pads, many stages, no pads), and a sorting
+    permutation."""
+    rng = np.random.default_rng(n)
+    keys = torch.from_numpy(rng.integers(0, hi, n).astype(np.int32)).to(dev)
+    vals = torch.from_numpy(
+        rng.integers(-(1 << 31), 1 << 31, n, dtype=np.int64).astype(
+            np.int32)).to(dev)
+    before = bitonic_sort_pairs.launches
+    got = bitonic_sort_pairs(keys, vals)
+    assert bitonic_sort_pairs.launches == before + 1
+    want = bitonic_sort_pairs_plain(keys, vals)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    ks, perm = bitonic_argsort(keys)
+    assert torch.equal(ks, torch.sort(keys).values)
+    assert torch.equal(keys[perm.long()], ks)
+    assert torch.equal(torch.sort(perm).values,
+                       torch.arange(n, dtype=torch.int32, device=dev))
+
+
+def test_bitonic_sort_int_max_keys(dev):
+    """Keys equal to INT_MAX beside pads: still a sorting permutation, and
+    equal to the twin."""
+    rng = np.random.default_rng(11)
+    keys = rng.integers(0, 10, 3000).astype(np.int32)
+    keys[rng.choice(3000, 100, replace=False)] = INT_MAX
+    keys = torch.from_numpy(keys).to(dev)
+    ks, perm = bitonic_argsort(keys)
+    want = bitonic_sort_pairs_plain(
+        keys, torch.arange(3000, dtype=torch.int32, device=dev))
+    assert torch.equal(ks, want[0]) and torch.equal(perm, want[1])
+    assert torch.equal(torch.sort(perm).values,
+                       torch.arange(3000, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("engine", ["bh", "hash"])
+def test_frozen_fresh_meta_is_the_sorted_step_on_card(dev, engine):
+    """On the card: frozen(psort, fresh meta) equals the sorted step bit
+    for bit (BH levels 4, k 16; hash tiles d 16, k 32, cell 1.0), its
+    audit reads 0, and after a move the audit equals a host recount."""
+    p, m = (t.to(dev) for t in _sphere(20000, 6.0, seed=12))
+    if engine == "bh":
+        kw = dict(levels=4, near_k=16)
+        acc, psort, _o, meta = barnes_hut_forces_sorted(
+            p, m, with_grid_meta=True, **kw)
+
+        def frozen(q):
+            return barnes_hut_forces_frozen(q, meta, with_audit=True, **kw)
+
+        def bins(x):
+            return x.to(torch.int32)
+        d = 16
+    else:
+        kw = dict(cutoff=1.0, cell_size=1.0, d=16, k=32)
+        acc, psort, _o, meta = spatial_hash_forces_tiles_sorted(
+            p, m, with_grid_meta=True, **kw)
+
+        def frozen(q):
+            return spatial_hash_forces_tiles_frozen(q, meta, with_audit=True,
+                                                    **kw)
+
+        def bins(x):
+            return torch.floor(x).to(torch.int32)
+        d = 16
+    acc_f, stale = frozen(psort)
+    assert torch.equal(acc_f, acc) and int(stale) == 0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    moved = psort.clone()
+    moved[:, :3] += 0.05 * torch.randn(moved.shape[0], 3, device=dev,
+                                       generator=gen)
+    _, stale = frozen(moved)
+    c = torch.clamp(bins((moved[:, :3].cpu() - meta.lo.cpu())
+                         / meta.cell.cpu()), 0, d - 1)
+    ids = (c[:, 0] * d + c[:, 1]) * d + c[:, 2]
+    recount = int((ids != meta.ids.cpu()).sum())
+    assert int(stale) == recount > 0

@@ -218,13 +218,17 @@ def test_cuda_device_raises_without_a_card():
 
 @pytest.mark.parametrize(
     "change",
-    [dict(force_method=ForceMethod.SPATIAL_HASH, resort_every=4),
+    [dict(force_method=ForceMethod.SPATIAL_HASH, resort_repair=True),
      dict(shard_devices=2),
-     dict(resort_every=4), dict(resort_stale_frac=0.1),
+     dict(resort_every=4, resort_repair=True),
+     dict(resort_stale_frac=0.1, resort_repair=True),
      dict(resort_repair=True), dict(init_distribution=InitDistribution.DISK)],
     ids=["hash", "shard", "resort_every", "stale_frac", "repair", "disk"],
 )
 def test_unported_paths_raise_not_implemented(change):
+    """The re-sort cadence and the audited re-sort are ported
+    (tests/test_torch_resort.py); repair stepping, with either of them or
+    alone, on either method, is not, nor are sharding and the disk."""
     cfg = SimulationConfig(particle_count=64, **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tnb.ParticleSystem().initialize(cfg, device="cpu")
