@@ -22,16 +22,21 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
      rows (kernel: median of 3 after 1 warm-up), K6 (the segment sum) at
      the monopole path's (1M, 4) → (4, 262144), K8 (the bitonic sort) on
      the sort benchmark's 1M keys below 2^18 (numpy seed 0), on the 1M
-     Barnes-Hut scene's finest cell ids (d = 64) and at n = 1000 and
-     2^11 + 1 (keys and values bit for bit; ``torch.sort`` is its library
-     yardstick); then frozen(fresh meta) against the sorted step, bit for
-     bit, at 1M for Barnes-Hut tiles and the sparse hash, and each audit
-     against a host recount after a move;
-     prints each kernel's bound (the larger of its FP32 operations over 67
-     TFLOP/s and its bytes over 3.35 TB/s, counted from this run's inputs:
-     for K7 the pairs of each target's 27-cell ball, with the pair tests
-     its live spans make beside them) and, where one PyTorch call computes
-     the same function, that call's time;
+     Barnes-Hut scene's finest cell ids (d = 64) and at n = 1000, 2^11 + 1
+     and 2^17 + 3 (keys and values bit for bit, and the kernels of one
+     sort counted by torch.profiler against ``launch_plan``;
+     ``torch.sort`` is its library yardstick); K3 at p = 32 and 16 (two calls bit-equal too,
+     ``conv3d`` with TF32 off its yardstick at both) and timed at every
+     level of a step, with their sum; then frozen(fresh meta) against the
+     sorted step, bit for bit, at 1M for Barnes-Hut tiles and the sparse
+     hash, and each audit against a host recount after a move;
+     prints each kernel's bound (the larger of its operations over their
+     peak rate and its bytes over 3.35 TB/s, counted from this run's
+     inputs: FP32 operations at 67 TFLOP/s, but K3's multiply-adds as three
+     TF32 tensor-core products at 495 TFLOP/s, its FP32-pipe bound printed
+     beside it; for K7 the pairs of each target's 27-cell ball, with the
+     pair tests its live spans make beside them) and, where one PyTorch
+     call computes the same function, that call's time;
   3. drives six paths, each with every launch count set to 0 just before
      it and read just after, checking that the path's kernels launched as
      expected and that no plain twin ran. Five go through the facade
@@ -87,6 +92,7 @@ import time
 
 N = 1_000_000
 FP32_OPS = 67e12   # H100 SXM FP32 outside the tensor cores, op/s
+TF32_OPS = 495e12  # H100 SXM TF32 on the tensor cores, dense, op/s
 HBM_BYTES = 3.35e12  # H100 SXM HBM3, byte/s
 PAIR_OPS = 20      # FP32 operations of one softened pair test
 
@@ -120,10 +126,26 @@ def time_ms(fn, reps: int = 7, warm: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound(ops: float, nbytes: float) -> dict:
+def queued_kernels(fn, tag: str) -> int:
+    """The kernels whose name holds ``tag`` that one call of ``fn`` queues,
+    counted by torch.profiler after a warm call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if tag in e.key and e.device_time_total > 0)
+
+
+def bound(ops: float, nbytes: float, rate: float = FP32_OPS) -> dict:
     """The least time the card could take: the larger of the operations
-    over the FP32 peak and the bytes over the memory rate."""
-    t_ops, t_bytes = ops / FP32_OPS * 1e3, nbytes / HBM_BYTES * 1e3
+    over their peak rate (FP32 outside the tensor cores unless given) and
+    the bytes over the memory rate."""
+    t_ops, t_bytes = ops / rate * 1e3, nbytes / HBM_BYTES * 1e3
     return dict(bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
@@ -318,45 +340,57 @@ def kernel_checks(res, pos, mass, cfg):
     # K2: placement + moments + counts
     tk, mk, overflow = k2_check(res, label, grid, lo, cell, d=d, k=k)
 
-    # K3: far taps at the two finest levels (p = 16, 32)
+    # K3: far taps at every level of one step; p = 32 and 16 (the two
+    # finest) against the twin and conv3d, and K3 called twice there
     pyr = pyramid_from_packed(mk[:10].T.reshape(d, d, d, 10), lo, cell,
                               levels)
-    k3_err = 0.0
-    for lvl in (levels - 1, levels):
+    k3_sum = 0.0
+    for lvl in range(levels, 0, -1):
         pp = (1 << lvl) // 2
         mom = level_moments(pyr, lvl)
         taps = level_tap_matrices(cell, ws, eps, levels, [lvl])[0].contiguous()
+        ms = time_ms(lambda: far_taps(mom, taps, p=pp, ws=ws))
+        k3_sum += ms
+        if pp < 16:
+            print(f"K3 far_taps p={pp}: kernel {ms:.4f} ms")
+            continue
         ok_, op_ = far_taps(mom, taps, p=pp, ws=ws), far_taps_plain(
             mom, taps, p=pp, ws=ws)
         e = float((ok_ - op_).abs().max())
         tol = 2e-5 * float(op_.abs().max())
         check(e <= tol, f"K3 far_taps p={pp} max|diff| {e} > {tol}")
-        k3_err = max(k3_err, e)
-        ms = time_ms(lambda: far_taps(mom, taps, p=pp, ws=ws))
+        check(torch.equal(ok_, far_taps(mom, taps, p=pp, ws=ws)),
+              f"K3 far_taps p={pp}: two calls differ")
         pms = time_ms(lambda: far_taps_plain(mom, taps, p=pp, ws=ws))
+        # The same function as ONE library call: a 3-D convolution of the
+        # 80 moment channels into 152 output channels, zero padding ws.
+        w1 = 2 * ws + 1
+        weight = (taps.reshape(w1, w1, w1, 152, 80).permute(3, 4, 0, 1, 2)
+                  .contiguous())
+        x5 = mom.reshape(1, 80, pp, pp, pp)
+        conv = F.conv3d(x5, weight, padding=ws).reshape(152, pp ** 3)
+        e_conv = float((conv - op_).abs().max())
+        check(e_conv <= 2e-5 * float(op_.abs().max()),
+              f"K3 conv3d yardstick disagrees by {e_conv}")
+        lib_ms = time_ms(lambda: F.conv3d(x5, weight, padding=ws))
+        # 2 ops per multiply-add over the (cell, tap) pairs whose source
+        # cell is in the grid: w1·p − ws(ws + 1) of them per axis
+        macs = 152 * 80 * (w1 * pp - ws * (ws + 1)) ** 3
+        nbytes = 4 * (80 * pp ** 3 + w1 ** 3 * 152 * 80 + 152 * pp ** 3)
+        fp32 = bound(2 * macs, nbytes)
+        rec = dict(max_abs_err=e, ms=ms, plain_ms=pms,
+                   **bound(2 * macs, nbytes, TF32_OPS / 3),
+                   fp32_pipe_bound_ms=fp32["bound_ms"], library_ms=lib_ms)
+        add_shape(res, "far_taps", f"{label} p = {pp}", rec)
         print(f"K3 far_taps p={pp}: max|diff| {e:.3e} (tol 2e-5*max|out| = "
-              f"{tol:.3e}); kernel {ms:.4f} ms, plain {pms:.4f} ms")
-    # The same function as ONE library call: a 3-D convolution of the
-    # 80 moment channels into 152 output channels, zero padding ws.
-    w1 = 2 * ws + 1
-    weight = (taps.reshape(w1, w1, w1, 152, 80).permute(3, 4, 0, 1, 2)
-              .contiguous())
-    x5 = mom.reshape(1, 80, pp, pp, pp)
-    conv = F.conv3d(x5, weight, padding=ws).reshape(152, pp ** 3)
-    e_conv = float((conv - op_).abs().max())
-    check(e_conv <= 2e-5 * float(op_.abs().max()),
-          f"K3 conv3d yardstick disagrees by {e_conv}")
-    lib_ms = time_ms(lambda: F.conv3d(x5, weight, padding=ws))
-    print(f"K3 library yardstick conv3d p={pp}: {lib_ms:.4f} ms "
-          f"(max|diff| vs plain {e_conv:.3e})")
-    add_shape(res, "far_taps", label, dict(
-        max_abs_err=k3_err, ms=ms, plain_ms=pms,
-        # 2 ops per multiply-add over the taps whose source cell is in the
-        # grid: (3p − 2)³ (cell, tap) pairs per axis product at ws = 1
-        **bound(2 * 152 * 80 * (w1 * pp - 2 * ws) ** 3,
-                4 * (80 * pp ** 3 + w1 ** 3 * 152 * 80 + 152 * pp ** 3)),
-        library_ms=lib_ms,
-    ))
+              f"{tol:.3e}), two calls bit-equal; kernel {ms:.4f} ms, plain "
+              f"{pms:.4f} ms, conv3d (TF32 off) {lib_ms:.4f} ms (max|diff| "
+              f"vs plain {e_conv:.3e}); bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}: {macs:.4e} multiply-adds as 3 TF32 "
+              f"products at 495 TFLOP/s), FP32-pipe bound "
+              f"{fp32['bound_ms']:.4f} ms")
+    print(f"K3 far_taps over the {levels} levels of one BH tiles step: "
+          f"{k3_sum:.4f} ms (sum of per-level medians)")
 
     # K4: near sweep seeded with the far expansion
     a_f, j_f, h_f = far_field_grid(pyr, ws, 1.0, eps, levels)
@@ -498,8 +532,9 @@ def sort_inputs(pos, cfg):
     """K8's inputs at the shapes its path gives it, as ``{label: keys}``:
     the sort benchmark's N keys below 2^18 (numpy default_rng(0), as
     scripts/profile_sort.py), the BH scene's finest cell ids, and two small
-    shapes — n = 1000 (one tile with pads) and 2^11 + 1 (pads past a
-    whole tile, many ties)."""
+    shapes — n = 1000 and 2^11 + 1 (one tile with pads, many ties in the
+    second) and 2^17 + 3 (pads past whole tiles, a stage of a full
+    device-memory group and a group of one)."""
     import numpy as np
     import torch
 
@@ -520,14 +555,16 @@ def sort_inputs(pos, cfg):
             bin_particles(pos, levels)[2], 1 << levels),
         "n = 1000": on(small.integers(0, 5000, size=1000)),
         "n = 2^11 + 1": on(small.integers(0, 7, size=(1 << 11) + 1)),
+        "n = 2^17 + 3": on(small.integers(0, 50, size=(1 << 17) + 3)),
     }
 
 
 def k8_checks(res, inputs):
     """K8 (the bitonic sort) against its plain twin on each input, keys
-    and values bit for bit, and the result a sorting permutation; at the
-    1M shapes the kernel, the twin (median of 3) and ``torch.sort`` (the
-    library yardstick) are timed."""
+    and values bit for bit, the result a sorting permutation, and the
+    kernels one sort queues (counted by torch.profiler) as many as
+    ``launch_plan`` lists; the kernel, the twin (median of 3 at the large
+    shapes) and ``torch.sort`` (the library yardstick) are timed."""
     import math
 
     import torch
@@ -549,6 +586,14 @@ def k8_checks(res, inputs):
               and torch.equal(keys[vs.long()], ks)
               and torch.equal(torch.sort(vs).values, vals),
               f"K8 {label}: not a sorting permutation")
+        # the kernels of csrc/bitonic_sort.cu are named bitonic_*
+        queued = queued_kernels(lambda: bitonic_sort_pairs(keys, vals),
+                                "bitonic_")
+        check(queued == kernel_launches(n),
+              f"K8 {label}: {queued} kernels queued a sort, launch_plan "
+              f"has {kernel_launches(n)}")
+        check(n > 1 << 20 or queued <= 20,
+              f"K8 {label}: {queued} kernels a sort")
         big = n >= 1 << 16
         rec = dict(
             max_abs_err=0.0,
@@ -562,10 +607,11 @@ def k8_checks(res, inputs):
         )
         add_shape(res, "bitonic_sort", label, rec)
         print(f"K8 bitonic_sort {label}: keys and values bit-equal to the "
-              f"twin, a sorting permutation; {kernel_launches(n)} kernel "
-              f"launches a sort; kernel {rec['ms']:.4f} ms, plain "
-              f"{rec['plain_ms']:.4f} ms, torch.sort {rec['library_ms']:.4f}"
-              f" ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+              f"twin, a sorting permutation; {queued} kernels a sort "
+              f"(profiler; launch_plan {kernel_launches(n)}); kernel "
+              f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+              f"torch.sort {rec['library_ms']:.4f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
 
 
 def frozen_checks(pos, mass, bh_cfg, sp_pos, sp_mass, sp_cfg):
@@ -945,7 +991,7 @@ def sort_path(inputs, want, wrappers, plains, smi):
 
     from nbody_tpu_torch.ops.sort import bitonic_argsort
 
-    big = [k for k in inputs.values() if k.shape[0] > 1 << 16]
+    big = [k for k in inputs.values() if k.shape[0] == N]
 
     def run():
         return [bitonic_argsort(k) for k in big]

@@ -57,8 +57,9 @@ SIGNATURES = {
     "nbt_pair_potential": (_P, _P, _I, _F, _P, _P),
     # vals, C, n, dest, num_dest, out, stream
     "nbt_segment_sum": (_P, _I, _I, _P, _I, _P, _P),
-    # keys_in, vals_in, n, m, keys, vals, pads, stream
-    "nbt_bitonic_sort": (_P, _P, _I, _I, _P, _P, _P, _P),
+    # keys_in, vals_in, n, m, plan (host), n_launches, work, keys_out,
+    # vals_out, stream
+    "nbt_bitonic_sort": (_P, _P, _I, _I, _P, _I, _P, _P, _P, _P),
 }
 
 _lock = threading.Lock()

@@ -10,7 +10,7 @@ permutation, is a fixed function of the input and equals the JAX
 function's.
 
 Unlike the JAX function, a pad compares greater than a real key equal to
-INT_MAX (each element carries a pad flag), so ``bitonic_argsort`` returns
+INT_MAX (the comparison is on (key, pad)), so ``bitonic_argsort`` returns
 a permutation for any int32 input; on keys below INT_MAX nothing changes.
 
 Like the JAX package, the port keeps the stable ``torch.argsort`` on every
@@ -19,10 +19,16 @@ and runs only where it is asked for (``scripts/profile_sort_torch.py``).
 
 ``bitonic_sort_pairs`` is the wrapper of ``csrc/bitonic_sort.cu``;
 ``bitonic_sort_pairs_plain`` is its plain twin, one vectorised
-compare-exchange per pass.
+compare-exchange per pass. ``launch_plan`` is the kernel's schedule: which
+passes each of its launches runs. The wrapper hands it to the kernel's
+entry point, which runs those launches and nothing else, so the count of
+CUDA launches is ``kernel_launches(n)`` by construction.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -30,7 +36,8 @@ from nbody_tpu_torch.ops import _build
 
 INT_MAX = (1 << 31) - 1
 MIN_LOG2 = 10      # the JAX function pads to at least 1024 elements
-TILE_LOG2 = 11     # elements per shared-memory tile of csrc/bitonic_sort.cu
+TILE_LOG2 = 13     # elements per shared-memory tile of csrc/bitonic_sort.cu
+GROUP = 4          # device-memory passes fused into one launch (kGroup)
 _MAX_LOG2 = 30     # int32 indexing in the kernel
 
 
@@ -39,13 +46,34 @@ def padded_log2(n: int) -> int:
     return max(MIN_LOG2, (n - 1).bit_length())
 
 
-def kernel_launches(n: int) -> int:
-    """CUDA kernels one sort of ``n`` keys queues: one tile sort, then for
-    each stage above the tile the passes over device memory and one tile
-    merge (55 at n = 1M)."""
+def launch_plan(n: int) -> list[list[tuple[int, int]]]:
+    """The passes (k, j) each CUDA launch of one sort of ``n`` keys runs,
+    in order — the schedule ``nbt_bitonic_sort`` runs: one launch for stages
+    1..t of every 2^t tile (t = min(m, TILE_LOG2)); then for each stage
+    k > t its passes j = k−1..t over device memory, ``GROUP`` to a launch,
+    and one launch for its passes j = t−1..0 tile by tile."""
     m = padded_log2(n)
     t = min(m, TILE_LOG2)
-    return 1 + sum(k - t + 1 for k in range(t + 1, m + 1))
+    plan = [[(k, j) for k in range(1, t + 1) for j in range(k - 1, -1, -1)]]
+    for k in range(t + 1, m + 1):
+        above = [(k, j) for j in range(k - 1, t - 1, -1)]
+        plan += [above[i:i + GROUP] for i in range(0, len(above), GROUP)]
+        plan.append([(k, j) for j in range(t - 1, -1, -1)])
+    return plan
+
+
+def kernel_launches(n: int) -> int:
+    """CUDA kernels one sort of ``n`` keys queues (18 at n = 1M)."""
+    return len(launch_plan(n))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_words(m: int):
+    """``launch_plan`` for 2^m keys as the entry point takes it: a C int
+    array of (k, j) of each launch's first pass, then of its last."""
+    words = [w for launch in launch_plan(1 << m)
+             for w in (*launch[0], *launch[-1])]
+    return (ctypes.c_int * len(words))(*words), len(words) // 4
 
 
 def bitonic_sort_pairs_plain(keys, vals):
@@ -94,15 +122,16 @@ def bitonic_sort_pairs(keys, vals):
     if m > _MAX_LOG2:
         raise ValueError(f"bitonic_sort_pairs: {n} keys overflow int32 "
                          "indexing")
-    n_pad = 1 << m
-    out_k = torch.empty((n_pad,), dtype=torch.int32, device=dev)
-    out_v = torch.empty((n_pad,), dtype=torch.int32, device=dev)
-    pads = (torch.empty((n_pad,), dtype=torch.uint8, device=dev)
-            if n < n_pad else None)
+    plan, n_launches = _plan_words(m)
+    # (key, row) of each padded element, 8 bytes apiece
+    work = torch.empty((2 << m,), dtype=torch.int32, device=dev)
+    out_k = torch.empty((n,), dtype=torch.int32, device=dev)
+    out_v = torch.empty((n,), dtype=torch.int32, device=dev)
     _build.launch("nbt_bitonic_sort", dev, keys.data_ptr(), vals.data_ptr(),
-                  n, m, out_k.data_ptr(), out_v.data_ptr(), _build.ptr(pads))
+                  n, m, ctypes.addressof(plan), n_launches, work.data_ptr(),
+                  out_k.data_ptr(), out_v.data_ptr())
     bitonic_sort_pairs.launches += 1
-    return out_k[:n], out_v[:n]
+    return out_k, out_v
 
 
 bitonic_sort_pairs.launches = 0

@@ -9,6 +9,8 @@ where JAX is not installed:
 (``--noconftest`` because the suite's conftest configures JAX.)
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -36,9 +38,11 @@ from nbody_tpu_torch.ops.scatter import (
 )
 from nbody_tpu_torch.ops.sort import (
     INT_MAX,
+    _plan_words,
     bitonic_argsort,
     bitonic_sort_pairs,
     bitonic_sort_pairs_plain,
+    kernel_launches,
 )
 from nbody_tpu_torch.ops.sorted_window import build_sorted_grid, xy_ball
 from nbody_tpu_torch.ops.spatial_hash import (
@@ -105,16 +109,38 @@ def test_scatter_kernel(dev):
     assert bool(((mk - mp).abs() <= tol).all())
 
 
-@pytest.mark.parametrize("p", [1, 4, 16])
-def test_far_taps_kernel(dev, p):
-    """K3 vs plain (FP32 matmuls, TF32 off): atol 2e-5·max|out|."""
-    rng = np.random.default_rng(p)
+_K3_CASES = [(p, ws) for ws in (1, 2) for p in (1, 2, 4, 8, 16, 32)]
+
+
+def _k3_inputs(p, ws, dev):
+    rng = np.random.default_rng(p + 100 * ws)
     mom = torch.from_numpy(rng.normal(size=(80, p ** 3)).astype(np.float32))
-    taps = torch.from_numpy(
-        rng.normal(size=(27, 152, 80)).astype(np.float32))
-    mom, taps = mom.to(dev), taps.to(dev)
-    _close(far_taps(mom, taps, p=p, ws=1),
-           far_taps_plain(mom, taps, p=p, ws=1), 2e-5)
+    taps = torch.from_numpy(rng.normal(
+        size=((2 * ws + 1) ** 3, 152, 80)).astype(np.float32))
+    return mom.to(dev), taps.to(dev)
+
+
+@pytest.mark.parametrize(
+    "p,ws", _K3_CASES,
+    ids=[f"{p}" if ws == 1 else f"{p}-ws{ws}" for p, ws in _K3_CASES])
+def test_far_taps_kernel(dev, p, ws):
+    """K3 (3xTF32 on the tensor cores) vs plain (FP32 matmuls, TF32 off):
+    atol 2e-5·max|out|, at every level size from p = 1 (only the centre
+    tap inside the grid) to 32, with both brick tilings, ws 1 and 2."""
+    mom, taps = _k3_inputs(p, ws, dev)
+    before = far_taps.launches
+    got = far_taps(mom, taps, p=p, ws=ws)
+    assert far_taps.launches == before + 1
+    _close(got, far_taps_plain(mom, taps, p=p, ws=ws), 2e-5)
+
+
+@pytest.mark.parametrize("p", [16, 32])
+def test_far_taps_kernel_is_deterministic(dev, p):
+    """Two K3 calls on the same input give the same bits (no atomics, one
+    fixed order of the terms of each output)."""
+    mom, taps = _k3_inputs(p, 1, dev)
+    assert torch.equal(far_taps(mom, taps, p=p, ws=1),
+                       far_taps(mom, taps, p=p, ws=1))
 
 
 @pytest.mark.parametrize("cutoff2", [None, 1.5], ids=["far", "cutoff"])
@@ -264,12 +290,16 @@ def test_monopole_card_matches_cpu(dev, engine):
 
 
 @pytest.mark.parametrize(
-    "n,hi", [(1000, 5000), (2049, 7), (100_000, 1 << 18), (1 << 17, 50)],
-    ids=["1000", "2049_ties", "100000", "131072_ties"])
+    "n,hi", [(1000, 5000), (2049, 7), (100_000, 1 << 18), (1 << 17, 50),
+             (8191, 1000), (8192, 30), (8193, 1000), ((1 << 14) + 1, 1000),
+             ((1 << 15) + 1, 9), ((1 << 16) + 5, 1 << 20), ((1 << 17) + 3, 50)],
+    ids=["1000", "2049_ties", "100000", "131072_ties", "tile-1", "tile",
+         "tile+1", "2^14+1", "group3_2^15+1", "group4_2^16+5", "2^17+3"])
 def test_bitonic_sort_kernel(dev, n, hi):
-    """K8 vs its plain twin, keys and values bit for bit (one tile, one
-    stage above it with pads, many stages, no pads), and a sorting
-    permutation."""
+    """K8 vs its plain twin, keys and values bit for bit, and a sorting
+    permutation: one tile (with and without pads), the 2¹³ tile ± 1, the
+    first stages above it (device-memory groups of 1, 3 and 4 passes) and
+    2¹⁷ + 3 (a stage of a full group and a group of one)."""
     rng = np.random.default_rng(n)
     keys = torch.from_numpy(rng.integers(0, hi, n).astype(np.int32)).to(dev)
     vals = torch.from_numpy(
@@ -288,18 +318,62 @@ def test_bitonic_sort_kernel(dev, n, hi):
 
 
 def test_bitonic_sort_int_max_keys(dev):
-    """Keys equal to INT_MAX beside pads: still a sorting permutation, and
-    equal to the twin."""
+    """Keys equal to INT_MAX beside pads, in one tile and above it: still a
+    sorting permutation, and equal to the twin."""
     rng = np.random.default_rng(11)
-    keys = rng.integers(0, 10, 3000).astype(np.int32)
-    keys[rng.choice(3000, 100, replace=False)] = INT_MAX
-    keys = torch.from_numpy(keys).to(dev)
-    ks, perm = bitonic_argsort(keys)
-    want = bitonic_sort_pairs_plain(
-        keys, torch.arange(3000, dtype=torch.int32, device=dev))
-    assert torch.equal(ks, want[0]) and torch.equal(perm, want[1])
-    assert torch.equal(torch.sort(perm).values,
-                       torch.arange(3000, dtype=torch.int32, device=dev))
+    for n in (3000, 20000):
+        keys = rng.integers(0, 10, n).astype(np.int32)
+        keys[rng.choice(n, n // 30, replace=False)] = INT_MAX
+        keys = torch.from_numpy(keys).to(dev)
+        ks, perm = bitonic_argsort(keys)
+        rows = torch.arange(n, dtype=torch.int32, device=dev)
+        want = bitonic_sort_pairs_plain(keys, rows)
+        assert torch.equal(ks, want[0]) and torch.equal(perm, want[1])
+        assert torch.equal(torch.sort(perm).values, rows)
+
+
+def _sort_kernels(fn) -> int:
+    """The K8 kernels (``bitonic_*`` in csrc/bitonic_sort.cu) one call of
+    ``fn`` queues, counted by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if "bitonic_" in e.key and e.device_time_total > 0)
+
+
+@pytest.mark.parametrize("n", [1_000_000, (1 << 17) + 3],
+                         ids=["1M", "2^17+3"])
+def test_bitonic_sort_queues_its_launch_plan(dev, n):
+    """The kernels one sort queues, counted on the card, are
+    ``kernel_launches(n)``: 18 at 1M."""
+    rng = np.random.default_rng(n)
+    keys = torch.from_numpy(
+        rng.integers(0, 1 << 18, n).astype(np.int32)).to(dev)
+    vals = torch.arange(n, dtype=torch.int32, device=dev)
+    assert _sort_kernels(
+        lambda: bitonic_sort_pairs(keys, vals)) == kernel_launches(n)
+
+
+def test_bitonic_sort_refuses_a_plan_off_the_network(dev):
+    """The entry point runs only a plan whose launches chain into the
+    canonical pass sequence: one without the device-memory pass of stage
+    14 is refused."""
+    n, m = 1 << 14, 14
+    keys = torch.arange(n, 0, -1, dtype=torch.int32, device=dev)
+    work = torch.empty((2 << m,), dtype=torch.int32, device=dev)
+    out = torch.empty((2, n), dtype=torch.int32, device=dev)
+    words, count = _plan_words(m)
+    assert count == 3   # tile sort, the group of pass (14, 13), the merge
+    bad = (ctypes.c_int * 8)(*words[:4], *words[8:])
+    with pytest.raises(RuntimeError, match="nbt_bitonic_sort"):
+        _build.launch("nbt_bitonic_sort", dev, keys.data_ptr(),
+                      keys.data_ptr(), n, m, ctypes.addressof(bad), 2,
+                      work.data_ptr(), out[0].data_ptr(), out[1].data_ptr())
 
 
 @pytest.mark.parametrize("engine", ["bh", "hash"])

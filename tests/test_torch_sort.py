@@ -16,6 +16,9 @@ from nbody_tpu_torch.ops.sort import (
     bitonic_argsort,
     bitonic_sort_pairs,
     kernel_launches,
+    _plan_words,
+    launch_plan,
+    padded_log2,
 )
 
 
@@ -78,8 +81,48 @@ def test_int_max_keys_still_give_a_permutation():
 
 
 def test_kernel_launch_count():
-    """One tile sort, then per stage above the 2¹¹ tile its passes over
-    device memory and one merge: 55 launches at 1M, 1 up to 2¹¹."""
-    assert kernel_launches(1_000_000) == 55
-    assert kernel_launches(1000) == kernel_launches(2048) == 1
-    assert kernel_launches(2049) == 3
+    """One launch sorts every 2¹³ tile; above the tile each stage fuses
+    its device-memory passes four to a launch and merges its tiles in one
+    more: 18 launches at 1M, 1 up to 2¹³, 3 and then 5 for the first
+    sizes above it."""
+    assert kernel_launches(1_000_000) == 18 <= 20
+    assert kernel_launches(1000) == kernel_launches(8192) == 1
+    assert kernel_launches(8193) == kernel_launches(1 << 14) == 3
+    assert kernel_launches((1 << 14) + 1) == 5
+    # 2^18 padded: stages 14..18 fuse 1, 1, 1, 1 and 2 groups
+    assert kernel_launches((1 << 17) + 3) == 1 + 6 + 5
+
+
+@pytest.mark.parametrize(
+    "n", [1000, 1024, 8191, 8193, 1 << 14, 100_000, 1 << 17, (1 << 17) + 3,
+          1 << 20, (1 << 20) + 1])
+def test_launch_plan_is_the_canonical_network(n):
+    """Laid end to end, the launches run exactly the canonical passes in
+    order (k = 1..m, j = k−1..0 each), and no device-memory launch runs
+    more than four passes."""
+    m = padded_log2(n)
+    plan = launch_plan(n)
+    assert [kj for launch in plan for kj in launch] == [
+        (k, j) for k in range(1, m + 1) for j in range(k - 1, -1, -1)]
+    assert len(plan) == kernel_launches(n)
+    for launch in plan[1:]:
+        if launch[-1][1] > 0:   # a group above the tile
+            assert 1 <= len(launch) <= 4
+            assert launch[-1][1] >= min(m, 13)
+
+
+@pytest.mark.parametrize("n", [1000, 8193, (1 << 17) + 3, 1 << 20])
+def test_plan_words_are_the_launch_plan(n):
+    """What the wrapper hands the kernel's entry point is ``launch_plan``:
+    each launch as its first and last pass, from which the canonical
+    sequence gives back every pass in between."""
+    m = padded_log2(n)
+    words, count = _plan_words(m)
+    plan = launch_plan(n)
+    assert count == len(plan) == kernel_launches(n)
+    canon = [(k, j) for k in range(1, m + 1) for j in range(k - 1, -1, -1)]
+    at = {kj: i for i, kj in enumerate(canon)}
+    spans = [canon[at[tuple(words[4 * i:4 * i + 2])]:
+                   at[tuple(words[4 * i + 2:4 * i + 4])] + 1]
+             for i in range(count)]
+    assert spans == plan
