@@ -24,7 +24,7 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
      the sort benchmark's 1M keys below 2^18 (numpy seed 0), on the 1M
      Barnes-Hut scene's finest cell ids (d = 64) and at n = 1000, 2^11 + 1
      and 2^17 + 3 (keys and values bit for bit, and the kernels of one
-     sort counted by torch.profiler against ``launch_plan``;
+     sort counted in a captured CUDA graph against ``launch_plan``;
      ``torch.sort`` is its library yardstick); K3 at p = 32 and 16 (two calls bit-equal too,
      ``conv3d`` with TF32 off its yardstick at both) and timed at every
      level of a step, with their sum; then frozen(fresh meta) against the
@@ -34,9 +34,11 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
      peak rate and its bytes over 3.35 TB/s, counted from this run's
      inputs: FP32 operations at 67 TFLOP/s, but K3's multiply-adds as three
      TF32 tensor-core products at 495 TFLOP/s, its FP32-pipe bound printed
-     beside it; for K7 the pairs of each target's 27-cell ball, with the
-     pair tests its live spans make beside them) and, where one PyTorch
-     call computes the same function, that call's time;
+     beside it; for K7 the pairs of each target's 27-cell ball, with a
+     model of its pair tests and its warps' lane slots from
+     ``window_spans`` printed beside them) and, where one PyTorch call
+     computes the same function, that call's time; K6 and K7 also give bit-equal output over two calls, and
+     their device time per call (CUDA graph replay) is printed beside;
   3. drives six paths, each with every launch count set to 0 just before
      it and read just after, checking that the path's kernels launched as
      expected and that no plain twin ran. Five go through the facade
@@ -126,19 +128,65 @@ def time_ms(fn, reps: int = 7, warm: int = 2) -> float:
     return statistics.median(times)
 
 
-def queued_kernels(fn, tag: str) -> int:
-    """The kernels whose name holds ``tag`` that one call of ``fn`` queues,
-    counted by torch.profiler after a warm call."""
+def graph_kernels(fn) -> int:
+    """The kernels one call of ``fn`` queues: the kernel nodes of a CUDA
+    graph captured from a call after a warm one, counted through the
+    driver API. (torch.profiler loses kernel records in a long process:
+    on the H100 machine its count of one 1M sort fell by one kernel every
+    ~15 s of process time, padding the trace window or not.)"""
+    import ctypes
+
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
         fn()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if tag in e.key and e.device_time_total > 0)
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0,
+          "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0,
+          "cuGraphGetNodes failed")
+    kernels = 0
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                    ctypes.byref(kind)) == 0,
+              "cuGraphNodeGetType failed")
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    del graph
+    return kernels
+
+
+def graph_ms(fn, reps: int = 10) -> float:
+    """Device time (ms) of one call of ``fn`` with no host in it: ``reps``
+    calls captured in one CUDA graph, the replay timed with CUDA events
+    (median of 5 replays) and divided by ``reps``."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    del graph
+    return statistics.median(times)
 
 
 def bound(ops: float, nbytes: float, rate: float = FP32_OPS) -> dict:
@@ -484,8 +532,10 @@ def k5_check(res, pos, mass, cfg):
 def k6_check(res, pos, mass, cfg):
     """K6 (the segment sum) against its plain twin at the monopole path's
     shapes: the sorted rows' [m, m·x] (1M, 4) into the d³ = 262144 finest
-    cells, max |diff| <= 1e-6·max|out|; ``index_add_`` of the same rows is
-    the library yardstick."""
+    cells, max |diff| <= 1e-6·max|out| against the twin on float64 copies
+    of the rows (the float32 twin's ``index_add_`` adds with atomics in no
+    fixed order; its difference is printed beside), and two calls
+    bit-equal; ``index_add_`` of the same rows is the library yardstick."""
     import torch
 
     from nbody_tpu_torch.ops.barnes_hut import bh_engine_params, bin_particles
@@ -501,10 +551,13 @@ def k6_check(res, pos, mass, cfg):
     vals = torch.cat([m, m * g.psort[:, :3]], dim=-1).contiguous()
     ids = g.ids
     got = segment_sum(vals, ids, nc)
-    want = segment_sum_plain(vals, ids, nc)
-    e = float((got - want).abs().max())
+    want = segment_sum_plain(vals.double(), ids, nc)
+    e = float((got.double() - want).abs().max())
     tol = 1e-6 * float(want.abs().max())
     check(e <= tol, f"K6 segment_sum: max|diff| {e} > {tol}")
+    e32 = float((got - segment_sum_plain(vals, ids, nc)).abs().max())
+    check(torch.equal(got, segment_sum(vals, ids, nc)),
+          "K6 segment_sum: two calls differ")
     ids64 = ids.to(torch.int64)
 
     def library():
@@ -515,16 +568,22 @@ def k6_check(res, pos, mass, cfg):
     rec = dict(
         max_abs_err=e,
         ms=time_ms(lambda: segment_sum(vals, ids, nc)),
+        device_ms=graph_ms(lambda: segment_sum(vals, ids, nc), reps=20),
         plain_ms=time_ms(lambda: segment_sum_plain(vals, ids, nc)),
         # ~4 adds per row; vals + dest in, (4, d³) out
         **bound(4 * n, 16 * n + 4 * n + 16 * nc),
         library_ms=time_ms(library),
+        library_device_ms=graph_ms(library, reps=20),
     )
     add_shape(res, "segment_sum", MONOPOLE, rec)
     print(f"K6 segment_sum {MONOPOLE} ({n}, 4) -> (4, {nc}): max|diff| "
-          f"{e:.3e} (tol 1e-6*max|out| = {tol:.3e}); kernel "
-          f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
-          f"(zeros + index_add_) {rec['library_ms']:.4f} ms, bound "
+          f"{e:.3e} against the float64 twin (tol 1e-6*max|out| = "
+          f"{tol:.3e}), {e32:.3e} against the float32 twin; two calls "
+          f"bit-equal; kernel "
+          f"{rec['ms']:.4f} ms a call ({rec['device_ms']:.4f} ms of device "
+          f"time, CUDA graph replay), plain {rec['plain_ms']:.4f} ms, library "
+          f"(zeros + index_add_) {rec['library_ms']:.4f} ms a call "
+          f"({rec['library_device_ms']:.4f} ms of device time), bound "
           f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
 
 
@@ -562,7 +621,7 @@ def sort_inputs(pos, cfg):
 def k8_checks(res, inputs):
     """K8 (the bitonic sort) against its plain twin on each input, keys
     and values bit for bit, the result a sorting permutation, and the
-    kernels one sort queues (counted by torch.profiler) as many as
+    kernels one sort queues (counted in a captured CUDA graph) as many as
     ``launch_plan`` lists; the kernel, the twin (median of 3 at the large
     shapes) and ``torch.sort`` (the library yardstick) are timed."""
     import math
@@ -586,9 +645,9 @@ def k8_checks(res, inputs):
               and torch.equal(keys[vs.long()], ks)
               and torch.equal(torch.sort(vs).values, vals),
               f"K8 {label}: not a sorting permutation")
-        # the kernels of csrc/bitonic_sort.cu are named bitonic_*
-        queued = queued_kernels(lambda: bitonic_sort_pairs(keys, vals),
-                                "bitonic_")
+        # the wrapper only allocates besides its launch, so every kernel
+        # node of a captured sort is K8's
+        queued = graph_kernels(lambda: bitonic_sort_pairs(keys, vals))
         check(queued == kernel_launches(n),
               f"K8 {label}: {queued} kernels queued a sort, launch_plan "
               f"has {kernel_launches(n)}")
@@ -608,7 +667,7 @@ def k8_checks(res, inputs):
         add_shape(res, "bitonic_sort", label, rec)
         print(f"K8 bitonic_sort {label}: keys and values bit-equal to the "
               f"twin, a sorting permutation; {queued} kernels a sort "
-              f"(profiler; launch_plan {kernel_launches(n)}); kernel "
+              f"(CUDA graph; launch_plan {kernel_launches(n)}); kernel "
               f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
               f"torch.sort {rec['library_ms']:.4f} ms, bound "
               f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
@@ -692,28 +751,17 @@ def sparse_tile_checks(res, pos, mass):
              cell=cell, cutoff2=4.0)
 
 
-def k7_checks(res, pos, mass):
-    """Phase 2 for K7: the window sweep against its plain twin at the
-    dense-hash and BH-window shapes of the 1M scene. The bound counts the
-    pair tests the function needs, each target against its 27-cell ball;
-    the live-span tests the kernel makes are printed beside it."""
-    import torch
-    import torch.nn.functional as F
-
+def k7_shapes(pos, mass):
+    """K7's inputs at the two 1M shapes that run it, from the 1M scene's
+    positions: ``[(label, sorted grid, window_sweep kwargs)]`` for the
+    dense hash (d 64, cutoff 2) and the BH window engine (d 32)."""
     from nbody_tpu_torch.ops.barnes_hut import bin_particles
     from nbody_tpu_torch.ops.sorted_window import build_sorted_grid, xy_ball
     from nbody_tpu_torch.ops.spatial_hash import hash_bin
-    from nbody_tpu_torch.ops.window_sweep import (
-        block_rows,
-        window_starts,
-        window_sweep_kernel,
-        window_sweep_plain,
-    )
 
-    n = pos.shape[0]
     coords_h = hash_bin(pos, 1.0, 64)[2]
     coords_b = bin_particles(pos, 5)[2]
-    shapes = [
+    return [
         ("1M dense hash", build_sorted_grid(pos, mass, coords_h, 64,
                                             with_csort=True),
          dict(d=64, offsets=xy_ball(1), z_hw=1, window=2048,
@@ -723,7 +771,28 @@ def k7_checks(res, pos, mass):
          dict(d=32, offsets=xy_ball(1), z_hw=1, window=2048,
               block_size=256, eps=0.1)),
     ]
-    for label, g, kw in shapes:
+
+
+def k7_checks(res, pos, mass):
+    """Phase 2 for K7: the window sweep against its plain twin at the
+    dense-hash and BH-window shapes of the 1M scene, and two calls
+    bit-equal. The bound counts the pair tests the function needs, each
+    target against its 27-cell ball; a model of the kernel's work from
+    ``window_spans`` (its pair tests, the rows of each target's per-cell
+    spans, and the lane slots its warps would issue) is printed beside it,
+    outside the kernels' record."""
+    import torch
+    import torch.nn.functional as F
+
+    from nbody_tpu_torch.ops.window_sweep import (
+        block_rows,
+        window_spans,
+        window_sweep_kernel,
+        window_sweep_plain,
+    )
+
+    n = pos.shape[0]
+    for label, g, kw in k7_shapes(pos, mass):
         args = (g.psort, g.csort, g.cell_start)
         acc_k, over_k = window_sweep_kernel(*args, **kw)
         b, d = kw["block_size"], kw["d"]
@@ -754,21 +823,33 @@ def k7_checks(res, pos, mass):
         ball = F.avg_pool3d(cnt, 3, stride=1, padding=1,
                             count_include_pad=True) * 27
         needed = float((cnt * ball).sum())
-        # pair tests the kernel makes: every row of every live span
-        ws0, end, _ = window_starts(g.csort, g.cell_start, d=d,
-                                    offsets=kw["offsets"], z_hw=kw["z_hw"],
-                                    window=kw["window"], block_size=b)
-        span = torch.clamp(torch.minimum(end, ws0 + kw["window"]) - ws0,
-                           min=0)
-        rows = torch.full((nb,), b, dtype=torch.int64, device=pos.device)
-        rows[-1] = n - (nb - 1) * b
-        tested = float((span.sum(1) * rows).sum())
+        # A model of the kernel's work, not a count taken from it: the pair
+        # tests are the rows of every target's span (window_spans, the CPU
+        # mirror of the kernel's spans); the lane slots assume the targets
+        # of a warp (32 consecutive rows of a block) walk their spans side
+        # by side, so that a warp takes as long as its longest lane's span
+        lo, hi, _ = window_spans(g.csort, g.cell_start, d=d,
+                                 offsets=kw["offsets"], z_hw=kw["z_hw"],
+                                 window=kw["window"], block_size=b)
+        span = hi - lo
+        tested = float(span.sum())
+        row = torch.arange(n, device=pos.device)
+        warp = (row // b) * -(-b // 32) + (row % b) // 32
+        wmax = torch.zeros((int(warp[-1]) + 1, span.shape[1]),
+                           dtype=span.dtype, device=pos.device)
+        wmax.scatter_reduce_(0, warp[:, None].expand_as(span), span, "amax")
+        slots = 32.0 * float(wmax.sum())
+        del lo, hi, span, row, warp, wmax
+        acc_k2, over_k2 = window_sweep_kernel(*args, **kw)
+        check(torch.equal(acc_k, acc_k2) and int(over_k) == int(over_k2),
+              f"K7 {label}: two calls differ")
         ms = time_ms(lambda: window_sweep_kernel(*args, **kw))
+        dms = graph_ms(lambda: window_sweep_kernel(*args, **kw), reps=3)
         reps = 7 if est <= 2.0 else (3 if est <= 10.0 else 1)
         pms = time_ms(lambda: window_sweep_plain(*args, **kw), reps=reps,
                       warm=0) if est <= 30.0 else None
         rec = dict(
-            max_abs_err=e, ms=ms, plain_ms=pms,
+            max_abs_err=e, ms=ms, device_ms=dms, plain_ms=pms,
             # psort, csort, cell_start in; acc + overflow out
             **bound(PAIR_OPS * needed,
                     16 * n + 12 * n + 4 * g.cell_start.numel() + 12 * n + 8),
@@ -777,11 +858,14 @@ def k7_checks(res, pos, mass):
         add_shape(res, "window_sweep", label, rec)
         print(f"K7 window_sweep {label}: max|diff| {e:.3e} (tol "
               f"2e-5*max|a| = {tol:.3e}, compared on {note}); overflow "
-              f"{int(over_k)} = plain; 27-cell pairs needed {needed:.4e}, "
-              f"live-span pair tests made {tested:.4e} "
-              f"({tested / needed:.3f}x); kernel {ms:.4f} ms, plain {pms} ms "
-              f"(median of {reps}), bound {rec['bound_ms']:.4f} ms "
-              f"({rec['bound_by']})")
+              f"{int(over_k)} = plain; two calls bit-equal; 27-cell pairs "
+              f"needed {needed:.4e}; modelled from window_spans (not counted "
+              f"in the kernel): pair tests {tested:.4e} "
+              f"({tested / needed:.3f}x), warp lane slots "
+              f"{slots:.4e} ({slots / needed:.3f}x); kernel {ms:.4f} ms "
+              f"(device {dms:.4f} ms), "
+              f"plain {pms} ms (median of {reps}), bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
 
 
 def ground_truth_hash(pos, mass, acc, coords, cutoff, eps, G, *,

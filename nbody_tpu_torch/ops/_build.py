@@ -8,9 +8,11 @@ this checkout only, into ``build/nbody_tpu_torch/`` at the repository
 root; the library's file name carries a hash of the sources and flags, so
 an edited source is rebuilt and an unchanged one is reused.
 
-Every C entry point takes device pointers, sizes and a CUDA stream, launches
-on that stream, allocates nothing, and returns ``cudaGetLastError()``;
-``launch`` raises if that is not 0. Nothing here runs at import time.
+Every C entry point of ``SIGNATURES`` takes device pointers, sizes and a
+CUDA stream, launches on that stream, allocates nothing, and returns
+``cudaGetLastError()``; ``launch`` raises if that is not 0. Those of
+``QUERIES`` launch nothing and return a size the caller needs. Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
@@ -55,11 +57,20 @@ SIGNATURES = {
                          _P, _I, _P),
     # pos, mass, n, eps2, partial, stream
     "nbt_pair_potential": (_P, _P, _I, _F, _P, _P),
-    # vals, C, n, dest, num_dest, out, stream
-    "nbt_segment_sum": (_P, _I, _I, _P, _I, _P, _P),
+    # vals, C, n, dest, num_dest, buffer (out, then partials),
+    # capacity (floats), stream
+    "nbt_segment_sum": (_P, _I, _I, _P, _I, _P, ctypes.c_longlong, _P),
     # keys_in, vals_in, n, m, plan (host), n_launches, work, keys_out,
     # vals_out, stream
     "nbt_bitonic_sort": (_P, _P, _I, _I, _P, _I, _P, _P, _P, _P),
+}
+
+# Entry points that launch nothing: name -> (argument types, result type).
+QUERIES = {
+    # C, n, num_dest -> floats of nbt_segment_sum's buffer
+    "nbt_segment_sum_buffer_floats": ((_I, _I, _I), ctypes.c_longlong),
+    # -> rows per chunk of nbt_segment_sum
+    "nbt_segment_sum_chunk_rows": ((), _I),
 }
 
 _lock = threading.Lock()
@@ -148,6 +159,10 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
+            for name, (argtypes, restype) in QUERIES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = restype
             lib.nbt_error_string.argtypes = [ctypes.c_int]
             lib.nbt_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -156,11 +171,20 @@ def library() -> ctypes.CDLL:
 
 def launch(name: str, device: torch.device, *args) -> None:
     """Call entry point ``name`` on ``device``'s current stream; raise if
-    the launch reports a CUDA error."""
+    the launch reports a CUDA error. The device is made current only when
+    it is not already (a context switch costs the host microseconds)."""
     lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, name)(*args, stream)
+    fn = getattr(lib, name)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    # torch's raw stream handle: a tenth of a microsecond, against several
+    # for current_stream(...).cuda_stream, which builds a Stream object
+    raw_stream = torch._C._cuda_getCurrentRawStream
+    if index == current:
+        err = fn(*args, raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, raw_stream(index))
     if err != 0:
         msg = lib.nbt_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

@@ -130,12 +130,14 @@ segment_sum_plain.calls = 0
 
 
 def segment_sum(vals, dest, num_dest: int):
-    """Kernel K6 (``csrc/segment_sum.cu``, one thread per segment, rows
-    summed in row order, no atomics): per-segment sums (C, num_dest) of
-    ``vals`` (N, C ≤ 15) over the non-decreasing int32 ``dest`` (N,);
-    rows with dest ≥ 2²⁴ may interleave and add nothing (the kernel reads
-    such a row as the last real id before it). CPU tensors take the plain
-    twin; CUDA tensors launch the kernel or raise."""
+    """Kernel K6 (``csrc/segment_sum.cu``: chunks of rows reduced in
+    parallel, the partial sums of runs that cross chunks
+    joined in chunk order, every segment written once, empty ones as 0;
+    no float atomics):
+    per-segment sums (C, num_dest) of ``vals`` (N, C ≤ 15) over the
+    non-decreasing int32 ``dest`` (N,); rows with dest ≥ 2²⁴ may
+    interleave and add nothing. CPU tensors take the plain twin; CUDA
+    tensors launch the kernel or raise."""
     if vals.device.type == "cpu":
         return segment_sum_plain(vals, dest, num_dest)
     _build.require_cuda(vals, "segment_sum")
@@ -143,13 +145,20 @@ def segment_sum(vals, dest, num_dest: int):
     n, c = vals.shape
     if not 1 <= c <= 15:
         raise ValueError(f"segment_sum takes 1..15 channels, got {c}")
+    if not 0 <= num_dest <= SENTINEL_DEST:
+        raise ValueError(f"num_dest {num_dest} outside [0, 2^24]")
     _build.check(vals, "vals", (n, c), dev)
+    if c == 4 and vals.data_ptr() % 16:
+        raise ValueError("vals: rows must be 16-byte aligned (float4 loads)")
     _build.check(dest, "dest", (n,), dev, torch.int32)
-    out = torch.empty((c, num_dest), dtype=torch.float32, device=dev)
+    # one allocation, sized by the kernel library: the output, then the
+    # kernel's per-chunk (key, partial sum) side buffer
+    floats = _build.library().nbt_segment_sum_buffer_floats(c, n, num_dest)
+    buf = torch.empty(floats, dtype=torch.float32, device=dev)
     _build.launch("nbt_segment_sum", dev, vals.data_ptr(), c, n,
-                  dest.data_ptr(), num_dest, out.data_ptr())
+                  dest.data_ptr(), num_dest, buf.data_ptr(), buf.numel())
     segment_sum.launches += 1
-    return out
+    return buf.as_strided((c, num_dest), (num_dest, 1))
 
 
 segment_sum.launches = 0

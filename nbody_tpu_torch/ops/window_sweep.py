@@ -14,7 +14,9 @@ adds ``max(needed_end − win_start − window, 0)``.
 ``window_sweep_kernel`` is the wrapper of ``csrc/window_sweep.cu``;
 ``window_sweep_plain`` is its plain twin; ``window_starts`` is the
 per-(block, offset) window bookkeeping both share (the kernel computes the
-same anchoring itself from ``cell_start``).
+same anchoring itself from ``cell_start``). ``window_spans`` mirrors the
+kernel's per-target spans: the rows a target's cell needs for each offset,
+clipped to its block's window, where the coordinate predicate always holds.
 """
 
 from __future__ import annotations
@@ -59,6 +61,41 @@ def window_starts(csort, cell_start, *, d: int, offsets, z_hw: int,
     needed_end = cs[torch.clamp(base1, 0, num_cells)]
     overflow = torch.clamp(needed_end - win_start - window, min=0).sum()
     return win_start, needed_end, overflow
+
+
+def window_spans(csort, cell_start, *, d: int, offsets, z_hw: int,
+                 window: int, block_size: int):
+    """Each sorted target's source span per offset, as kernel K7 walks it
+    → ``(lo (N, n_off), hi (N, n_off), overflow ())`` int64 with
+    ``hi ≥ lo`` and the overflow of ``window_starts``.
+
+    The rows of column ``col = ((cx + dx)·d + cy + dy)·d`` from z
+    ``max(cz − z_hw, 0)`` to ``min(cz + z_hw, d − 1)``, clipped to the
+    block's window ``[win_start, min(needed_end, win_start + window))``,
+    empty where ``cx + dx`` or ``cy + dy`` leaves the grid. Every row of
+    such a span passes the twin's coordinate predicate and no other window
+    row does, so a pair sum over the spans alone is the sweep's."""
+    n = csort.shape[0]
+    b = min(block_size, max(n, 1))
+    win_start, needed_end, overflow = window_starts(
+        csort, cell_start, d=d, offsets=offsets, z_hw=z_hw, window=window,
+        block_size=block_size)
+    blk = torch.arange(n, device=csort.device) // b
+    w_lo = win_start[blk]                                      # (N, n_off)
+    w_hi = torch.minimum(needed_end, win_start + window)[blk]
+    off = torch.as_tensor(offsets, dtype=torch.int64,
+                          device=csort.device).reshape(-1, 2)
+    c = csort.to(torch.int64)
+    nx = c[:, 0:1] + off[:, 0]
+    ny = c[:, 1:2] + off[:, 1]
+    inside = (nx >= 0) & (nx < d) & (ny >= 0) & (ny < d)
+    col = (torch.clamp(nx, 0, d - 1) * d + torch.clamp(ny, 0, d - 1)) * d
+    cs = cell_start.to(torch.int64)
+    z_lo = cs[col + torch.clamp(c[:, 2:3] - z_hw, min=0)]
+    z_hi = cs[col + torch.clamp(c[:, 2:3] + z_hw, max=d - 1) + 1]
+    lo = torch.maximum(z_lo, w_lo)
+    hi = torch.where(inside, torch.maximum(torch.minimum(z_hi, w_hi), lo), lo)
+    return lo, hi, overflow
 
 
 def block_rows(blocks, n: int, block_size: int):
@@ -161,9 +198,10 @@ def window_sweep_kernel(psort, csort, cell_start, *, d: int, offsets,
                         z_hw: int, window: int, block_size: int, eps: float,
                         cutoff2: float | None = None):
     """Kernel K7 (``csrc/window_sweep.cu``, one CUDA block per
-    ``block_size`` sorted targets, one thread per target) →
-    ``(acc (N, 3) sorted order, overflow () int64)``. CPU tensors take the
-    plain twin; CUDA tensors launch the kernel or raise."""
+    ``block_size`` sorted targets, one thread per target walking its
+    ``window_spans``) → ``(acc (N, 3) sorted order, overflow () int64)``.
+    CPU tensors take the plain twin; CUDA tensors launch the kernel or
+    raise."""
     kw = dict(d=d, offsets=offsets, z_hw=z_hw, window=window,
               block_size=block_size, eps=eps, cutoff2=cutoff2)
     if psort.device.type == "cpu":

@@ -176,18 +176,23 @@ def test_barnes_hut_card_matches_cpu(dev):
 
 
 @pytest.mark.parametrize(
-    "form,window",
-    [("hash", 2048), ("bh", 2048), ("hash", 64)],
-    ids=["hash", "bh", "overflow"])
-def test_window_sweep_kernel(dev, form, window):
+    "form,window,ws,eps",
+    [("hash", 2048, 1, 0.1), ("bh", 2048, 1, 0.1), ("hash", 64, 1, 0.1),
+     ("bh", 2048, 4, 0.1), ("bh", 2048, 16, 0.1), ("bh", 2048, 1, 0.0),
+     ("hash", 2048, 1, 0.0)],
+    ids=["hash", "bh", "overflow", "bh-ws4", "bh-ws16", "bh-eps0",
+         "hash-eps0"])
+def test_window_sweep_kernel(dev, form, window, ws, eps):
     """K7 vs plain on a 20000-row ball (d 16): the hash form (cutoff 1.0,
-    B 256), the BH form (no cutoff, ws 1) and a too-small window: atol
-    2e-5·max|a| and the same overflow count."""
+    B 256), the BH form (no cutoff, ws 1), a too-small window, the BH
+    form at ws 4 (81 offsets) and ws 16 (1089, the widest ``theta_to_ws``
+    gives), and ε = 0 in both forms (the pair loop that keeps the r² > 0
+    test and rsqrtf): atol 2e-5·max|a| and the same overflow count."""
     p, m = (t.to(dev) for t in _sphere(20000, 4.0, seed=4))
     coords = bin_particles(p, 4)[2]
     g = build_sorted_grid(p, m, coords, 16, with_csort=True)
-    kw = dict(d=16, offsets=xy_ball(1), z_hw=1, window=window,
-              block_size=256, eps=0.1,
+    kw = dict(d=16, offsets=xy_ball(ws), z_hw=ws, window=window,
+              block_size=256, eps=eps,
               cutoff2=None if form == "bh" else 1.0)
     args = (g.psort, g.csort, g.cell_start)
     before = window_sweep_kernel.launches
@@ -195,8 +200,70 @@ def test_window_sweep_kernel(dev, form, window):
     assert window_sweep_kernel.launches == before + 1
     want, over_p = window_sweep_plain(*args, **kw)
     assert int(over) == int(over_p)
-    assert (int(over) > 0) == (window == 64)
+    if ws == 1:
+        assert (int(over) > 0) == (window == 64)
     _close(got, want, 2e-5)
+
+
+def _k7_scene(scene, dev):
+    """(sorted grid, d, block size) of a card test scene for K7 on unit
+    cells at the origin."""
+    rng = np.random.default_rng(14)
+    d, b = 8, 256
+    if scene == "big-cell":      # one cell of 600 rows, more than a block
+        pos = np.concatenate([rng.uniform(3.0, 4.0, (600, 3)),
+                              rng.uniform(0.0, d, (3000, 3))])
+    elif scene == "small-n":     # n < B: one block of n threads
+        pos = rng.uniform(2.0, 6.0, (100, 3))
+    elif scene == "ragged":      # n not a multiple of B
+        pos = rng.uniform(1.0, 7.0, (4000 + 77, 3))
+    else:                        # "edge": a cube filling the grid
+        d, b = 4, 128
+        pos = rng.uniform(0.0, d, (3000, 3))
+    pos = torch.from_numpy(pos.astype(np.float32)).to(dev)
+    mass = torch.from_numpy(
+        rng.uniform(0.5, 1.5, pos.shape[0]).astype(np.float32)).to(dev)
+    coords = torch.clamp(pos.floor().to(torch.int32), 0, d - 1)
+    return build_sorted_grid(pos, mass, coords, d, with_csort=True), d, b
+
+
+def _k7_kw(form, d, b, window):
+    return dict(d=d, offsets=xy_ball(1), z_hw=1, window=window,
+                block_size=b, eps=0.1,
+                cutoff2=1.0 if form == "hash" else None)
+
+
+@pytest.mark.parametrize("window", [2048, 64], ids=["W2048", "W64"])
+@pytest.mark.parametrize("form", ["hash", "bh"])
+@pytest.mark.parametrize("scene", ["big-cell", "small-n", "ragged", "edge"])
+def test_window_sweep_kernel_cells(dev, scene, form, window):
+    """K7 vs plain where the per-cell spans have edges: a cell longer than
+    the block, n < B, n not a multiple of B, a grid-filling cube whose
+    edge offsets would wrap, each with W 2048 and with an overflowing
+    W 64, in the hash form (cutoff 1.0) and the BH form: atol
+    2e-5·max|a| and the same overflow count."""
+    g, d, b = _k7_scene(scene, dev)
+    kw = _k7_kw(form, d, b, window)
+    args = (g.psort, g.csort, g.cell_start)
+    got, over = window_sweep_kernel(*args, **kw)
+    want, over_p = window_sweep_plain(*args, **kw)
+    assert int(over) == int(over_p)
+    if window == 64:
+        assert int(over) > 0
+    _close(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("form", ["hash", "bh"])
+def test_window_sweep_kernel_is_deterministic(dev, form):
+    """Two K7 calls give bit-identical forces and overflow (no float
+    atomics: each target sums its spans in order)."""
+    p, m = (t.to(dev) for t in _sphere(20000, 4.0, seed=4))
+    g = build_sorted_grid(p, m, bin_particles(p, 4)[2], 16, with_csort=True)
+    kw = _k7_kw(form, 16, 256, 2048)
+    args = (g.psort, g.csort, g.cell_start)
+    a1, o1 = window_sweep_kernel(*args, **kw)
+    a2, o2 = window_sweep_kernel(*args, **kw)
+    assert torch.equal(a1, a2) and int(o1) == int(o2)
 
 
 @pytest.mark.parametrize("engine", ["window", "tiles"])
@@ -258,6 +325,62 @@ def test_segment_sum_kernel(dev):
         got = segment_sum(vals, d, nd)
         assert segment_sum.launches == before + 1
         _close(got, segment_sum_plain(vals, d, nd), 1e-6)
+
+
+def _k6_case(case, rng):
+    """(vals (N, C) float32, dest (N,) int32, num_dest) of a K6 card case;
+    the kernel reduces chunks of ``ch`` rows, as its library reports."""
+    ch = _build.library().nbt_segment_sum_chunk_rows()
+    c, nd = 4, 4096
+    if case == "long-segment":   # one segment over ~120 chunks
+        ids = np.concatenate([np.sort(rng.integers(0, 100, 3000)),
+                              np.full(123_457, 100),
+                              np.sort(rng.integers(101, nd, 5000))])
+    elif case == "sentinel-runs":  # sentinel runs across chunk ends
+        ids = np.sort(rng.integers(0, nd, 20 * ch)).astype(np.int64)
+        for at in (ch - 300, 3 * ch - 5, 6 * ch, 9 * ch + 700):
+            ids[at:at + 2 * ch + 50] = SENTINEL_DEST + 7
+        ids[:40] = SENTINEL_DEST     # leading sentinels
+        ids[-200:] = SENTINEL_DEST + 1  # trailing sentinels
+    elif case == "all-sentinel":
+        ids = SENTINEL_DEST + rng.integers(0, 9, 5 * ch + 3)
+    else:                        # "C1", "C15": n not a multiple of ch
+        c = int(case[1:])
+        ids = np.sort(rng.integers(-5, nd + 5, 7 * ch + 333))
+    vals = rng.uniform(0.5, 1.5, (ids.shape[0], c)).astype(np.float32)
+    return vals, ids.astype(np.int32), nd
+
+
+@pytest.mark.parametrize(
+    "case", ["long-segment", "sentinel-runs", "all-sentinel", "C1", "C15"])
+def test_segment_sum_kernel_cases(dev, case):
+    """K6 vs its plain twin where the row-parallel design has edges: a
+    segment of 123457 rows across ~120 chunks, sentinel runs longer than
+    a chunk across chunk ends (and at both ends), every row a sentinel,
+    C = 1 and C = 15 with ids outside [0, num_dest) and n not a multiple
+    of the chunk: max|diff| <= 1e-6·max|out|. The twin runs on float64
+    copies of the inputs: in float32 its ``index_add_`` sums the long
+    segment one row at a time, ~2e-5 off by itself."""
+    vals, ids, nd = _k6_case(case, np.random.default_rng(15))
+    v = torch.from_numpy(vals).to(dev)
+    d = torch.from_numpy(ids).to(dev)
+    got = segment_sum(v, d, nd)
+    want = segment_sum_plain(v.double(), d, nd)
+    assert got.shape == (vals.shape[1], nd)
+    if case == "all-sentinel":
+        assert not bool(got.any())
+    _close(got.double(), want, 1e-6)
+
+
+@pytest.mark.parametrize("c", [4, 15])
+def test_segment_sum_kernel_is_deterministic(dev, c):
+    """Two K6 calls give bit-identical sums (no float atomics)."""
+    rng = np.random.default_rng(16)
+    ids = np.sort(rng.integers(0, 1 << 15, 300_000)).astype(np.int32)
+    v = torch.from_numpy(
+        rng.normal(size=(ids.shape[0], c)).astype(np.float32)).to(dev)
+    d = torch.from_numpy(ids).to(dev)
+    assert torch.equal(segment_sum(v, d, 1 << 15), segment_sum(v, d, 1 << 15))
 
 
 def test_k5_k6_raise_without_their_build(dev, monkeypatch):

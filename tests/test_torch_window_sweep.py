@@ -13,6 +13,7 @@ from nbody_tpu_torch.ops import sorted_window as tsw
 from nbody_tpu_torch.ops.barnes_hut import bin_particles
 from nbody_tpu_torch.ops.window_sweep import (
     block_rows,
+    window_spans,
     window_starts,
     window_sweep_kernel,
     window_sweep_plain,
@@ -136,3 +137,131 @@ def test_wrapper_takes_plain_twin_only_on_cpu():
     meta = [t.to("meta") for t in (tg.psort, tg.csort, tg.cell_start)]
     with pytest.raises(ValueError, match="not supported"):
         window_sweep_kernel(*meta, **kw)
+
+
+def _span_sum(psort, lo, hi, eps, cutoff2=None):
+    """The pair sum over exactly the rows of each target's spans, with no
+    coordinate predicate: f32 terms rounded as the twin rounds them,
+    summed in float64 → (N, 3)."""
+    n, n_off = lo.shape
+    length = (hi - lo).reshape(-1)
+    tgt = torch.repeat_interleave(
+        torch.arange(n).repeat_interleave(n_off), length)
+    first = torch.cumsum(length, 0) - length
+    src = (torch.repeat_interleave(lo.reshape(-1) - first, length)
+           + torch.arange(int(length.sum())))
+    dvec = psort[src, :3] - psort[tgt, :3]
+    dx, dy, dz = dvec.unbind(-1)
+    r2 = dx * dx + dy * dy + dz * dz
+    inv = torch.rsqrt(r2 + eps * eps)
+    w = psort[src, 3] * (inv * inv * inv)
+    keep = r2 > 0.0
+    if cutoff2 is not None:
+        keep = keep & (r2 <= cutoff2)
+    w = torch.where(keep, w, torch.zeros_like(w))
+    return torch.zeros((n, 3), dtype=torch.float64).index_add_(
+        0, tgt, (w[:, None] * dvec).double())
+
+
+def _tgrid(pos, mass, d):
+    """Torch-only sorted grid of float32 positions on a d³ grid of unit
+    cells at the origin (coords clipped into the grid)."""
+    pos = torch.from_numpy(pos)
+    coords = torch.clamp(pos.floor().to(torch.int32), 0, d - 1)
+    return tsw.build_sorted_grid(pos, torch.from_numpy(mass), coords, d,
+                                 with_csort=True)
+
+
+def _check_spans(g, **kw):
+    """window_spans against the twin: the span pair sum equals the sweep
+    to 1e-6·max|a| and the overflow is the same → (lo, hi, overflow)."""
+    want, over = window_sweep_plain(g.psort, g.csort, g.cell_start, **kw)
+    lo, hi, over_s = window_spans(
+        g.csort, g.cell_start, d=kw["d"], offsets=kw["offsets"],
+        z_hw=kw["z_hw"], window=kw["window"], block_size=kw["block_size"])
+    assert bool((hi >= lo).all())
+    assert int(over_s) == int(over)
+    got = _span_sum(g.psort, lo, hi, kw["eps"], kw.get("cutoff2"))
+    assert float(want.abs().max()) > 0
+    _close(got.numpy(), want.numpy(), rel=1e-6)
+    return lo, hi, over
+
+
+@pytest.mark.parametrize(
+    "form,ws", [("hash", 1), ("bh", 1), ("bh", 2)],
+    ids=["hash-cutoff", "bh-ws1", "bh-ws2"])
+def test_window_spans_are_the_sweep(form, ws):
+    """Kernel K7's spans on the scenes of the parity tests above: the hash
+    form with the cutoff (n 1500, d 8, W 1024, B 256) and the BH form at
+    ws 1 and 2 (n 2300, ragged tail block)."""
+    if form == "hash":
+        tg, _, d = _grids(1500, 3, 4.0, seed=1)
+        kw = dict(window=1024, cutoff2=1.2 * 1.2)
+    else:
+        tg, _, d = _grids(2300, 3, 5.0, seed=2)
+        kw = dict(window=2048)
+    _check_spans(tg, d=d, offsets=tsw.xy_ball(ws), z_hw=ws, block_size=256,
+                 eps=0.1, **kw)
+
+
+def test_window_spans_keep_the_overflow():
+    """The W 64 fixture of test_overflow_counts_match_jax_xla: spans
+    clipped by the window, the same overflow (> 0) and the same sums."""
+    tg, _, d = _grids(2000, 3, 1.0, seed=3)
+    lo, hi, over = _check_spans(tg, d=d, offsets=tsw.xy_ball(1), z_hw=1,
+                                window=64, block_size=64, eps=0.1)
+    assert int(over) > 0
+
+
+def test_window_spans_are_empty_past_the_grid_edge():
+    """A uniform cube filling a d = 4 grid, so every edge cell has rows
+    in the column its ids would wrap into: those spans are empty, and a
+    span taken from the wrapped id (the unguarded formula) would add
+    pairs the sweep does not have."""
+    rng = np.random.default_rng(11)
+    d = 4
+    pos = rng.uniform(0.0, d, (1200, 3)).astype(np.float32)
+    mass = rng.uniform(0.5, 1.5, 1200).astype(np.float32)
+    g = _tgrid(pos, mass, d)
+    offs = tsw.xy_ball(1)
+    kw = dict(d=d, offsets=offs, z_hw=1, window=2048, block_size=128,
+              eps=0.1)
+    lo, hi, _ = _check_spans(g, **kw)
+    c = g.csort.to(torch.int64)
+    off = torch.tensor(offs)
+    nx, ny = c[:, 0:1] + off[:, 0], c[:, 1:2] + off[:, 1]
+    outside = (nx < 0) | (nx >= d) | (ny < 0) | (ny >= d)
+    assert bool(outside.any()) and bool((hi[outside] == lo[outside]).all())
+    # the wrapped id's z-run: in range and occupied for some edge targets
+    col = (nx * d + ny) * d
+    ok = outside & (col >= 0) & (col + d <= d ** 3)
+    z0 = torch.clamp(c[:, 2:3] - 1, min=0)
+    z1 = torch.clamp(c[:, 2:3] + 1, max=d - 1) + 1
+    cs = g.cell_start.to(torch.int64)
+    wrapped = torch.where(ok, cs[torch.where(ok, col + z1, 0)]
+                          - cs[torch.where(ok, col + z0, 0)], 0)
+    assert int(wrapped.sum()) > 0
+
+
+def test_window_spans_of_a_cell_across_blocks():
+    """One cell of 600 rows across blocks of 128 whose windows differ
+    (W 650 clips the first block's window, anchored on an earlier cell,
+    inside the cell's own z-run, and not the next block's): its targets' spans
+    differ by block, and each block's sums and overflow are the sweep's."""
+    rng = np.random.default_rng(12)
+    d = 4
+    big = rng.uniform(1.0, 2.0, (600, 3)).astype(np.float32)
+    rest = rng.uniform(0.0, d, (500, 3)).astype(np.float32)
+    pos = np.concatenate([big, rest])
+    mass = rng.uniform(0.5, 1.5, pos.shape[0]).astype(np.float32)
+    g = _tgrid(pos, mass, d)
+    kw = dict(d=d, offsets=tsw.xy_ball(1), z_hw=1, window=650,
+              block_size=128, eps=0.1)
+    lo, hi, over = _check_spans(g, **kw)
+    cell = (1 * d + 1) * d + 1
+    rows = torch.nonzero(g.ids == cell).reshape(-1)
+    assert rows.shape[0] >= 600
+    blocks = torch.unique(rows // 128)
+    assert blocks.shape[0] >= 5
+    spans = {tuple(torch.cat([lo[r], hi[r]]).tolist()) for r in rows}
+    assert len(spans) > 1 and int(over) > 0
