@@ -10,11 +10,17 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
      source, all in parallel; build time shown);
   2. holds every kernel against its plain PyTorch twin on the same inputs
      at the shapes its path gives it, with the tolerance stated beside it,
-     and times both (median of 7 calls after warm-up, CUDA events): K1-K4
-     at the Barnes-Hut tiles main path (the 1M spherical scene, radius 10,
-     seed 42, θ = 0.5 at d = 64, k = 16, ws = 1), K4 again at the monopole
-     path (ws = 2, no far plane), K2 and K4 at the 1M sparse hash (uniform
-     cube, cell 2.0, d = 56, k = 16, cutoff² 4, no far plane), K7 (the
+     and times both (median of 7 calls after warm-up, CUDA events): K1
+     (direct forces) at N = 16384, on the 100K direct path's own scene and
+     at the Barnes-Hut accuracy gates' 4096 sampled targets against all 1M
+     rows, two calls bit-equal, with its device time by graph replay; K2
+     and K3 at the Barnes-Hut tiles main path (the 1M spherical scene,
+     radius 10, seed 42, θ = 0.5 at d = 64, k = 16, ws = 1); K4 at the
+     three 1M shapes that run it (BH tiles with the 19-channel far plane,
+     the monopole path at ws = 2 with none, the sparse hash with cutoff² 4
+     at d = 56, k = 16; ``k4_inputs``), two calls bit-equal, with its
+     device time by graph replay; K2 at the 1M sparse hash (uniform cube,
+     cell 2.0, d = 56, k = 16), K7 (the
      window sweep) at the 1M dense hash (cap 64, W 2048, B 256, cutoff
      2.0) and the 1M Barnes-Hut window engine (d = 32, W 2048, B 256,
      ws = 1), K5 (the all-pairs potential) on the drift gate's own 1M
@@ -37,8 +43,9 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
      beside it; for K7 the pairs of each target's 27-cell ball, with a
      model of its pair tests and its warps' lane slots from
      ``window_spans`` printed beside them) and, where one PyTorch call
-     computes the same function, that call's time; K6 and K7 also give bit-equal output over two calls, and
-     their device time per call (CUDA graph replay) is printed beside;
+     computes the same function, that call's time; K1, K4, K6 and K7 also
+     give bit-equal output over two calls, and their device time per call
+     (CUDA graph replay) is printed beside;
   3. drives six paths, each with every launch count set to 0 just before
      it and read just after, checking that the path's kernels launched as
      expected and that no plain twin ran. Five go through the facade
@@ -311,67 +318,190 @@ def k2_check(res, label, grid, lo, cell, *, d, k):
     return tk, mk, overflow
 
 
-def k4_check(res, label, tk, counts, *, d, k, ws, eps, lo, cell,
-             cutoff2=None, far_plane=None):
-    """K4 against its plain twin (same inputs, 2e-5·max|out|)."""
+def k4_inputs(pos, mass, cfg, sp_pos, sp_mass):
+    """K4's inputs at the three 1M shapes that run it, as
+    ``[(label, tiles, tile_sweep_plane kwargs)]``: the BH tiles step (the
+    spherical scene, d 64, k 16, ws 1, seeded by the 19-channel far
+    plane), the monopole path (the same tiles at ws 2, no far plane) and
+    the sparse hash (the uniform cube, cell 2.0, d 56, k 16, cutoff² 4).
+    The tiles and counts come from K2, the far plane from the pyramid."""
+    import torch
+
+    from nbody_tpu_torch.ops.barnes_hut import (
+        bh_engine_params,
+        bin_particles,
+        far_field_grid,
+        pyramid_from_packed,
+        theta_to_ws,
+    )
+    from nbody_tpu_torch.ops.scatter import tile_scatter
+    from nbody_tpu_torch.ops.sorted_window import build_sorted_grid
+    from nbody_tpu_torch.ops.spatial_hash import tiles_bin
+
+    p = bh_engine_params(cfg)
+    levels, k, ws = p["levels"], p["near_k"], p["ws"]
+    d = 1 << levels
+    eps = cfg.softening
+    lo, cell, coords = bin_particles(pos, levels)
+    grid = build_sorted_grid(pos, mass, coords, d)
+    tk, mk = tile_scatter(grid.psort, grid.cell_start, lo, cell, d=d, k=k)
+    pyr = pyramid_from_packed(mk[:10].T.reshape(d, d, d, 10), lo, cell,
+                              levels)
+    a_f, j_f, h_f = far_field_grid(pyr, ws, 1.0, eps, levels)
+    far_plane = (torch.cat([a_f, j_f, h_f], dim=-1).reshape(d, d * d, 19)
+                 .permute(0, 2, 1).contiguous())
+    bh = dict(k=k, d=d, ws=ws, eps=eps, lo=lo, cell=cell, counts=mk[10])
+    sd = 56
+    sp_lo, sp_coords = tiles_bin(sp_pos, 2.0, sd)
+    sg = build_sorted_grid(sp_pos, sp_mass, sp_coords, sd)
+    sp_cell = torch.full((), 2.0, dtype=sp_pos.dtype, device=sp_pos.device)
+    st, sm = tile_scatter(sg.psort, sg.cell_start, sp_lo, sp_cell, d=sd,
+                          k=16)
+    return [
+        ("1M BH tiles", tk, dict(bh, far_plane=far_plane)),
+        (MONOPOLE, tk, dict(
+            bh, ws=theta_to_ws(cfg.barnes_hut_theta, order=1))),
+        ("1M sparse hash", st, dict(k=16, d=sd, ws=1, eps=0.1, lo=sp_lo,
+                                    cell=sp_cell, counts=sm[10],
+                                    cutoff2=4.0)),
+    ]
+
+
+def k4_checks(res, pos, mass, cfg, sp_pos, sp_mass):
+    """K4 against its plain twin at its three 1M shapes (``k4_inputs``;
+    2e-5·max|out|), two calls bit-equal, timed (one call, and its device
+    time by graph replay)."""
     import torch
     import torch.nn.functional as F
 
+    from nbody_tpu_torch.ops import _build
     from nbody_tpu_torch.ops.tile_near import (
         tile_sweep_plane,
         tile_sweep_plane_plain,
     )
 
-    kw = dict(k=k, d=d, ws=ws, eps=eps, cutoff2=cutoff2, far_plane=far_plane,
-              lo=lo, cell=cell, counts=counts)
-    ok_ = tile_sweep_plane(tk, **kw)
-    op_ = tile_sweep_plane_plain(tk, **kw)
-    e = float((ok_ - op_).abs().max())
-    tol = 2e-5 * float(op_.abs().max())
-    check(e <= tol, f"K4 tile_sweep_plane {label}: max|diff| {e} > {tol}")
-    w1 = 2 * ws + 1
-    slots = torch.clamp(counts, max=k).reshape(1, 1, d, d, d).double()
-    neigh = F.avg_pool3d(slots, w1, stride=1, padding=ws,
-                         count_include_pad=True) * w1 ** 3
-    pairs = float((slots * neigh).sum())
-    n_far = 0 if far_plane is None else far_plane.shape[1]
-    rec = dict(
-        max_abs_err=e,
-        ms=time_ms(lambda: tile_sweep_plane(tk, **kw)),
-        plain_ms=time_ms(lambda: tile_sweep_plane_plain(tk, **kw), reps=5,
-                         warm=1),
-        # live slot pairs of the (2ws+1)³ ball + ~80 ops of far expansion
-        # per live slot when seeded; tiles, far plane, counts in, slots out
-        **bound(PAIR_OPS * pairs + (80 * float(slots.sum()) if n_far else 0),
-                4 * (d * 4 * k * d * d + d * n_far * d * d + d ** 3
-                     + d * 3 * k * d * d)),
-        library_ms=None,
-    )
-    add_shape(res, "tile_sweep_plane", label, rec)
-    print(f"K4 tile_sweep_plane {label} (d={d}, k={k}, cutoff2={cutoff2}, "
-          f"far plane {'on' if n_far else 'off'}): max|diff| {e:.3e} (tol "
-          f"2e-5*max|out| = {tol:.3e}; dead slots are 0 in both); live slot "
-          f"pairs {pairs:.0f}; kernel {rec['ms']:.4f} ms, plain "
-          f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-          f"({rec['bound_by']})")
+    for label, tk, kw in k4_inputs(pos, mass, cfg, sp_pos, sp_mass):
+        d, k, ws, counts = kw["d"], kw["k"], kw["ws"], kw["counts"]
+        ok_ = tile_sweep_plane(tk, **kw)
+        op_ = tile_sweep_plane_plain(tk, **kw)
+        e = float((ok_ - op_).abs().max())
+        tol = 2e-5 * float(op_.abs().max())
+        check(e <= tol, f"K4 tile_sweep_plane {label}: max|diff| {e} > {tol}")
+        check(torch.equal(ok_, tile_sweep_plane(tk, **kw)),
+              f"K4 tile_sweep_plane {label}: two calls differ")
+        w1 = 2 * ws + 1
+        slots = torch.clamp(counts, max=k).reshape(1, 1, d, d, d).double()
+        neigh = F.avg_pool3d(slots, w1, stride=1, padding=ws,
+                             count_include_pad=True) * w1 ** 3
+        pairs = float((slots * neigh).sum())
+        far_plane = kw.get("far_plane")
+        n_far = 0 if far_plane is None else far_plane.shape[1]
+        rec = dict(
+            max_abs_err=e,
+            ms=time_ms(lambda: tile_sweep_plane(tk, **kw)),
+            device_ms=graph_ms(lambda: tile_sweep_plane(tk, **kw), reps=5),
+            plain_ms=time_ms(lambda: tile_sweep_plane_plain(tk, **kw),
+                             reps=5, warm=1),
+            # live slot pairs of the (2ws+1)³ ball + ~80 ops of far
+            # expansion per live slot when seeded; tiles, far plane,
+            # counts in, slots out
+            **bound(PAIR_OPS * pairs
+                    + (80 * float(slots.sum()) if n_far else 0),
+                    4 * (d * 4 * k * d * d + d * n_far * d * d + d ** 3
+                         + d * 3 * k * d * d)),
+            library_ms=None,
+        )
+        add_shape(res, "tile_sweep_plane", label, rec)
+        plan = [_build.library().nbt_tile_near_plan(d, k, ws, f)
+                for f in range(3)]
+        print(f"K4 tile_sweep_plane {label} (d={d}, k={k}, ws={ws}, "
+              f"cutoff2={kw.get('cutoff2')}, far plane "
+              f"{'on' if n_far else 'off'}; bz, rows_cap, group_cols = "
+              f"{plan}): max|diff| {e:.3e} (tol "
+              f"2e-5*max|out| = {tol:.3e}; dead slots are 0 in both); two "
+              f"calls bit-equal; live slot pairs {pairs:.0f}; kernel "
+              f"{rec['ms']:.4f} ms (device {rec['device_ms']:.4f} ms, "
+              f"{pairs / rec['device_ms'] * 1e3:.4e} pairs/s), plain "
+              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']})")
+
+
+def k1_inputs(pos, mass, cfg, dev):
+    """K1's inputs at its three shapes, as ``[(label, pos, mass,
+    targets)]``: N = 16384 all pairs (the first rows of the 1M scene), the
+    100K direct path's own scene all pairs, and the Barnes-Hut accuracy
+    gates' 4096 sampled targets (``bh_vs_direct``) against all 1M rows."""
+    import torch
+
+    from nbody_tpu_torch.models.distributions import init_from_config
+
+    n1 = 16384
+    s100 = init_from_config(path_configs()["100K direct"], device=dev)
+    sgen = torch.Generator(device=pos.device)
+    sgen.manual_seed(0)
+    idx = torch.randperm(pos.shape[0], generator=sgen,
+                         device=pos.device)[:4096]
+    return [
+        (f"N = {n1}", pos[:n1].contiguous(), mass[:n1].contiguous(), None),
+        (f"N = {s100.pos.shape[0]} (100K direct)", s100.pos, s100.mass,
+         None),
+        (f"4096 x {pos.shape[0]} (accuracy gate)", pos, mass,
+         pos[idx].contiguous()),
+    ]
+
+
+def k1_checks(res, pos, mass, cfg, dev):
+    """K1 against its plain twin at its three shapes (``k1_inputs``;
+    1e-5·max|a|), two calls bit-equal, timed (one call, and its device
+    time by graph replay)."""
+    import torch
+
+    from nbody_tpu_torch.ops.direct import direct_forces, direct_forces_kernel
+
+    G, eps = cfg.G, cfg.softening
+    for label, p1, m1, tgt in k1_inputs(pos, mass, cfg, dev):
+        def kern():
+            return direct_forces_kernel(p1, m1, G, eps, targets=tgt)
+
+        def plain():
+            return direct_forces(p1, m1, G, eps, targets=tgt)
+
+        ok_, op_ = kern(), plain()
+        e = float((ok_ - op_).abs().max())
+        tol = 1e-5 * float(op_.abs().max())
+        check(e <= tol, f"K1 direct {label}: max|diff| {e} > {tol}")
+        check(torch.equal(ok_, kern()), f"K1 direct {label}: two calls "
+              "differ")
+        n, nt = p1.shape[0], ok_.shape[0]
+        rec = dict(
+            max_abs_err=e, ms=time_ms(kern), device_ms=graph_ms(kern, reps=3),
+            plain_ms=time_ms(plain, reps=3, warm=1),
+            # nt·n pairs; targets, sources (pos + mass) in, acc out
+            **bound(PAIR_OPS * nt * n, 12 * nt + 16 * n + 12 * nt),
+            library_ms=None,
+        )
+        add_shape(res, "direct_forces", label, rec)
+        print(f"K1 direct_forces {label}: max|diff| {e:.3e} (tol "
+              f"1e-5*max|a| = {tol:.3e}); two calls bit-equal; kernel "
+              f"{rec['ms']:.4f} ms (device {rec['device_ms']:.4f} ms, "
+              f"{nt * n / rec['device_ms'] * 1e3:.4e} pairs/s), plain "
+              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']})")
 
 
 def kernel_checks(res, pos, mass, cfg):
-    """Phase 2: K1-K4 against their plain twins at the BH tiles main-path
-    shapes. Returns the step-0 overflow."""
+    """Phase 2: K2 and K3 against their plain twins at the BH tiles
+    main-path shapes. Returns the step-0 overflow."""
     import torch
     import torch.nn.functional as F
 
     from nbody_tpu_torch.ops.barnes_hut import (
         bh_engine_params,
         bin_particles,
-        far_field_grid,
         level_moments,
         level_tap_matrices,
         pyramid_from_packed,
-        theta_to_ws,
     )
-    from nbody_tpu_torch.ops.direct import direct_forces, direct_forces_kernel
     from nbody_tpu_torch.ops.far_taps import far_taps, far_taps_plain
     from nbody_tpu_torch.ops.sorted_window import build_sorted_grid
 
@@ -379,7 +509,7 @@ def kernel_checks(res, pos, mass, cfg):
     p = bh_engine_params(cfg)
     levels, k, ws = p["levels"], p["near_k"], p["ws"]
     d = 1 << levels
-    eps, G = cfg.softening, cfg.G
+    eps = cfg.softening
     print(f"main path: N={pos.shape[0]} levels={levels} d={d} k={k} ws={ws} "
           f"near_engine={p['near_engine']}")
     lo, cell, coords = bin_particles(pos, levels)
@@ -440,34 +570,6 @@ def kernel_checks(res, pos, mass, cfg):
     print(f"K3 far_taps over the {levels} levels of one BH tiles step: "
           f"{k3_sum:.4f} ms (sum of per-level medians)")
 
-    # K4: near sweep seeded with the far expansion
-    a_f, j_f, h_f = far_field_grid(pyr, ws, 1.0, eps, levels)
-    far_plane = (torch.cat([a_f, j_f, h_f], dim=-1).reshape(d, d * d, 19)
-                 .permute(0, 2, 1).contiguous())
-    k4_check(res, label, tk, mk[10], d=d, k=k, ws=ws, eps=eps, lo=lo,
-             cell=cell, far_plane=far_plane)
-    # K4 on the monopole path: the same tiles at ws = 2, no far plane
-    k4_check(res, MONOPOLE, tk, mk[10], d=d, k=k,
-             ws=theta_to_ws(cfg.barnes_hut_theta, order=1), eps=eps, lo=lo,
-             cell=cell)
-
-    # K1: direct forces at N = 16384
-    n1 = 16384
-    p1, m1 = pos[:n1].contiguous(), mass[:n1].contiguous()
-    ok_ = direct_forces_kernel(p1, m1, G, eps)
-    op_ = direct_forces(p1, m1, G, eps)
-    e = float((ok_ - op_).abs().max())
-    tol = 1e-5 * float(op_.abs().max())
-    check(e <= tol, f"K1 direct max|diff| {e} > {tol}")
-    print(f"K1 direct_forces N={n1}: max|diff| {e:.3e} (tol 1e-5*max|a| = "
-          f"{tol:.3e})")
-    add_shape(res, "direct_forces", f"N = {n1}", dict(
-        max_abs_err=e,
-        ms=time_ms(lambda: direct_forces_kernel(p1, m1, G, eps)),
-        plain_ms=time_ms(lambda: direct_forces(p1, m1, G, eps)),
-        **bound(PAIR_OPS * n1 * n1, 16 * n1 + 12 * n1 + 12 * n1),
-        library_ms=None,
-    ))
     return overflow
 
 
@@ -734,9 +836,8 @@ def frozen_checks(pos, mass, bh_cfg, sp_pos, sp_mass, sp_cfg):
 
 
 def sparse_tile_checks(res, pos, mass):
-    """Phase 2 for the 1M sparse hash: K2 and K4 (cutoff² 4, no far
-    plane) against their plain twins at the tiles engine's d = 56, k = 16
-    on the uniform cube, cell 2.0."""
+    """Phase 2 for the 1M sparse hash: K2 against its plain twin at the
+    tiles engine's d = 56, k = 16 on the uniform cube, cell 2.0."""
     import torch
 
     from nbody_tpu_torch.ops.sorted_window import build_sorted_grid
@@ -746,9 +847,7 @@ def sparse_tile_checks(res, pos, mass):
     lo, coords = tiles_bin(pos, 2.0, d)
     grid = build_sorted_grid(pos, mass, coords, d)
     cell = torch.full((), 2.0, dtype=pos.dtype, device=pos.device)
-    tk, mk, _ = k2_check(res, label, grid, lo, cell, d=d, k=k)
-    k4_check(res, label, tk, mk[10], d=d, k=k, ws=1, eps=0.1, lo=lo,
-             cell=cell, cutoff2=4.0)
+    k2_check(res, label, grid, lo, cell, d=d, k=k)
 
 
 def k7_shapes(pos, mass):
@@ -1232,8 +1331,10 @@ def main() -> None:
 
     # Phase 2
     res = {}
+    k1_checks(res, pos0, mass0, bh_cfg, dev)
     overflow = kernel_checks(res, pos0, mass0, bh_cfg)
     sparse_tile_checks(res, sp_pos, sp_mass)
+    k4_checks(res, pos0, mass0, bh_cfg, sp_pos, sp_mass)
     k7_checks(res, pos0, mass0)
     k5_check(res, pos0, mass0, bh_cfg)
     k6_check(res, pos0, mass0, bh_cfg)

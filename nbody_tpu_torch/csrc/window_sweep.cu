@@ -47,21 +47,22 @@
 // bit-identical output. r^2 is rounded step by step (no FMA contraction),
 // as the plain twin rounds it, so both agree on every pair at the cutoff.
 // The pair loop is issue-bound (~21 instructions a pair, unrolled by 4),
-// so with eps2 >= FLT_MIN it drops the r^2 > 0 test (the target itself
-// adds exactly 0) and the denormal fix-up of rsqrtf (rsqrt.approx.ftz: the
+// so with eps2 >= kLeanEps2 it drops the r^2 > 0 test (the target itself
+// adds exactly 0: its weight m / eps^3 <= m * 1e18 is finite for any mass
+// below 3e20) and the denormal fix-up of rsqrtf (rsqrt.approx.ftz: the
 // argument is never denormal). On an H100 that loop takes 0.863x the
 // device time of the other at the 1M dense-hash shape and 0.882x at the
 // 1M Barnes-Hut window shape (scripts/profile_window_sweep_torch.py).
-// Below FLT_MIN only the loop that keeps the test is right (the target's
+// Below kLeanEps2 only the loop that keeps the test is right (the target's
 // own r^2 = 0 would give 0 * inf).
-
-#include <cfloat>
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxBlock = 512;
+// The least eps^2 of the lean pair loop (eps >= 1e-6).
+constexpr float kLeanEps2 = 1e-12f;
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
@@ -141,14 +142,14 @@ window_sweep_kernel(const float4* __restrict__ psort,
                                            __fmul_rn(ddy, ddy)),
                                  __fmul_rn(ddz, ddz));
       float inv;
-      if (kSoft) {  // r2 + eps2 >= FLT_MIN: the flush to zero never acts
+      if (kSoft) {  // r2 + eps2 >= kLeanEps2: the flush never acts
         asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(inv) : "f"(r2 + eps2));
       } else {
         inv = rsqrtf(r2 + eps2);
       }
-      // With eps2 >= FLT_MIN w is finite, so the target itself (ddx = ddy =
-      // ddz = 0) adds exactly 0 and needs no test; any other row at r2 == 0
-      // (each |d| < 1e-22, its square flushed) adds under 1e-22 w.
+      // With eps2 >= kLeanEps2 w is finite, so the target itself (ddx =
+      // ddy = ddz = 0) adds exactly 0 and needs no test; any other row at
+      // r2 == 0 (each |d| < 1e-22, its square flushed) adds under 1e-22 w.
       bool keep = kSoft || r2 > 0.f;
       if (kCutoff) keep = keep && r2 <= cutoff2;
       const float w = keep ? s.w * (inv * inv * inv) : 0.f;
@@ -178,7 +179,7 @@ extern "C" int nbt_window_sweep(const float* psort, const int* csort,
   const float4* p = reinterpret_cast<const float4*>(psort);
   auto kernel = use_cutoff ? window_sweep_kernel<true, true>
                            : window_sweep_kernel<false, true>;
-  if (!(eps2 >= FLT_MIN)) {
+  if (!(eps2 >= kLeanEps2)) {
     kernel = use_cutoff ? window_sweep_kernel<true, false>
                         : window_sweep_kernel<false, false>;
   }

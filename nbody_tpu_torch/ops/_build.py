@@ -41,8 +41,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signature of every entry point (each returns int = cudaError_t).
 SIGNATURES = {
-    # tgt, nt, src_pos, src_mass, ns, G, eps2, acc, stream
-    "nbt_direct_forces": (_P, _I, _P, _P, _I, _F, _F, _P, _P),
+    # tgt, nt, src_pos, src_mass, ns, range (rows), G, eps2, acc, scratch,
+    # scratch floats, stream
+    "nbt_direct_forces": (_P, _I, _P, _P, _I, _I, _F, _F, _P, _P,
+                          ctypes.c_longlong, _P),
     # psort, cell_start, lo, cell, tiles, moments, d, k, stream
     "nbt_tile_scatter": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
     # mom, taps, out, p, ws, stream
@@ -67,6 +69,13 @@ SIGNATURES = {
 
 # Entry points that launch nothing: name -> (argument types, result type).
 QUERIES = {
+    # device, nt, ns -> rows of each source range of nbt_direct_forces
+    # (-1 on a CUDA error)
+    "nbt_direct_forces_range": ((_I, _I, _I), _I),
+    # d, k, ws, field -> nbt_tile_near's plan: cells a brick (field 0),
+    # rows a staged chunk (1), halo columns a group (2), dynamic shared
+    # memory bytes (3); -1 for another field or a bad shape
+    "nbt_tile_near_plan": ((_I, _I, _I, _I), _I),
     # C, n, num_dest -> floats of nbt_segment_sum's buffer
     "nbt_segment_sum_buffer_floats": ((_I, _I, _I), ctypes.c_longlong),
     # -> rows per chunk of nbt_segment_sum

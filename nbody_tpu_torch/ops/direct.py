@@ -19,6 +19,8 @@ self/coincident pairs contributing exactly zero.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from nbody_tpu_torch.ops import _build
@@ -64,10 +66,22 @@ def direct_forces(pos, mass, G=1.0, softening=0.1, *, block_size: int = 256,
 direct_forces.calls = 0
 
 
+@functools.lru_cache(maxsize=64)
+def _source_range(index: int, nt: int, n: int) -> int:
+    """Rows of each source range K1 takes for ``nt`` targets against ``n``
+    sources on card ``index`` (its plan, from the SM count)."""
+    rows = _build.library().nbt_direct_forces_range(index, nt, n)
+    if rows < 0:
+        raise RuntimeError("nbt_direct_forces_range: CUDA error")
+    return rows
+
+
 def direct_forces_kernel(pos, mass, G=1.0, softening=0.1, *, targets=None):
-    """Kernel K1 (``csrc/direct.cu``): all-pairs forces, one thread per
-    target with shared-memory source tiles. CPU tensors take the plain
-    ``direct_forces``; CUDA tensors launch the kernel or raise."""
+    """Kernel K1 (``csrc/direct.cu``): all-pairs forces, four targets a
+    thread against shared-memory source tiles, the source axis split over
+    blocks (partial sums joined in a fixed order) when the targets alone
+    would leave SMs idle. CPU tensors take the plain ``direct_forces``;
+    CUDA tensors launch the kernel or raise."""
     if pos.device.type == "cpu":
         return direct_forces(pos, mass, G, softening, targets=targets)
     _build.require_cuda(pos, "direct_forces_kernel")
@@ -79,9 +93,16 @@ def direct_forces_kernel(pos, mass, G=1.0, softening=0.1, *, targets=None):
     _build.check(mass, "mass", (n,), dev)
     _build.check(tgt, "targets", (nt, 3), dev)
     acc = torch.empty((nt, 3), dtype=torch.float32, device=dev)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    rows = _source_range(index, nt, n)
+    ranges = -(-n // rows)
+    floats = 3 * ranges * nt if ranges > 1 else 0
+    scratch = (torch.empty((floats,), dtype=torch.float32, device=dev)
+               if floats else None)
     _build.launch(
         "nbt_direct_forces", dev, tgt.data_ptr(), nt, pos.data_ptr(),
-        mass.data_ptr(), n, float(G), float(softening) ** 2, acc.data_ptr(),
+        mass.data_ptr(), n, rows, float(G), float(softening) ** 2,
+        acc.data_ptr(), _build.ptr(scratch), floats,
     )
     direct_forces_kernel.launches += 1
     return acc

@@ -117,10 +117,10 @@ tile_sweep_plane_plain.calls = 0
 def tile_sweep_plane(tiles_plane, *, k: int, d: int, ws: int, eps: float,
                      cutoff2: float | None = None, far_plane=None, lo=None,
                      cell=None, counts=None):
-    """Kernel K4 (``csrc/tile_near.cu``, one thread per (cell, target
-    slot)). ``far_plane`` (d, 9 | 19, d²) needs ``lo`` (3,) and ``cell``
-    (scalar) device tensors. CPU tensors take the plain twin; CUDA tensors
-    launch the kernel or raise."""
+    """Kernel K4 (``csrc/tile_near.cu``, one block per brick of cells,
+    sources staged in shared memory). ``far_plane`` (d, 9 | 19, d²) needs
+    ``lo`` (3,) and ``cell`` (scalar) device tensors. CPU tensors take
+    the plain twin; CUDA tensors launch the kernel or raise."""
     if tiles_plane.device.type == "cpu":
         return tile_sweep_plane_plain(
             tiles_plane, k=k, d=d, ws=ws, eps=eps, cutoff2=cutoff2,

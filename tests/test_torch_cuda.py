@@ -96,6 +96,43 @@ def test_direct_kernel(dev):
            direct_forces(p, m, 1.0, 0.1, targets=tgt), 1e-5)
 
 
+@pytest.mark.parametrize(
+    "case", ["split", "ragged", "eps0", "one-target", "eps1e-13", "eps1e-6"])
+def test_direct_kernel_cases(dev, case):
+    """K1 vs plain (atol 1e-5·max|a|) and two calls bit-equal: 4096
+    targets against 65536 sources (the source axis split over blocks,
+    partial sums joined), 5003 rows (no multiple of a tile or of a block's
+    targets), ε = 0 with coincident rows (the loop that keeps rsqrtf and
+    the r² == 0 select), one target against 65536 sources, and the same
+    coincident rows at ε = 1e-13 (below the lean loop's least ε², where
+    its self pair's weight would overflow) and at ε = 1e-6 (the least ε
+    of the lean loop)."""
+    eps, tgt = 0.1, None
+    if case == "ragged":
+        p, m = _sphere(5003, 5.0, seed=21)
+    elif case in ("eps0", "eps1e-13", "eps1e-6"):
+        p, m = _sphere(3001, 5.0, seed=22)
+        p[1] = p[0]
+        p[2000] = p[5]
+        eps = {"eps0": 0.0, "eps1e-13": 1e-13, "eps1e-6": 1e-6}[case]
+    else:
+        p, m = _sphere(65536, 5.0, seed=23)
+    p, m = p.to(dev), m.to(dev)
+    if case == "split":
+        tgt = p[:4096].contiguous()
+        rows = _build.library().nbt_direct_forces_range(
+            torch.cuda.current_device(), 4096, 65536)
+        assert 0 < rows < 65536
+    elif case == "one-target":
+        tgt = p[7:8].contiguous()
+    before = direct_forces_kernel.launches
+    got = direct_forces_kernel(p, m, 1.0, eps, targets=tgt)
+    assert direct_forces_kernel.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    _close(got, direct_forces(p, m, 1.0, eps, targets=tgt), 1e-5)
+    assert torch.equal(got, direct_forces_kernel(p, m, 1.0, eps, targets=tgt))
+
+
 def test_scatter_kernel(dev):
     """K2 vs plain: slots and counts equal, moments rtol 1e-5 + 1e-6·max."""
     p, m = (t.to(dev) for t in _sphere(20000, 4.0, seed=2))
@@ -165,6 +202,120 @@ def test_tile_near_kernel(dev, cutoff2):
            2e-5)
 
 
+# id: (d, k, ws, counts, far channels, cutoff², ε)
+_K4_CASES = {
+    "ws2": (16, 16, 2, "random", 19, None, 0.1),
+    "ws4": (12, 16, 4, "random", 0, None, 0.1),
+    "k64-full": (12, 64, 2, "full-core", 0, None, 0.1),
+    "d14": (14, 32, 1, "random", 19, None, 0.1),
+    "no-counts": (10, 8, 1, None, 9, None, 0.1),
+    "eps0-coincident": (12, 16, 1, "random", 0, None, 0.0),
+    "cutoff": (16, 16, 1, "random", 0, 1.5, 0.1),
+    "far9": (16, 16, 1, "random", 9, None, 0.1),
+    "far19": (16, 16, 1, "random", 19, None, 0.1),
+}
+
+
+def _k4_inputs(case, dev):
+    d, k, ws, counts_kind, n_far, cutoff2, eps = _K4_CASES[case]
+    rng = np.random.default_rng(sorted(_K4_CASES).index(case))
+    pos = rng.uniform(0.0, 8.0, (d, 3, k, d * d))
+    mass = rng.uniform(0.0, 1.0, (d, 1, k, d * d))
+    if case == "eps0-coincident":
+        pos[:, :, 1] = pos[:, :, 0]          # two slots of every cell
+        pos[1:, :, 2] = pos[:-1, :, 0]       # and a slot of the next x cell
+    tiles = np.concatenate([pos, mass], 1).astype(np.float32)
+    kw = dict(k=k, d=d, ws=ws, eps=eps, cutoff2=cutoff2)
+    if counts_kind is not None:
+        counts = rng.integers(0, k + 3, (d, d, d))
+        if counts_kind == "full-core":       # every slot live near the centre
+            counts[d // 4:3 * d // 4, d // 4:3 * d // 4, d // 4:3 * d // 4] = k
+        kw["counts"] = torch.from_numpy(
+            counts.reshape(-1).astype(np.float32)).to(dev)
+    if n_far:
+        kw.update(
+            far_plane=torch.from_numpy(rng.normal(
+                size=(d, n_far, d * d)).astype(np.float32)).to(dev),
+            lo=torch.zeros(3, device=dev), cell=torch.tensor(0.5, device=dev))
+    return torch.from_numpy(tiles).to(dev), kw
+
+
+def _k4_plan(d, k, ws):
+    """K4's launch plan from the library: (cells a brick, rows a staged
+    chunk, halo columns a group, dynamic shared memory bytes)."""
+    lib = _build.library()
+    return tuple(lib.nbt_tile_near_plan(d, k, ws, f) for f in range(4))
+
+
+def _k4_max_halo_rows(counts, d, k, ws):
+    """The most live rows of one K4 brick's halo (its (2ws+1)² columns over
+    the brick's z-run ± ws), at the kernel's plan."""
+    bz = _k4_plan(d, k, ws)[0]
+    live = np.pad(np.minimum(counts.reshape(d, d, d), k), ws)
+    most = 0
+    for x in range(d):
+        for y in range(d):
+            for z0 in range(0, d, bz):
+                most = max(most, int(live[x:x + 2 * ws + 1, y:y + 2 * ws + 1,
+                                          z0:min(z0 + bz, d) + 2 * ws].sum()))
+    return most
+
+
+@pytest.mark.parametrize("case", sorted(_K4_CASES))
+def test_tile_near_kernel_cases(dev, case):
+    """K4 vs plain (atol 2e-5·max|out|) and two calls bit-equal: ws 2 and
+    4 (125 and 729 cells), k 64 with every slot live in a core whose
+    bricks' halos exceed one shared-memory chunk, d 14 (no power of two;
+    at k 32 the bricks do not divide it, so each column ends in a short
+    brick),
+    no counts, ε = 0 with coincident rows (the loop that keeps rsqrtf and
+    the r² test), the cutoff form, far planes of 9 and 19 channels."""
+    tiles, kw = _k4_inputs(case, dev)
+    if case == "k64-full":
+        d, k, ws = kw["d"], kw["k"], kw["ws"]
+        rows_cap = _k4_plan(d, k, ws)[1]
+        assert _k4_max_halo_rows(kw["counts"].cpu().numpy(), d, k,
+                                 ws) > rows_cap
+    before = tile_sweep_plane.launches
+    got = tile_sweep_plane(tiles, **kw)
+    assert tile_sweep_plane.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    _close(got, tile_sweep_plane_plain(tiles, **kw), 2e-5)
+    assert torch.equal(got, tile_sweep_plane(tiles, **kw))
+
+
+@pytest.mark.parametrize("eps", [1e-13, 1e-6])
+def test_tile_near_kernel_small_eps(dev, eps):
+    """K4 on the coincident rows of case eps0-coincident at ε = 1e-13
+    (below the lean loop's least ε², where a coincident pair's weight
+    would overflow) and at ε = 1e-6 (the least ε of the lean loop):
+    finite, vs plain atol 2e-5·max|out|, two calls bit-equal."""
+    tiles, kw = _k4_inputs("eps0-coincident", dev)
+    kw["eps"] = eps
+    got = tile_sweep_plane(tiles, **kw)
+    assert bool(torch.isfinite(got).all())
+    _close(got, tile_sweep_plane_plain(tiles, **kw), 2e-5)
+    assert torch.equal(got, tile_sweep_plane(tiles, **kw))
+
+
+@pytest.mark.parametrize("k", [1, 8, 16, 64])
+def test_tile_near_plan_fits_the_kernel(dev, k):
+    """K4's launch plan is one the kernel takes (bricks of 1-32 cells, at
+    least one staged row and halo column a chunk, at most 200 KB of
+    dynamic shared memory) for every d and every ws up to 16, the most
+    ``theta_to_ws`` gives, so no shape the sweep ran before is refused;
+    and the bricks hold 128·ws² slots where the grid allows."""
+    for d in (1, 2, 14, 56, 64):
+        for ws in range(0, 17):
+            bz, rows_cap, group_cols, smem = _k4_plan(d, k, ws)
+            ws = min(ws, d - 1)
+            assert 1 <= bz <= min(32, d)
+            assert rows_cap >= 1 and group_cols >= 1
+            assert smem <= 200 * 1024, (d, ws, smem)
+            if ws >= 1 and 128 // k * ws * ws <= min(32, d):
+                assert bz == 128 // k * ws * ws
+
+
 def test_barnes_hut_card_matches_cpu(dev):
     """The whole BH force on the card (kernels) vs on the CPU (plain
     twins), same inputs: atol 2e-5·max|a| on rows within the slot cap."""
@@ -179,15 +330,19 @@ def test_barnes_hut_card_matches_cpu(dev):
     "form,window,ws,eps",
     [("hash", 2048, 1, 0.1), ("bh", 2048, 1, 0.1), ("hash", 64, 1, 0.1),
      ("bh", 2048, 4, 0.1), ("bh", 2048, 16, 0.1), ("bh", 2048, 1, 0.0),
-     ("hash", 2048, 1, 0.0)],
+     ("hash", 2048, 1, 0.0), ("bh", 2048, 1, 1e-13),
+     ("bh", 2048, 1, 1e-6)],
     ids=["hash", "bh", "overflow", "bh-ws4", "bh-ws16", "bh-eps0",
-         "hash-eps0"])
+         "hash-eps0", "bh-eps1e-13", "bh-eps1e-6"])
 def test_window_sweep_kernel(dev, form, window, ws, eps):
     """K7 vs plain on a 20000-row ball (d 16): the hash form (cutoff 1.0,
     B 256), the BH form (no cutoff, ws 1), a too-small window, the BH
     form at ws 4 (81 offsets) and ws 16 (1089, the widest ``theta_to_ws``
-    gives), and ε = 0 in both forms (the pair loop that keeps the r² > 0
-    test and rsqrtf): atol 2e-5·max|a| and the same overflow count."""
+    gives), ε = 0 in both forms (the pair loop that keeps the r² > 0
+    test and rsqrtf), and the BH form at ε = 1e-13 (below the lean loop's
+    least ε², where each target's own weight would overflow) and 1e-6
+    (the least ε of the lean loop): atol 2e-5·max|a| and the same
+    overflow count."""
     p, m = (t.to(dev) for t in _sphere(20000, 4.0, seed=4))
     coords = bin_particles(p, 4)[2]
     g = build_sorted_grid(p, m, coords, 16, with_csort=True)
@@ -202,6 +357,7 @@ def test_window_sweep_kernel(dev, form, window, ws, eps):
     assert int(over) == int(over_p)
     if ws == 1:
         assert (int(over) > 0) == (window == 64)
+    assert bool(torch.isfinite(got).all())
     _close(got, want, 2e-5)
 
 

@@ -82,6 +82,23 @@ def test_targets_subset_and_coincident_rows():
                                rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("eps", [1e-13, 1e-6])
+def test_small_softening_coincident_rows_match_jax(eps):
+    """Coincident rows at ε = 1e-13 and 1e-6 (on either side of the least
+    ε² of the CUDA kernel's loop without the r² == 0 select, 1e-12):
+    finite forces, atol 1e-5·max|a| against the JAX blocked f32 forces."""
+    pos, mass = _scene(300, seed=3)
+    pos[5] = pos[4]
+    pos[200] = pos[17]
+    want = np.asarray(jax_direct_forces(jnp.asarray(pos), jnp.asarray(mass),
+                                        1.0, eps))
+    got = direct_forces_kernel(torch.from_numpy(pos), torch.from_numpy(mass),
+                               1.0, eps).numpy()
+    assert np.isfinite(got).all() and np.isfinite(want).all()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * float(np.abs(want).max()))
+
+
 def test_wrapper_counts_launches_only_on_cuda():
     """CPU tensors take the plain twin and never count as a launch."""
     pos, mass = _scene(8)

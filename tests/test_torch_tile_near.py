@@ -99,12 +99,16 @@ def test_sweep_with_far_seed_matches_pallas_interpret():
 
 @pytest.mark.parametrize(
     "ws,eps,cutoff2",
-    [(1, 0.1, 1.2 ** 2), (1, 0.0, None), (2, 0.05, None)],
-    ids=["cutoff2", "eps0", "ws2"],
+    [(1, 0.1, 1.2 ** 2), (1, 0.0, None), (2, 0.05, None),
+     (1, 1e-13, None), (1, 1e-6, None)],
+    ids=["cutoff2", "eps0", "ws2", "eps1e-13", "eps1e-6"],
 )
 def test_sweep_matches_numpy_reference(ws, eps, cutoff2):
     """Every slot live (no counts): the raw-r² cutoff tested before
-    softening, the ε = 0 self-pair guard, and a wider window."""
+    softening, the ε = 0 self-pair guard, a wider window, and the
+    self-pair guard at ε = 1e-13 and 1e-6 (on either side of the least ε²
+    of the CUDA kernel's loop without the guard, 1e-12), where a guard
+    that let the self pair through would give 0·inf."""
     d, k = 6, 4
     tiles = _random_tiles(d, k, seed=12)
     want = reference_sweep(tiles, ws, eps, cutoff2)
@@ -127,3 +131,4 @@ def test_counts_mark_dead_slots():
     full = tile_sweep_plane_plain(t, k=k, d=d, ws=ws, eps=0.1).numpy()
     assert (got[:, :, 2:] == 0.0).all()
     np.testing.assert_array_equal(got[:, :, :2], full[:, :, :2])
+
