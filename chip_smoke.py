@@ -20,7 +20,13 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
      the monopole path at ws = 2 with none, the sparse hash with cutoff² 4
      at d = 56, k = 16; ``k4_inputs``), two calls bit-equal, with its
      device time by graph replay; K2 at the 1M sparse hash (uniform cube,
-     cell 2.0, d = 56, k = 16), K7 (the
+     cell 2.0, d = 56, k = 16); K2's two table forms at both 1M shapes
+     (``k2_table_checks``: the rank form with coverage and 3 extra
+     channels, and ``tile_place``, the dest form, moving a repair-sized
+     set of 32768 rows inside that table; coverage and extra planes and
+     placed slots bit-equal to the twins) and the table step's
+     ``table_drift`` (with the audit) and ``table_kick`` on that table, bit
+     for bit, K7 (the
      window sweep) at the 1M dense hash (cap 64, W 2048, B 256, cutoff
      2.0) and the 1M Barnes-Hut window engine (d = 32, W 2048, B 256,
      ws = 1), K5 (the all-pairs potential) on the drift gate's own 1M
@@ -46,9 +52,9 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
      computes the same function, that call's time; K1, K4, K6 and K7 also
      give bit-equal output over two calls, and their device time per call
      (CUDA graph replay) is printed beside;
-  3. drives six paths, each with every launch count set to 0 just before
+  3. drives the paths, each with every launch count set to 0 just before
      it and read just after, checking that the path's kernels launched as
-     expected and that no plain twin ran. Five go through the facade
+     expected and that no plain twin ran. These go through the facade
      (``path_configs``): ``initialize``, ``run_steps`` warm, ``reset()``,
      ``run_steps`` timed:
        a. 1M Barnes-Hut, tiles engine (bh_max_level 6): 30 steps;
@@ -58,12 +64,29 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
           "auto" → tiles engine, d 56, k 16): 30 steps;
        d. 1M Barnes-Hut, window engine (bh_max_level 5): 10 steps;
        e. 100K direct N² (the spherical scene): 10 steps;
-       g. the 1M sparse hash with ``resort_every=8``: 30 steps, a sort
-          every 8th (4 sorted steps, 26 frozen);
-       h. 1M Barnes-Hut tiles with ``resort_stale_frac=0.01`` (cap 16):
-          30 steps, re-sorted when the audit asks, with the trace of the
-          same steps (stale counts, re-sorts) and the cost of the host
-          read of the audit count;
+       g-j, and their mirrors: the frozen-grid knobs on the two tiles
+          scenes, 30 steps each: g. the 1M sparse hash with
+          ``resort_every=8``; h. 1M Barnes-Hut tiles with
+          ``resort_stale_frac=0.01``; i. the 1M sparse hash with
+          ``resort_repair``; j. 1M Barnes-Hut tiles with
+          ``resort_repair``; then the sparse hash with
+          ``resort_stale_frac=0.01`` and Barnes-Hut tiles with
+          ``resort_every=8``. Each runs through the facade (table-resident
+          stepping, ``ops/table_step.py``, where ``system.TABLE_ROUTES``
+          holds the engine and knob, else the row-space driver), then the
+          other driver of the same knob is called directly from the same
+          state, launches counted for both (the table drivers: K2's rank
+          form on sorted steps only, its dest form on repair steps with
+          movers, K4 and ``table_kick`` every step, ``table_drift`` every
+          step after the first); the two are held to each other (the
+          cadence, and the audited re-sort against the row-space steps on
+          the table's schedule, within 1e-6 of max|pos| and max|v| on the
+          hash and 1e-5 on Barnes-Hut, whose frozen table steps sum the
+          moments in another order; repair against sorting every step
+          within 1e-4·max|pos|, the JAX package's bound), the traces printed (stale counts,
+          re-sorts, rebuilds), and the two timed in turns; on h also the
+          row-space audited re-sort's trace and the cost of its host read
+          of the audit count;
      f. 1M Barnes-Hut monopole (the tiles scene with
      ``multipole_order=1``: ws 2, K6 moments, no far taps), which the
      facade never selects: ``barnes_hut_forces_sorted(multipole_order=1)``
@@ -236,12 +259,25 @@ def path_configs() -> dict:
             dt=1e-3),
         SPARSE_RESORT: sparse.replace(resort_every=8),
         BH_ADAPTIVE: bh.replace(resort_stale_frac=0.01),
+        SPARSE_REPAIR: sparse.replace(resort_repair=True),
+        BH_REPAIR: bh.replace(resort_repair=True),
+        SPARSE_ADAPTIVE: sparse.replace(resort_stale_frac=0.01),
+        BH_RESORT: bh.replace(resort_every=8),
     }
 
 
 MONOPOLE = "1M BH monopole"
 SPARSE_RESORT = "1M sparse hash, resort_every 8"
 BH_ADAPTIVE = "1M BH tiles, resort_stale_frac 0.01"
+SPARSE_REPAIR = "1M sparse hash, resort_repair"
+BH_REPAIR = "1M BH tiles, resort_repair"
+SPARSE_ADAPTIVE = "1M sparse hash, resort_stale_frac 0.01"
+BH_RESORT = "1M BH tiles, resort_every 8"
+# the frozen-grid paths: (label, engine mode) in the order they run
+FROZEN_PATHS = ((SPARSE_RESORT, "hash"), (BH_ADAPTIVE, "bh"),
+                (SPARSE_REPAIR, "hash"), (BH_REPAIR, "bh"),
+                (SPARSE_ADAPTIVE, "hash"), (BH_RESORT, "bh"))
+REPAIR_CAP = 32768  # make_table_repair_multi_step's default mover cap
 SORT_PATH = "1M sort benchmark"
 
 
@@ -316,6 +352,193 @@ def k2_check(res, label, grid, lo, cell, *, d, k):
           f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
           f"({rec['bound_by']})")
     return tk, mk, overflow
+
+
+def mover_set(tiles, cov, ext, counts, d, k, m, gen):
+    """A repair-sized move on a fresh table (K2's table form: ``tiles``,
+    ``cov``, ``ext``, per-cell ``counts``): ``m`` occupied slots (plane
+    order), each sent one cell up in x (clamped) and ranked above the
+    target's high-water mark, as ``table_step._repair_step`` places movers,
+    so arrivals to full cells are denied → (src, dest, fits, table), where
+    ``table()`` gives a fresh copy of the table with its liveness and a row
+    bookkeeping of its occupied slots: ``tile_place``'s in-place
+    arguments."""
+    import torch
+
+    from nbody_tpu_torch.ops.scatter import SENTINEL_DEST
+    from nbody_tpu_torch.ops.sorted_window import sorted_ranks
+
+    dev, d2, nc = cov.device, d * d, d ** 3
+    occ = torch.nonzero(cov.reshape(-1))[:, 0]                # plane order
+    src = occ[torch.randperm(occ.numel(), generator=gen, device=dev)[:m]]
+    tgt = torch.clamp((src // (k * d2)) * d2 + src % d2 + d2,
+                      max=nc - 1).to(torch.int32)
+    ordm = torch.argsort(tgt, stable=True)
+    src, tgt = src[ordm].to(torch.int32), tgt[ordm]
+    slot = torch.clamp(counts, max=k).to(torch.int32)[tgt.long()] + (
+        sorted_ranks(tgt))
+    fits = slot < k
+    dest = torch.where(fits, tgt * k + slot, SENTINEL_DEST).to(torch.int32)
+    ids = ((occ // (k * d2)) * d2 + occ % d2) * k + (occ // d2) % k
+    slot_row = torch.full((nc * k,), -1, dtype=torch.int32, device=dev)
+    slot_row[ids] = torch.arange(occ.numel(), dtype=torch.int32, device=dev)
+
+    def table():
+        return (tiles.clone(), cov.clone(), ext.clone(),
+                torch.clamp(counts, max=k), slot_row.clone(),
+                ids.to(torch.int32))
+
+    return src, dest, fits, table
+
+
+def k2_table_checks(res, label, grid, lo, cell, tp):
+    """K2's two table forms and the table step's two passes against their
+    twins at a path's 1M shape (``tp`` its table parameters): the rank form
+    with coverage and the 3 velocity channels (as ``table_step._sort_build``
+    places them; N(0, 1) here); the dest form on a repair-sized mover set
+    (``REPAIR_CAP`` rows each sent one cell up in x and ranked above the
+    target's high-water mark, as ``table_step._repair_step`` places them,
+    so arrivals to full cells are denied), moved inside that table with
+    its row bookkeeping and high-water marks; then ``table_drift`` with the
+    audit (velocities 20·N(0, 1), so a few percent of rows change cell)
+    and ``table_kick`` on that table. Coverage and extra planes bit-equal,
+    placed slots bit-equal, filler centres within 1e-6·cube; moments as
+    ``k2_check``; the drift (tables, mover ids, stale count) and the kick
+    bit for bit."""
+    import torch
+
+    from nbody_tpu_torch.ops import table_step as T
+    from nbody_tpu_torch.ops.scatter import (
+        tile_place,
+        tile_place_plain,
+        tile_scatter,
+        tile_scatter_plain,
+    )
+
+    d, k = tp.d, tp.k
+    n, nc = grid.psort.shape[0], d ** 3
+    dev = grid.psort.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    ex = torch.randn(n, 3, generator=gen, device=dev)
+    args = (grid.psort, grid.cell_start, lo, cell)
+    kw = dict(d=d, k=k, with_coverage=True, extra=ex)
+    tk, mk, ck, xk = tile_scatter(*args, **kw)
+    tp_, mp, cp, xp = tile_scatter_plain(*args, **kw)
+    cube = float(cell) * d
+
+    def slots(got, want, cov, what):
+        placed = (cov[:, 0] > 0)[:, None].expand_as(got)
+        check(torch.equal(got[placed], want[placed]),
+              f"{what}: placed slots not bit-equal")
+        err = float((got[~placed] - want[~placed]).abs().max())
+        check(err <= 1e-6 * cube, f"{what}: filler centres off by {err}")
+        return err
+
+    what = f"K2 tile_scatter {label}, coverage + 3 extra"
+    check(torch.equal(ck, cp) and torch.equal(xk, xp),
+          f"{what}: coverage or extra planes differ from plain")
+    check(torch.equal(mk[10], mp[10]), f"{what}: counts differ from plain")
+    mom_err = (mk - mp).abs()
+    mom_tol = 1e-5 * mp.abs() + 1e-6 * mp.abs().amax(dim=1, keepdim=True)
+    check(bool((mom_err <= mom_tol).all()),
+          f"{what}: moments differ by {float(mom_err.max())}")
+    fill = slots(tk, tp_, ck, what)
+    rec = dict(
+        max_abs_err=max(fill, float(mom_err.max())),
+        ms=time_ms(lambda: tile_scatter(*args, **kw)),
+        plain_ms=time_ms(lambda: tile_scatter_plain(*args, **kw)),
+        # psort + extra + cell_start in; tiles, cov, extra planes and
+        # moments out; ~20 ops per row
+        **bound(20 * n, 16 * n + 12 * n + 4 * (nc + 1)
+                + (4 + 1 + 3) * 4 * k * nc + 44 * nc),
+        library_ms=None,
+    )
+    add_shape(res, "tile_scatter", f"{label}, coverage + 3 extra", rec)
+    print(f"{what} (d={d}, k={k}): placed slots, coverage and extra planes "
+          f"bit-equal to plain, filler max|diff| {fill:.3e}, moments "
+          f"max|diff| {float(mom_err.max()):.3e}; kernel {rec['ms']:.4f} "
+          f"ms, plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} "
+          f"ms ({rec['bound_by']})")
+
+    # the dest form: REPAIR_CAP occupied slots moved one cell up in x
+    m = REPAIR_CAP
+    src, dest, fits, table = mover_set(tk, ck, xk, mk[10], d, k, m, gen)
+    pargs = (src, dest, lo, cell)
+    got, want = table(), table()
+    tile_place(*got, *pargs, d=d, k=k)
+    tile_place_plain(*want, *pargs, d=d, k=k)
+    what = f"K2 tile_place {label}, {m} movers"
+    check(all(torch.equal(a, b) for a, b in zip(got[1:], want[1:])),
+          f"{what}: coverage, extra planes, high-water marks or "
+          "bookkeeping differ from plain")
+    placed = int(fits.sum())
+    check(int(got[1].sum()) == int(ck.sum()),
+          f"{what}: {int(got[1].sum())} occupied after the moves")
+    fill = slots(got[0], want[0], got[1], what)
+    # each timed call moves a fresh copy's rows (the copy is not timed)
+    fresh = [table() for _ in range(9)]
+    fresh_p = [table() for _ in range(9)]
+    rec = dict(
+        max_abs_err=fill,
+        ms=time_ms(lambda: tile_place(*fresh.pop(), *pargs, d=d, k=k)),
+        plain_ms=time_ms(lambda: tile_place_plain(*fresh_p.pop(), *pargs,
+                                                  d=d, k=k)),
+        # src + dest in; a moved row's slot read (4 + 1 + 3 floats), its
+        # new and old slot written, 3 bookkeeping ints, the k cov values
+        # of its two cells read and their live counts written
+        **bound(0, 8 * m + placed * (32 * 3 + 12 + 2 * (4 * k + 4))),
+        library_ms=None,
+    )
+    add_shape(res, "tile_place", f"{label}, {m} movers", rec)
+    print(f"{what} (d={d}, k={k}; {placed} moved, {m - placed} denied): "
+          f"placed slots, coverage, extra planes, high-water marks and "
+          f"bookkeeping equal to plain, filler max|diff| {fill:.3e}; kernel "
+          f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+
+    # the table step's passes on this table
+    vel = xk * 20.0
+    acc = torch.randn(vel.shape, generator=gen, device=dev) * ck
+    dargs = (tk, vel, acc, ck, lo, cell, 1e-3, tp, True)
+    dk = T.table_drift(*dargs)
+    dp = T.table_drift_plain(*dargs)
+    what = f"table_drift {label}"
+    check(all(torch.equal(a, b) for a, b in zip(dk, dp)),
+          f"{what}: not bit-equal to plain")
+    slots_n = nc * k
+    rec = dict(
+        max_abs_err=0.0, ms=time_ms(lambda: T.table_drift(*dargs)),
+        plain_ms=time_ms(lambda: T.table_drift_plain(*dargs)),
+        # pos 4 + vel 3 + acc 3 + cov 1 floats in; pos 4 + vel 3 + mover 1
+        # out, a slot each; ~40 ops a slot
+        **bound(40 * slots_n, (11 + 8) * 4 * slots_n), library_ms=None,
+    )
+    add_shape(res, "table_drift", label, rec)
+    print(f"{what} (d={d}, k={k}, audit): tables, mover ids and stale count "
+          f"{int(dk[3])} bit-equal to plain; kernel {rec['ms']:.4f} ms, "
+          f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']})")
+    raw = torch.randn(vel.shape, generator=gen, device=dev)
+    ka = T.table_kick(raw.clone(), ck, dk[1].clone(), 1.0, 1e-3)
+    kb = T.table_kick_plain(raw.clone(), ck, dk[1].clone(), 1.0, 1e-3)
+    what = f"table_kick {label}"
+    check(torch.equal(ka[0], kb[0]) and torch.equal(ka[1], kb[1]),
+          f"{what}: not bit-equal to plain")
+    bufs = (raw.clone(), dk[1].clone())
+    rec = dict(
+        max_abs_err=0.0,
+        # in place: each timed call kicks the same buffers once more
+        ms=time_ms(lambda: T.table_kick(bufs[0], ck, bufs[1], 1.0, 1e-3)),
+        plain_ms=time_ms(lambda: T.table_kick_plain(bufs[0], ck, bufs[1],
+                                                    1.0, 1e-3)),
+        # raw 3 + cov 1 + vel 3 in, acc 3 + vel 3 out; 12 ops a slot
+        **bound(12 * slots_n, (7 + 6) * 4 * slots_n), library_ms=None,
+    )
+    add_shape(res, "table_kick", label, rec)
+    print(f"{what} (d={d}, k={k}): bit-equal to plain; kernel "
+          f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
 
 
 def k4_inputs(pos, mass, cfg, sp_pos, sp_mass):
@@ -502,6 +725,7 @@ def kernel_checks(res, pos, mass, cfg):
         level_tap_matrices,
         pyramid_from_packed,
     )
+    from nbody_tpu_torch.ops import table_step as T
     from nbody_tpu_torch.ops.far_taps import far_taps, far_taps_plain
     from nbody_tpu_torch.ops.sorted_window import build_sorted_grid
 
@@ -515,8 +739,12 @@ def kernel_checks(res, pos, mass, cfg):
     lo, cell, coords = bin_particles(pos, levels)
     grid = build_sorted_grid(pos, mass, coords, d)
 
-    # K2: placement + moments + counts
+    # K2: placement + moments + counts; the table forms
     tk, mk, overflow = k2_check(res, label, grid, lo, cell, d=d, k=k)
+    k2_table_checks(res, label, grid, lo, cell,
+                    T.bh_table_params(cfg.G, cfg.softening,
+                                      cfg.barnes_hut_theta, levels=levels,
+                                      near_k=k))
 
     # K3: far taps at every level of one step; p = 32 and 16 (the two
     # finest) against the twin and conv3d, and K3 called twice there
@@ -836,18 +1064,22 @@ def frozen_checks(pos, mass, bh_cfg, sp_pos, sp_mass, sp_cfg):
 
 
 def sparse_tile_checks(res, pos, mass):
-    """Phase 2 for the 1M sparse hash: K2 against its plain twin at the
-    tiles engine's d = 56, k = 16 on the uniform cube, cell 2.0."""
+    """Phase 2 for the 1M sparse hash: K2 (the main form and the two table
+    forms) and the table step's passes against their plain twins at the tiles engine's d = 56, k = 16 on
+    the uniform cube, cell 2.0."""
     import torch
 
     from nbody_tpu_torch.ops.sorted_window import build_sorted_grid
     from nbody_tpu_torch.ops.spatial_hash import tiles_bin
+    from nbody_tpu_torch.ops.table_step import hash_table_params
 
     label, d, k = "1M sparse hash", 56, 16
     lo, coords = tiles_bin(pos, 2.0, d)
     grid = build_sorted_grid(pos, mass, coords, d)
     cell = torch.full((), 2.0, dtype=pos.dtype, device=pos.device)
     k2_check(res, label, grid, lo, cell, d=d, k=k)
+    k2_table_checks(res, label, grid, lo, cell,
+                    hash_table_params(cutoff=2.0, cell_size=2.0, d=d, k=k))
 
 
 def k7_shapes(pos, mass):
@@ -1075,11 +1307,15 @@ def check_finite(label, st) -> None:
     check(bool(torch.isfinite(st.vel).all()), f"{label}: non-finite vel")
 
 
-def run_path(label, cfg, steps, want, wrappers, plains, smi, dev):
+def run_path(label, cfg, steps, want, wrappers, plains, smi, dev,
+             expect=None):
     """Drive one path through the facade: warm run, reset, then the timed
     run under ``counted_run``; checks a finite state that advanced and
-    prints the audit. Returns (launches, phases, the system, the state the
-    timed run started from)."""
+    prints the audit. ``expect(ps, state0) -> (launches, info)`` adds the
+    launches of a path whose schedule depends on the scene, read from a
+    traced run of the same steps from the same state before the timed one.
+    Returns (launches, phases, the system, the state the timed run started
+    from, info)."""
     from nbody_tpu_torch import ParticleSystem
 
     ps = ParticleSystem()
@@ -1089,6 +1325,10 @@ def run_path(label, cfg, steps, want, wrappers, plains, smi, dev):
     ps.reset()
     ps.synchronize()
     state0 = ps.state
+    info = None
+    if expect is not None:
+        more, info = expect(ps, state0)
+        want = {**want, **more}
     launches, _, phases = counted_run(
         label, steps, lambda: ps.run_steps(steps), want, wrappers, plains,
         smi)
@@ -1096,13 +1336,230 @@ def run_path(label, cfg, steps, want, wrappers, plains, smi, dev):
     check(abs(ps.simulation_time - steps * cfg.dt) < 1e-6,
           f"{label}: simulation time did not advance")
     print(f"  audit_short_range: {ps.audit_short_range()}")
-    return launches, phases, ps, state0
+    return launches, phases, ps, state0, info
 
 
-def adaptive_report(ps, state0, steps, phases):
-    """Path h after its timed run: the trace of the same steps from the
-    same state (``with_trace=True``), whose re-sorts must match the timed
-    run's ``bh.sort`` samples; then the host read of the audit count,
+def table_multi(tp, cfg, knob, steps, trace=False):
+    """The table driver the facade's rule names for ``cfg``'s knob, with
+    its caps (repair: ``REPAIR_CAP`` movers, cadence cap ``resort_every``
+    or 64; audited: cap ``resort_every`` or 16)."""
+    from nbody_tpu_torch.ops import table_step as T
+
+    cad = cfg.resort_every
+    if knob == "repair":
+        return T.make_table_repair_multi_step(
+            tp, cfg.dt, steps, repair_cap=REPAIR_CAP,
+            max_cadence=cad if cad > 1 else 64, with_trace=trace)
+    if knob == "stale_frac":
+        return T.make_table_adaptive_multi_step(
+            tp, cfg.dt, steps, max_stale_frac=cfg.resort_stale_frac,
+            max_cadence=cad if cad > 1 else 16, with_trace=trace)
+    return T.make_table_multi_step(tp, cfg.dt, steps, cad)
+
+
+def row_multi(sf, cfg, knob, steps):
+    """The row-space driver of the same knob: the cadence, the lagged
+    audited re-sort (cap 16), or for repair a sort every step (the JAX
+    facade's choice off its accelerator, and what repair is exact to)."""
+    from nbody_tpu_torch.ops import integrator as I
+
+    if knob == "cadence":
+        return I.make_resort_multi_step(sf, cfg.dt, steps, cfg.resort_every)
+    if knob == "stale_frac":
+        return I.make_adaptive_multi_step(
+            sf, cfg.dt, steps, max_stale_frac=cfg.resort_stale_frac,
+            max_cadence=16)
+    return I.make_sorted_multi_step(sf, cfg.dt, steps)
+
+
+def table_launches(tp, cfg, knob, state0, steps, far):
+    """A table run's launches, and its trace where the driver has one (a
+    traced run of the same steps from the same state): K2's rank form on
+    the entry and every re-sort or rebuild, its dest form on every repair
+    step with movers, K4 and the kick on every step, the drift on every
+    step after the first, K3 ``far`` times a step → (want, (out, stale,
+    flags) or None)."""
+    want = dict(tile_sweep_plane=steps, far_taps=far * steps,
+                table_drift=steps - 1, table_kick=steps)
+    if knob == "cadence":
+        want["tile_scatter"] = 1 + (steps - 1) // cfg.resort_every
+        return want, None
+    out, (stale, flags) = table_multi(tp, cfg, knob, steps, True)(state0)
+    want["tile_scatter"] = 1 + int(flags.sum())
+    if knob == "repair":
+        want["tile_place"] = int(((~flags) & (stale > 0)).sum())
+    return want, (out, stale, flags)
+
+
+def compare_states(label, got, want, pos_rel, vel_rel, what):
+    """``got`` against ``want`` (same rows): positions within
+    pos_rel·max|pos|, velocities within vel_rel·max|v| (None: printed
+    only), masses bit-equal, every state finite."""
+    import torch
+
+    dp = float((got.pos - want.pos).abs().max())
+    sp = float(want.pos.abs().max())
+    dv = float((got.vel - want.vel).abs().max())
+    sv = float(want.vel.abs().max())
+    print(f"  {label} vs {what}: max|dpos| {dp:.4e} ({dp / sp:.3e} of "
+          f"max|pos|, tol {pos_rel}), max|dvel| {dv:.4e} ({dv / sv:.3e} of "
+          f"max|v|, tol {vel_rel}); positions bit-equal: "
+          f"{torch.equal(got.pos, want.pos)}")
+    check(dp <= pos_rel * sp, f"{label}: positions off {what} by {dp}")
+    check(vel_rel is None or dv <= vel_rel * sv,
+          f"{label}: velocities off {what} by {dv}")
+    check(torch.equal(got.mass, want.mass), f"{label}: masses not restored")
+    check_finite(label, got)
+
+
+def replay(sf, state0, flags, dt):
+    """The row-space steps on a given schedule: the first step and those
+    flagged sort, the others frozen on the last sort's cells."""
+    from nbody_tpu_torch.ops import integrator as I
+
+    r, (meta,) = I._sorted_step(I._rows_from(state0), sf.with_meta, dt)
+    for resort in flags:
+        if resort:
+            r, (meta,) = I._sorted_step(r, sf.with_meta, dt)
+        else:
+            r, _ = I._frozen_step(r, sf.frozen, meta, dt)
+    return I._state_from(r)
+
+
+def repair_report(label, got, row, state0, trace, steps):
+    """A repair run after its timed run: the per-step stale counts and
+    rebuild flags of the traced run, and the state ``got`` against sorting
+    every step from the same state (``row``): positions within
+    1e-4·max|pos| (the JAX package's own bound for repair against
+    every-step binning, and the card test's: the two runs bin on other
+    grids between rebuilds, and k-cap overflow and denied arrivals differ
+    row by row), with the quantiles of |Δx| and of |Δx| / displacement
+    printed; masses row for row."""
+    import torch
+
+    _, stale, flags = trace
+    repairs = int(((~flags) & (stale > 0)).sum())
+    print(f"  trace: stale counts after steps 2..{steps}: {stale.tolist()}; "
+          f"rebuilt at steps {(torch.nonzero(flags)[:, 0] + 2).tolist()} "
+          f"(cap {REPAIR_CAP}); {repairs} repairs with movers")
+    disp = (row.pos - state0.pos).norm(dim=1)
+    diff = (got.pos - row.pos).norm(dim=1)
+    rel = diff / disp.clamp(min=1e-30)
+    print(f"  {label}: |dx|/|x - x0| median {float(rel.median()):.4e}, p99 "
+          f"{float(rel.quantile(0.99)):.4e}; |dx| p99 "
+          f"{float(diff.quantile(0.99)):.4e}; median displacement "
+          f"{float(disp.median()):.4e}")
+    compare_states(label, got, row, 1e-4, None, "sorting every step")
+
+
+def turns(label, table, row, state0, steps, routed, smi):
+    """The table and row-space drivers of one knob timed from the same
+    state in turns (table, row, row, table, after a warm run of each):
+    medians of 2 runs each, steps/s, beside whether the facade routes the
+    pair to the table."""
+    import torch
+
+    walls = {"table": [], "row": []}
+    runs = {"table": table, "row": row}
+    for f in runs.values():
+        f(state0)
+    for name in ("table", "row", "row", "table"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name](state0)
+        torch.cuda.synchronize()
+        walls[name].append(time.perf_counter() - t0)
+    rate = {name: steps / statistics.median(w) for name, w in walls.items()}
+    print(f"  routing {label}: table {rate['table']:.3f} steps/s, row space "
+          f"{rate['row']:.3f} (medians of 2 in turns; {smi}); the facade "
+          f"routes it to the {'table' if routed else 'row-space'} driver")
+    return rate
+
+
+def frozen_grid_path(label, mode, steps, far, drive, drive_row, smi, dev):
+    """One frozen-grid path: through the facade (table-resident where
+    ``TABLE_ROUTES`` holds the engine and knob, else in row space), then
+    the other driver of the same knob called directly from the same state,
+    both with their launches counted; the two held to each other, the
+    traces printed, and the two timed in turns. Returns the rates."""
+    import torch
+
+    from nbody_tpu_torch.ops.forces import make_table_step_params
+    from nbody_tpu_torch.system import TABLE_ROUTES, _resort_knob
+
+    cfg = path_configs()[label]
+    knob = _resort_knob(cfg)
+    routed = (mode, knob) in TABLE_ROUTES
+    row_want = dict(tile_scatter=steps, tile_sweep_plane=steps,
+                    far_taps=far * steps)
+    info = {}
+
+    def expect(ps, state0):
+        tp = make_table_step_params(
+            cfg, device=dev, pos_hint=state0.pos if mode == "hash" else None)
+        check(tp is not None and tp.mode == mode,
+              f"{label}: no {mode} table parameters on the card")
+        info["tp"] = tp
+        if not routed:
+            return {}, None
+        want, trace = table_launches(tp, cfg, knob, state0, steps, far)
+        info["want"] = want
+        return want, trace
+
+    _, phases, ps, state0, trace = drive(
+        label, steps, expect=expect, **({} if routed else row_want))
+    check((ps._table_params is not None) == routed,
+          f"{label}: the facade's routing is not TABLE_ROUTES'")
+    tp, sf = info["tp"], ps._sorted_force
+    table, row = table_multi(tp, cfg, knob, steps), row_multi(sf, cfg, knob,
+                                                              steps)
+    if routed:
+        tab_out, tab_phases = ps.state, phases
+        row_out, row_phases = drive_row(f"{label}, row-space driver", steps,
+                                        row, state0, **row_want)
+    else:
+        row_out, row_phases = ps.state, phases
+        want, trace = table_launches(tp, cfg, knob, state0, steps, far)
+        info["want"] = want
+        tab_out, tab_phases = drive_row(f"{label}, table driver", steps,
+                                        table, state0, **want)
+    sorts = info["want"]["tile_scatter"]
+    check(tab_phases[tp.sort_phase].samples == sorts,
+          f"{label}: {tab_phases[tp.sort_phase].samples} table sorts timed, "
+          f"{sorts} expected")
+    if trace is not None:
+        check(torch.equal(trace[0].pos, tab_out.pos),
+              f"{label}: traced table run and timed run differ")
+    # Barnes-Hut's frozen table steps sum the finest moments in another
+    # order than K2's per-cell loop, so its far field moves in the last
+    # bits; the hash has no far field and stays bit-equal
+    tol = 1e-6 if mode == "hash" else 1e-5
+    if knob == "cadence":
+        print(f"  table: {sorts} sorted steps of {steps}")
+        compare_states(label, tab_out, row_out, tol, tol,
+                       "the row-space cadence")
+    elif knob == "stale_frac":
+        _, stale, flags = trace
+        print(f"  table trace: {sorts} sorted steps of {steps} (the first "
+              f"and re-sorts at steps "
+              f"{(torch.nonzero(flags)[:, 0] + 2).tolist()}); pre-force "
+              f"stale counts after steps 2..{steps}: {stale.tolist()} (cap "
+              f"{int(cfg.resort_stale_frac * state0.n)})")
+        compare_states(label, tab_out, replay(sf, state0, flags.tolist(),
+                                              cfg.dt),
+                       tol, tol, "the row-space steps on its schedule")
+        if mode == "bh":
+            adaptive_report(sf, cfg, state0, steps, row_phases)
+    else:
+        repair_report(label, tab_out, row_out, state0, trace, steps)
+    return turns(label, table, row, state0, steps, routed, smi)
+
+
+def adaptive_report(sf, cfg, state0, steps, phases):
+    """The row-space adaptive path after its timed run: the trace of the
+    same steps from the same state (``with_trace=True``), whose re-sorts
+    must match the timed run's ``bh.sort`` samples; then the host read of
+    the audit count,
     timed as the difference between the stale cap N − 1 (read after every
     frozen step, never exceeded) and N (never read) over the same steps,
     both at cap 16: medians of 4 runs each, in turns (the host-bound step
@@ -1112,10 +1569,11 @@ def adaptive_report(ps, state0, steps, phases):
 
     from nbody_tpu_torch.ops.integrator import make_adaptive_multi_step
 
-    cfg, sf, n = ps.config, ps._sorted_force, state0.n
+    n = state0.n
     _, (stale, resorted) = make_adaptive_multi_step(
         sf, cfg.dt, steps, max_stale_frac=cfg.resort_stale_frac,
         max_cadence=16, with_trace=True)(state0)
+    print(f"  {BH_ADAPTIVE}, row-space driver:")
     sorts = 1 + int(resorted.sum())
     print(f"  trace: {sorts} sorted steps of {steps} (the first and "
           f"{int(resorted.sum())} re-sorts at steps "
@@ -1263,10 +1721,13 @@ def main() -> None:
         pairwise_potential_plain,
     )
     from nbody_tpu_torch.ops.far_taps import far_taps, far_taps_plain
+    from nbody_tpu_torch.ops import table_step as T
     from nbody_tpu_torch.ops.forces import make_force_fn
     from nbody_tpu_torch.ops.scatter import (
         segment_sum,
         segment_sum_plain,
+        tile_place,
+        tile_place_plain,
         tile_scatter,
         tile_scatter_plain,
     )
@@ -1351,17 +1812,21 @@ def main() -> None:
     wrappers = {
         "direct_forces": direct_forces_kernel,
         "tile_scatter": tile_scatter,
+        "tile_place": tile_place,
         "far_taps": far_taps,
         "tile_sweep_plane": tile_sweep_plane,
         "window_sweep": window_sweep_kernel,
         "pairwise_potential": pairwise_potential,
         "segment_sum": segment_sum,
         "bitonic_sort": bitonic_sort_pairs,
+        "table_drift": T.table_drift,
+        "table_kick": T.table_kick,
     }
-    plains = [direct_forces, tile_scatter_plain, far_taps_plain,
-              tile_sweep_plane_plain, window_sweep_plain,
+    plains = [direct_forces, tile_scatter_plain, tile_place_plain,
+              far_taps_plain, tile_sweep_plane_plain, window_sweep_plain,
               pairwise_potential_plain, segment_sum_plain,
-              bitonic_sort_pairs_plain]
+              bitonic_sort_pairs_plain, T.table_drift_plain,
+              T.table_kick_plain]
     none = {name: 0 for name in wrappers}
     by_path = {name: {} for name in wrappers}
 
@@ -1370,11 +1835,20 @@ def main() -> None:
             if c:
                 by_path[name][label] = c
 
-    def drive(label, steps, **want):
+    def drive(label, steps, expect=None, **want):
         got = run_path(label, cfgs[label], steps, {**none, **want}, wrappers,
-                       plains, smi, dev)
+                       plains, smi, dev, expect)
         keep(label, got[0])
         return got
+
+    def drive_row(label, steps, multi, state0, **want):
+        launches, out, phases = counted_run(label, steps,
+                                            lambda: multi(state0),
+                                            {**none, **want}, wrappers,
+                                            plains, smi)
+        keep(label, launches)
+        check_finite(label, out)
+        return out, phases
 
     levels = bh_engine_params(bh_cfg)["levels"]
     drive("1M BH tiles", 30, tile_scatter=30, far_taps=30 * levels,
@@ -1389,18 +1863,13 @@ def main() -> None:
         bh_cfg, scene, 10,
         {**none, "segment_sum": 10, "tile_scatter": 10,
          "tile_sweep_plane": 10}, wrappers, plains, smi))
-    # g: frozen steps between sorts every 8th step, so the sort phase runs
-    # in ceil(30 / 8) = 4 of the 30 steps
-    _, phases, ps, _ = drive(SPARSE_RESORT, 30, tile_scatter=30,
-                             tile_sweep_plane=30)
-    check(hasattr(ps._sorted_force, "frozen"),
-          f"{SPARSE_RESORT}: the engine has no frozen-grid contract")
-    check(phases["hash.sort"].samples == 4,
-          f"{SPARSE_RESORT}: {phases['hash.sort'].samples} sorted steps")
-    # h: re-sorted when the audit asks (cap 16)
-    _, phases, ps, state0 = drive(BH_ADAPTIVE, 30, tile_scatter=30,
-                                  far_taps=30 * levels, tile_sweep_plane=30)
-    adaptive_report(ps, state0, 30, phases)
+    # g-j and the two knobs' mirrors on the other scene
+    rates = {}
+    for label, mode in FROZEN_PATHS:
+        rates[label] = frozen_grid_path(
+            label, mode, 30, levels if mode == "bh" else 0, drive, drive_row,
+            smi, dev)
+    print(f"routing: {json.dumps(rates)}")
     keep(SORT_PATH, sort_path(sorts, {**none, "bitonic_sort": 2}, wrappers,
                               plains, smi))
 
@@ -1468,6 +1937,8 @@ def main() -> None:
                           "nbody_tpu/ops/direct.py:157"),
         "tile_scatter": ("nbody_tpu_torch/csrc/scatter.cu",
                          "nbody_tpu/ops/pallas_scatter.py:605"),
+        "tile_place": ("nbody_tpu_torch/csrc/scatter.cu",
+                       "nbody_tpu/ops/pallas_scatter.py:605"),
         "far_taps": ("nbody_tpu_torch/csrc/far_taps.cu",
                      "nbody_tpu/ops/pallas_far_taps.py:143"),
         "tile_sweep_plane": ("nbody_tpu_torch/csrc/tile_near.cu",
@@ -1480,6 +1951,11 @@ def main() -> None:
                         "nbody_tpu/ops/pallas_scatter.py:416"),
         "bitonic_sort": ("nbody_tpu_torch/csrc/bitonic_sort.cu",
                          "nbody_tpu/ops/pallas_sort.py:192,217,232"),
+        # no TPU kernel: XLA fusions of the JAX table step
+        "table_drift": ("nbody_tpu_torch/csrc/table_step.cu",
+                        "nbody_tpu/ops/table_step.py:324 (XLA fusion)"),
+        "table_kick": ("nbody_tpu_torch/csrc/table_step.cu",
+                       "nbody_tpu/ops/table_step.py:399 (XLA fusion)"),
     }
     for name in sources:
         check(bool(by_path[name]), f"{name} never launched on a timed path")

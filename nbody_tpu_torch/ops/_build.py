@@ -47,6 +47,19 @@ SIGNATURES = {
                           ctypes.c_longlong, _P),
     # psort, cell_start, lo, cell, tiles, moments, d, k, stream
     "nbt_tile_scatter": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # psort, extra, cell_start, lo, cell, tiles, moments, cov, ext, d, k,
+    # stream
+    "nbt_tile_scatter_ext": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # src, dest, m, lo, cell, tiles, cov, ext, live, slot_row, idx_ext, d,
+    # k, stream
+    "nbt_tile_place": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                       _P),
+    # pos, vel, acc, cov, lo, cell, inv_cell, bin, d, k, dt, c2, hdt,
+    # pos_d, vel_h, mover, n_stale, stream
+    "nbt_table_drift": (_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _F, _F, _F,
+                        _P, _P, _P, _P, _P),
+    # acc (raw in), cov, vel (vel_h in), G, hdt, d, k, stream
+    "nbt_table_kick": (_P, _P, _P, _F, _F, _I, _I, _P),
     # mom, taps, out, p, ws, stream
     "nbt_far_taps": (_P, _P, _P, _I, _I, _P),
     # tiles, far, n_far, counts, lo, cell, out, d, k, ws, eps2,

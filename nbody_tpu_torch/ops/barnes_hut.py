@@ -600,6 +600,23 @@ def bh_engine_params(config: SimulationConfig) -> dict:
     }
 
 
+def far_plane_grid(packed, lo, cell, *, levels: int, ws: int, eps: float):
+    """Packed finest order-2 moments (d, d, d, 10) → the far expansion
+    [A3 | J6 | H10] of every finest cell as the sweep's seed (d, 19, d²),
+    unscaled by G: the pyramid (phase ``bh.pyramid``) and the far field
+    (``bh.far``)."""
+    d = 1 << levels
+    dev = packed.device
+    with profile_phase("bh.pyramid", device=dev):
+        pyr = pyramid_from_packed(packed, lo, cell, levels)
+    with profile_phase("bh.far", device=dev):
+        a_far, j_far, h_far = far_field_grid(pyr, ws, 1.0, eps, levels)
+        return (
+            torch.cat([a_far, j_far, h_far], dim=-1)
+            .reshape(d, d * d, 19).permute(0, 2, 1).contiguous()
+        )
+
+
 def _fused_bh_force_from_grid(grid, lo, cell, *, d, levels, ws, near_k, G,
                               softening, sorted_output, rank_sorted=None):
     """Everything downstream of the cell sort: placement + moments (K2),
@@ -610,15 +627,8 @@ def _fused_bh_force_from_grid(grid, lo, cell, *, d, levels, ws, near_k, G,
     with profile_phase("bh.placement", device=dev):
         tb = tile_build(grid, lo, cell, d=d, k=near_k,
                         rank_sorted=rank_sorted)
-    with profile_phase("bh.pyramid", device=dev):
-        packed = tb.moments[:10].T.reshape(d, d, d, 10)
-        pyr = pyramid_from_packed(packed, lo, cell, levels)
-    with profile_phase("bh.far", device=dev):
-        a_far, j_far, h_far = far_field_grid(pyr, ws, 1.0, softening, levels)
-        far_plane = (
-            torch.cat([a_far, j_far, h_far], dim=-1)
-            .reshape(d, d * d, 19).permute(0, 2, 1).contiguous()
-        )  # (d, 19, d²)
+    far_plane = far_plane_grid(tb.moments[:10].T.reshape(d, d, d, 10), lo,
+                               cell, levels=levels, ws=ws, eps=softening)
     acc = tile_sweep_pick(
         tb, grid, lo, cell, far_plane, d=d, ws=ws, k=near_k, G=G,
         eps=softening, sorted_output=sorted_output,

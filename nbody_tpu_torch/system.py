@@ -4,16 +4,17 @@ PyTorch counterpart of the core of ``nbody_tpu/system.py``: validate →
 initialize → compute initial forces; ``update()`` is one Verlet step,
 ``run_steps(n)`` the scale path (cell-sorted stepping for Barnes-Hut, as
 ``bench.py`` measures on the TPU, with the re-sort cadence
-``resort_every`` or the audited re-sort ``resort_stale_frac`` where the
-engine has the frozen-grid contract); pause/resume/reset; state get/set;
+``resort_every``, the audited re-sort ``resort_stale_frac`` or the exact
+repair ``resort_repair``: on the card through table-resident stepping
+where it was measured to beat row space, ``TABLE_ROUTES``, else in row
+space); pause/resume/reset; state get/set;
 energy queries; ``audit_short_range`` for the short-range engines'
 capacity audits. Every tensor lives on the device given to
 ``initialize``: the CUDA card unless the caller passes ``device="cpu"``.
 
 Not ported yet, and rejected with ``NotImplementedError`` rather than run
-some other path: sharding (``shard_devices > 1``), the table-resident
-repair stepping (``resort_repair``), and the distributions other than
-uniform and spherical. Instances are not thread-safe.
+some other path: sharding (``shard_devices > 1``) and the distributions
+other than uniform and spherical. Instances are not thread-safe.
 """
 
 from __future__ import annotations
@@ -30,7 +31,11 @@ from nbody_tpu_torch.errors import (
     validate_resource_requirements,
 )
 from nbody_tpu_torch.models.distributions import init_from_config
-from nbody_tpu_torch.ops.forces import make_force_fn, make_sorted_force_fn
+from nbody_tpu_torch.ops.forces import (
+    make_force_fn,
+    make_sorted_force_fn,
+    make_table_step_params,
+)
 from nbody_tpu_torch.ops.integrator import (
     initialize_forces,
     kinetic_energy,
@@ -41,21 +46,41 @@ from nbody_tpu_torch.ops.integrator import (
     make_verlet_step,
     potential_energy,
 )
+from nbody_tpu_torch.ops.table_step import (
+    make_table_adaptive_multi_step,
+    make_table_multi_step,
+    make_table_repair_multi_step,
+)
 from nbody_tpu_torch.state import ParticleState, SimulationState
 from nbody_tpu_torch.types import ForceMethod, SimulationConfig
 from nbody_tpu_torch.utils.profiling import profile_phase
 
 
+# The (engine, knob) pairs that step table-resident on the card: those
+# whose table driver beat the row-space driver there in every call of
+# chip_smoke.py's routing comparison (PERF.md §5-6; the 1M sparse hash and
+# 1M Barnes-Hut tiles scenes). The hash's audited re-sort and repair win;
+# its fixed cadence ties, and Barnes-Hut, host-bound and re-sorted every
+# step on its cold collapse, loses or ties on all three knobs, so those
+# keep the row-space choice. The JAX facade sends every pair to its table
+# drivers on its accelerator.
+TABLE_ROUTES = frozenset({("hash", "stale_frac"), ("hash", "repair")})
+
+
+def _resort_knob(config: SimulationConfig) -> Optional[str]:
+    """The frozen-grid knob the JAX facade's table routing reads first."""
+    if config.resort_repair:
+        return "repair"
+    if config.resort_stale_frac > 0.0:
+        return "stale_frac"
+    return "cadence" if config.resort_every > 1 else None
+
+
 def _require_ported(config: SimulationConfig) -> None:
-    knobs = {
-        "shard_devices > 1": config.shard_devices > 1,
-        "resort_repair": config.resort_repair,
-    }
-    on = [k for k, v in knobs.items() if v]
-    if on:
+    if config.shard_devices > 1:
         raise NotImplementedError(
-            f"{', '.join(on)}: not ported to nbody_tpu_torch yet "
-            "(ROADMAP A13 table stepping and repair / A14 multi-device)"
+            "shard_devices > 1: not ported to nbody_tpu_torch yet "
+            "(ROADMAP A10 multi-device)"
         )
 
 
@@ -80,6 +105,7 @@ class ParticleSystem:
         self._device: Optional[torch.device] = None
         self._force_fn = None
         self._sorted_force = None
+        self._table_params = None
         self._step = None
         self._paused = False
         self._initialized = False
@@ -111,6 +137,13 @@ class ParticleSystem:
             hint = state.pos.detach().cpu().numpy()
         self._force_fn = make_force_fn(cfg, pos_hint=hint)
         self._sorted_force = make_sorted_force_fn(cfg, pos_hint=hint)
+        self._table_params = None
+        knob = _resort_knob(cfg)
+        if knob is not None:
+            tp = make_table_step_params(cfg, device=self._device,
+                                        pos_hint=hint)
+            if tp is not None and (tp.mode, knob) in TABLE_ROUTES:
+                self._table_params = tp
         self._step = make_verlet_step(self._force_fn, cfg.dt)
         self._state = initialize_forces(state, self._force_fn)
 
@@ -141,16 +174,33 @@ class ParticleSystem:
             self._state = self._multi_step(n_steps)(self._state)
 
     def _multi_step(self, n_steps: int):
-        """The JAX facade's choice off the TPU: plain steps without a
-        sorted contract; with the engine's frozen-grid contract and
-        N < 2²⁴, the audited re-sort when ``resort_stale_frac > 0`` (capped
-        at ``resort_every``, 16 when unset), else the fixed cadence when
-        ``resort_every > 1``; else a sort every step."""
-        cfg, sf = self._config, self._sorted_force
+        """The JAX facade's choice. Where table-resident stepping applies
+        (``make_table_step_params``: the card, the fused tiles engines,
+        N < 2²⁴) and the engine and knob are in ``TABLE_ROUTES``:
+        ``resort_repair`` takes the repair driver (cadence cap
+        ``resort_every``, 64 when unset), else ``resort_stale_frac > 0``
+        the audited table re-sort (cap ``resort_every``, 16 when unset),
+        else the table cadence ``resort_every``. Otherwise, as the JAX
+        facade off its accelerator: plain steps without a sorted contract;
+        with the engine's frozen-grid contract and N < 2²⁴, the audited
+        re-sort when ``resort_stale_frac > 0`` (the same caps), else the
+        fixed cadence when ``resort_every > 1``; else a sort every step
+        (``resort_repair`` alone included)."""
+        cfg, sf, tp = self._config, self._sorted_force, self._table_params
+        cadence = cfg.resort_every
+        if tp is not None:
+            if cfg.resort_repair:
+                return make_table_repair_multi_step(
+                    tp, cfg.dt, n_steps,
+                    max_cadence=cadence if cadence > 1 else 64)
+            if cfg.resort_stale_frac > 0.0:
+                return make_table_adaptive_multi_step(
+                    tp, cfg.dt, n_steps, max_stale_frac=cfg.resort_stale_frac,
+                    max_cadence=cadence if cadence > 1 else 16)
+            return make_table_multi_step(tp, cfg.dt, n_steps, cadence)
         if sf is None:
             return make_multi_step(self._force_fn, cfg.dt, n_steps)
         frozen = hasattr(sf, "frozen") and self._state.n < (1 << 24)
-        cadence = cfg.resort_every
         if frozen and cfg.resort_stale_frac > 0.0:
             return make_adaptive_multi_step(
                 sf, cfg.dt, n_steps, max_stale_frac=cfg.resort_stale_frac,

@@ -4,9 +4,11 @@
     python3 scripts/profile_torch_paths.py [--steps 10] [--out build/profile_torch_paths.json]
 
 From the root of a checkout, on a machine with one CUDA card. For each path
-that ``chip_smoke.py`` drives — the five facade paths of
+that ``chip_smoke.py`` drives — the facade paths of
 ``chip_smoke.path_configs`` (1M Barnes-Hut tiles, 1M dense hash, 1M
-sparse hash, 1M Barnes-Hut window engine, 100K direct), through
+sparse hash, 1M Barnes-Hut window engine, 100K direct, and the six
+frozen-grid paths: the re-sort cadence, the audited re-sort and repair on
+the sparse hash and Barnes-Hut tiles, each as the facade routes it), through
 ``ParticleSystem.run_steps``, and the 1M Barnes-Hut monopole path
 (``chip_smoke.monopole_forces`` under ``make_sorted_multi_step``) — it
 takes a warm run of ``steps`` steps from the initial state, then:

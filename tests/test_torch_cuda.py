@@ -20,6 +20,7 @@ from nbody_tpu_torch.ops.barnes_hut import (
     barnes_hut_forces_frozen,
     barnes_hut_forces_sorted,
     bin_particles,
+    make_barnes_hut_forces_sorted,
 )
 from nbody_tpu_torch.ops import _build
 from nbody_tpu_torch.ops.direct import (
@@ -29,10 +30,15 @@ from nbody_tpu_torch.ops.direct import (
     pairwise_potential_plain,
 )
 from nbody_tpu_torch.ops.far_taps import far_taps, far_taps_plain
+from nbody_tpu_torch.ops import integrator as tint
+from nbody_tpu_torch.ops import table_step as T
+from nbody_tpu_torch.ops.forces import make_table_step_params
 from nbody_tpu_torch.ops.scatter import (
     SENTINEL_DEST,
     segment_sum,
     segment_sum_plain,
+    tile_place,
+    tile_place_plain,
     tile_scatter,
     tile_scatter_plain,
 )
@@ -44,13 +50,21 @@ from nbody_tpu_torch.ops.sort import (
     bitonic_sort_pairs_plain,
     kernel_launches,
 )
-from nbody_tpu_torch.ops.sorted_window import build_sorted_grid, xy_ball
+from nbody_tpu_torch.ops.sorted_window import (
+    build_sorted_grid,
+    cell_starts_at,
+    sorted_ranks,
+    xy_ball,
+)
 from nbody_tpu_torch.ops.spatial_hash import (
     spatial_hash_forces,
     spatial_hash_forces_tiles,
     spatial_hash_forces_tiles_frozen,
     spatial_hash_forces_tiles_sorted,
+    tiles_bin,
 )
+from nbody_tpu_torch.state import ParticleState
+from nbody_tpu_torch.types import ForceMethod, SimulationConfig
 from nbody_tpu_torch.ops.tile_near import (
     tile_sweep_plane,
     tile_sweep_plane_plain,
@@ -697,3 +711,296 @@ def test_frozen_fresh_meta_is_the_sorted_step_on_card(dev, engine):
     ids = (c[:, 0] * d + c[:, 1]) * d + c[:, 2]
     recount = int((ids != meta.ids.cpu()).sum())
     assert int(stale) == recount > 0
+
+
+def _k2_scene(form, dev):
+    """The 1M shapes of K2's table forms, cell-sorted: Barnes-Hut tiles
+    (the radius-10 sphere at d 64, k 16) or the sparse hash (the uniform
+    cube of side 100, cell 2.0, d 56, k 16)."""
+    if form == "bh":
+        p, m = (t.to(dev) for t in _sphere(1_000_000, 10.0, seed=21))
+        lo, cell, coords = bin_particles(p, 6)
+        d = 64
+    else:
+        rng = np.random.default_rng(22)
+        p = torch.from_numpy(rng.uniform(-50.0, 50.0, (1_000_000, 3)).astype(
+            np.float32)).to(dev)
+        m = torch.ones(1_000_000, device=dev)
+        d = 56
+        lo, coords = tiles_bin(p, 2.0, d)
+        cell = torch.full((), 2.0, device=dev)
+    return build_sorted_grid(p, m, coords, d), lo, cell, d, 16
+
+
+def _assert_slots(tiles, want, placed, cube):
+    """Placed slots bit-equal; filler slots (cell centres) within
+    1e-6·cube."""
+    p4 = placed[:, None].expand_as(tiles)
+    assert torch.equal(tiles[p4], want[p4])
+    assert float((tiles[~p4] - want[~p4]).abs().max()) <= 1e-6 * cube
+
+
+@pytest.mark.parametrize("form", ["bh", "hash"])
+def test_scatter_table_forms_kernel(dev, form):
+    """K2's table forms at the 1M shapes against their twins: the rank form
+    with coverage and 3 extra channels (coverage and extra planes
+    bit-equal, counts equal, moments as test_scatter_kernel's), and the
+    dest form on a repair-sized mover set (32768 rows each sent one cell
+    up in x, ranked above the target's high-water mark, so arrivals to
+    full cells are denied), moved inside the rank form's table: coverage,
+    extra planes, high-water marks and row bookkeeping equal, placed slots
+    bit-equal, filler within 1e-6·cube."""
+    g, lo, cell, d, k = _k2_scene(form, dev)
+    n, nc = g.psort.shape[0], d ** 3
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    ex = torch.randn(n, 3, generator=gen, device=dev)
+    args = (g.psort, g.cell_start, lo, cell)
+    before = tile_scatter.launches
+    tk, mk, ck, xk = tile_scatter(*args, d=d, k=k, with_coverage=True,
+                                  extra=ex)
+    assert tile_scatter.launches == before + 1
+    tp, mp, cp, xp = tile_scatter_plain(*args, d=d, k=k, with_coverage=True,
+                                        extra=ex)
+    assert torch.equal(ck, cp) and torch.equal(xk, xp)
+    assert torch.equal(mk[10], mp[10])
+    tol = 1e-5 * mp.abs() + 1e-6 * mp.abs().amax(dim=1, keepdim=True)
+    assert bool(((mk - mp).abs() <= tol).all())
+    cube = float(cell) * d
+    _assert_slots(tk, tp, ck[:, 0] > 0, cube)
+
+    m = 32768
+    src, dest, fits = _mover_set(ck, mk[10], d, k, m, gen)
+    assert bool(fits.any()) and bool((~fits).any())
+    got, want = _place_both(tk, ck, xk, mk[10], src, dest, lo, cell, d, k)
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a, b)
+    assert int(got[1].sum()) == int(ck.sum())
+    _assert_slots(got[0], want[0], got[1][:, 0] > 0, cube)
+
+
+def _mover_set(cov, counts, d, k, m, gen):
+    """m occupied slots (plane order) of a fresh table, each sent one cell
+    up in x (clamped) and ranked above the target's high-water mark, as
+    ``table_step._repair_step`` places movers → (src, dest, fits)."""
+    occ = torch.nonzero(cov.reshape(-1))[:, 0]
+    src = occ[torch.randperm(occ.numel(), generator=gen,
+                             device=occ.device)[:m]]
+    d2 = d * d
+    cell = (src // (k * d2)) * d2 + src % d2
+    tgt = torch.clamp(cell + d2, max=d ** 3 - 1).to(torch.int32)
+    ordm = torch.argsort(tgt, stable=True)
+    src, tgt = src[ordm], tgt[ordm]
+    slot = torch.clamp(counts, max=k).to(torch.int32)[tgt.long()] + (
+        sorted_ranks(tgt))
+    fits = slot < k
+    dest = torch.where(fits, tgt * k + slot, SENTINEL_DEST).to(torch.int32)
+    return src.to(torch.int32), dest, fits
+
+
+def _place_both(tiles, cov, ext, counts, src, dest, lo, cell, d, k):
+    """K2's dest form and its twin on copies of one table, with a row
+    bookkeeping of its occupied slots → (kernel's, twin's) tensors."""
+    d2 = d * d
+    occ = torch.nonzero(cov.reshape(-1))[:, 0]
+    ids = ((occ // (k * d2)) * d2 + occ % d2) * k + (occ // d2) % k
+    slot_row = torch.full((d ** 3 * k,), -1, dtype=torch.int32,
+                          device=cov.device)
+    slot_row[ids] = torch.arange(occ.numel(), dtype=torch.int32,
+                                 device=cov.device)
+    out = []
+    for fn in (tile_place, tile_place_plain):
+        t = (tiles.clone(), cov.clone(), ext.clone(),
+             torch.clamp(counts, max=k), slot_row.clone(),
+             ids.to(torch.int32))
+        before = tile_place.launches
+        fn(*t, src, dest, lo, cell, d=d, k=k)
+        assert tile_place.launches == before + (fn is tile_place)
+        out.append(t)
+    return out
+
+
+def test_scatter_table_form_arity_and_empty_place(dev):
+    """The rank form has the main form and the table form (coverage and 3
+    extra channels) only; any other request raises before a launch. The
+    dest form with no movers changes nothing."""
+    p, m = (t.to(dev) for t in _sphere(20000, 4.0, seed=5))
+    lo, cell, coords = bin_particles(p, 4)
+    g = build_sorted_grid(p, m, coords, 16)
+    args = (g.psort, g.cell_start, lo, cell)
+    before = tile_scatter.launches
+    for kw in (dict(with_coverage=True),
+               dict(extra=torch.ones(20000, 3, device=dev)),
+               dict(with_coverage=True,
+                    extra=torch.ones(20000, 5, device=dev))):
+        with pytest.raises(ValueError, match="table form"):
+            tile_scatter(*args, d=16, k=16, **kw)
+    assert tile_scatter.launches == before
+    ex = torch.randn(20000, 3, device=dev)
+    tiles, mom, cov, ext = tile_scatter(*args, d=16, k=16,
+                                        with_coverage=True, extra=ex)
+    none = torch.zeros(0, dtype=torch.int32, device=dev)
+    got, _ = _place_both(tiles, cov, ext, mom[10], none, none, lo, cell, 16,
+                         16)
+    assert all(torch.equal(a, b) for a, b in
+               zip(got[:3], (tiles, cov, ext)))
+
+
+@pytest.mark.parametrize("mode", ["bh", "hash"])
+def test_table_drift_and_kick_kernels(dev, mode):
+    """``table_drift`` (with and without the audit) and ``table_kick`` at
+    the 1M table shapes against their plain twins, bit for bit: the
+    drifted tables, the mover ids under each engine's binning and the
+    stale count, then the kicked tables; rows are moved far enough that a
+    few percent change cell."""
+    g, lo, cell, d, k = _k2_scene(mode, dev)
+    n = g.psort.shape[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    tiles, _, cov, vel = tile_scatter(
+        g.psort, g.cell_start, lo, cell, d=d, k=k, with_coverage=True,
+        extra=torch.randn(n, 3, generator=gen, device=dev) * 20.0)
+    acc = torch.randn(vel.shape, generator=gen, device=dev) * cov
+    tp = (T.bh_table_params(levels=6, near_k=16) if mode == "bh" else
+          T.hash_table_params(cutoff=2.0, cell_size=2.0, d=56, k=16))
+    for audit in (False, True):
+        before = T.table_drift.launches
+        got = T.table_drift(tiles, vel, acc, cov, lo, cell, 1e-3, tp, audit)
+        assert T.table_drift.launches == before + 1
+        want = T.table_drift_plain(tiles, vel, acc, cov, lo, cell, 1e-3, tp,
+                                   audit)
+        for a, b in zip(got, want):
+            assert (a is None and b is None) or torch.equal(a, b)
+    assert 0 < int(got[3]) < n // 2
+    raw = torch.randn(vel.shape, generator=gen, device=dev)
+    ka = T.table_kick(raw.clone(), cov, got[1].clone(), 2.0, 1e-3)
+    kb = T.table_kick_plain(raw.clone(), cov, got[1].clone(), 2.0, 1e-3)
+    assert torch.equal(ka[0], kb[0]) and torch.equal(ka[1], kb[1])
+
+
+def _table_case(dev, vel_scale, cube=False):
+    """N = 65536 on the radius-6 sphere (masses 0.5-1.5), or with ``cube``
+    the uniform cube of side 12 (16 rows a cell on average, so none past
+    k), Barnes-Hut at levels 4 (d 16, k 40: the fused tiles engine),
+    velocities ``vel_scale``·N(0, 1): the config's row-space sorted
+    engine, its table parameters on the card and the state with a(t)."""
+    n = 65536
+    cfg = SimulationConfig(particle_count=n, force_method=ForceMethod.BARNES_HUT,
+                           bh_max_level=4, dt=1e-3)
+    p, m = (t.to(dev) for t in _sphere(n, 6.0, seed=31))
+    rng = np.random.default_rng(32)
+    if cube:
+        p = torch.from_numpy(rng.uniform(-6.0, 6.0, (n, 3)).astype(
+            np.float32)).to(dev)
+    vel = torch.from_numpy((vel_scale * rng.normal(size=(n, 3))).astype(
+        np.float32)).to(dev)
+    sf = make_barnes_hut_forces_sorted(cfg)
+    tp = make_table_step_params(cfg, device=dev)
+    assert tp is not None and (tp.d, tp.k) == (16, 40)
+    acc_s, _, order = sf(p, m)
+    acc = torch.empty_like(acc_s)
+    acc[order] = acc_s
+    return sf, tp, ParticleState(pos=p, vel=vel, acc=acc, mass=m,
+                                 time=torch.zeros((), device=dev))
+
+
+def _near(a, b, rel):
+    return float((a - b).abs().max()) <= rel * float(b.abs().max())
+
+
+def _replay(sf, st, resorted, dt=1e-3):
+    """The row-space steps on a given schedule (the first step and those
+    flagged sort; the others frozen on the last sort's cells)."""
+    r, (meta,) = tint._sorted_step(tint._rows_from(st), sf.with_meta, dt)
+    for resort in resorted:
+        if resort:
+            r, (meta,) = tint._sorted_step(r, sf.with_meta, dt)
+        else:
+            r, _ = tint._frozen_step(r, sf.frozen, meta, dt)
+    return tint._state_from(r)
+
+
+def test_table_drivers_on_card_match_row_space(dev):
+    """The three table drivers on the card at N = 65536 against the
+    row-space drivers: the fixed cadence (4, 9 steps) against
+    ``make_resort_multi_step`` and the adaptive driver (0.01, cap 16)
+    against the row-space steps on its own schedule, positions within
+    1e-6·max|pos| and velocities within 1e-5·max|v| (the frozen steps'
+    moments are summed in another order); the repair driver on a hot
+    scene (30·N(0, 1) velocities: movers every step) against sorting
+    every step, positions within 1e-4·max|pos| (the JAX package's bound:
+    the frozen grid geometry's far field differs), on the cube, where no
+    cell holds more than k rows (rows past the cap lose their near field,
+    and which rows those are differs between two runs). Masses come back
+    row for row; launches: K2's rank form on sorted steps only."""
+    sf, tp, st = _table_case(dev, 0.0)
+    before = tile_scatter.launches
+    tab = T.make_table_multi_step(tp, 1e-3, 9, 4)(st)
+    assert tile_scatter.launches == before + 3
+    row = tint.make_resort_multi_step(sf, 1e-3, 9, 4)(st)
+    assert _near(tab.pos, row.pos, 1e-6) and _near(tab.vel, row.vel, 1e-5)
+    assert torch.equal(tab.mass, st.mass)
+
+    ada, (stale, resorted) = T.make_table_adaptive_multi_step(
+        tp, 1e-3, 9, max_stale_frac=0.01, max_cadence=16, with_trace=True)(st)
+    row = _replay(sf, st, resorted.tolist())
+    assert _near(ada.pos, row.pos, 1e-6) and _near(ada.vel, row.vel, 1e-5)
+    assert torch.equal(ada.mass, st.mass)
+
+    sf, tp, st = _table_case(dev, 30.0, cube=True)
+    before = tile_place.launches
+    rep, (stale, rebuilt) = T.make_table_repair_multi_step(
+        tp, 1e-3, 9, with_trace=True)(st)
+    assert int(stale.min()) > 0 and not bool(rebuilt.any())
+    assert tile_place.launches == before + 8
+    assert float(T._entry(st, 1e-3, tp).live.max()) < tp.k
+    row = tint.make_sorted_multi_step(sf, 1e-3, 9)(st)
+    assert _near(rep.pos, row.pos, 1e-4)
+    assert torch.equal(rep.mass, st.mass)
+    assert bool(torch.isfinite(rep.vel).all())
+
+
+def test_table_holes_are_inert_to_the_sweep(dev):
+    """K4's liveness on a table with holes: after three repair steps of the
+    hot scene (movers leave holes below each cell's high-water mark),
+    the sweep with counts = the high-water mark gives, on every occupied
+    slot, the accelerations of a fresh rebuild of the same rows in the
+    same cells (K2's rank form, holes compacted; atol 2e-5·max, the
+    sources are summed in another order), and those of the sweep with
+    every slot live bit for bit."""
+    _sf, tp, st = _table_case(dev, 30.0, cube=True)
+    dt, d, k = 1e-3, tp.d, tp.k
+    ts = T._entry(st, dt, tp)
+    for _ in range(3):
+        pos_d_t, vel_h, side_pd, mover, n_stale = T._drift(ts, dt, tp,
+                                                           audit=True)
+        ts = T._repair_step(ts, pos_d_t, vel_h, side_pd, mover, int(n_stale),
+                            dt, tp)
+    occ = ts.cov_t[:, 0] > 0                                  # (d, k, d²)
+    slot = torch.arange(k, device=dev)[None, :, None]
+    holes = ~occ & (slot < ts.live.reshape(d, 1, d * d))
+    assert bool(holes.any())
+    far_plane, _ = T._far_grids(T._table_moments(ts.pos_t, ts, ts.side, tp),
+                          ts.lo, ts.cell, tp)
+    kw = dict(k=k, d=d, ws=tp.ws, eps=tp.softening, far_plane=far_plane,
+              lo=ts.lo, cell=ts.cell)
+    raw = tile_sweep_plane(ts.pos_t, counts=ts.live, **kw)
+    raw_all = tile_sweep_plane(ts.pos_t, **kw)
+    o3 = occ[:, None].expand_as(raw)
+    assert torch.equal(raw[o3], raw_all[o3])
+
+    # the occupied slots in (cell, slot) order, rebuilt without holes
+    occ_ck = occ.permute(0, 2, 1).reshape(-1)                 # cell·k + slot
+    s = torch.nonzero(occ_ck)[:, 0]
+    c = (s // k).to(torch.int32)
+    pos_ck = ts.pos_t.permute(0, 3, 2, 1).reshape(-1, 4)[s].contiguous()
+    cell_start = cell_starts_at(c, torch.arange(d ** 3 + 1, device=dev,
+                                                dtype=torch.int32))
+    tiles, mom = tile_scatter(pos_ck, cell_start, ts.lo, ts.cell, d=d, k=k)
+    fresh = tile_sweep_plane(tiles, counts=mom[10], **kw)
+    r_new = sorted_ranks(c).long()
+    cl = c.long()
+    x, yz = cl // (d * d), cl % (d * d)
+    got = raw[x, :, s % k, yz]
+    want = fresh[x, :, r_new, yz]
+    assert _near(got, want, 2e-5)

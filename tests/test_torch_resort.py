@@ -241,7 +241,43 @@ def test_facade_steps_as_a_direct_call(knobs, direct):
     _equal(ps.state, want)
 
 
-def test_resort_repair_still_raises():
-    with pytest.raises(NotImplementedError, match="resort_repair"):
-        ParticleSystem().initialize(_hash_config(resort_repair=True),
-                                    device="cpu")
+def test_resort_repair_on_the_cpu_matches_the_jax_facade():
+    """``resort_repair`` is accepted. Table-resident stepping runs on the
+    card only (``make_table_step_params`` is None on the CPU), so on the
+    CPU the facade keeps the JAX facade's off-accelerator choice, a sort
+    every step, and gives the JAX facade's state from one numpy state
+    (run_steps(3); positions rtol 2e-4 / atol 1e-5, velocities rtol 2e-3 /
+    atol 1e-4, the facade tests' tolerance)."""
+    import nbody_tpu as jnb
+    from nbody_tpu.state import SimulationState as JSnapshot
+    from nbody_tpu_torch.state import SimulationState, config_from_reference
+
+    cfg = _hash_config(resort_repair=True)
+    rng = np.random.default_rng(12)
+    pos = rng.uniform(-6.0, 6.0, (N, 3)).astype(np.float32)
+    vel = rng.normal(0.0, 0.5, (N, 3)).astype(np.float32)
+    mass = rng.uniform(0.5, 1.5, N).astype(np.float32)
+    snap = dict(pos=pos, vel=vel, mass=mass, dt=cfg.dt, G=cfg.G,
+                softening=cfg.softening)
+    ps = ParticleSystem()
+    ps.initialize(cfg, device="cpu")
+    ps.set_state(SimulationState(force_method=cfg.force_method, **snap))
+    assert ps._table_params is None
+    assert ps._multi_step(3).__qualname__.startswith(
+        "make_sorted_multi_step.")
+    js = jnb.ParticleSystem()
+    jcfg = jnb.SimulationConfig(
+        particle_count=N, force_method=jnb.ForceMethod.SPATIAL_HASH,
+        spatial_hash_cell_size=2.0, spatial_hash_cutoff=2.0,
+        hash_engine="tiles", hash_max_grid_dim=8, hash_tile_k=8, dt=1e-3,
+        seed=11, resort_repair=True)
+    assert config_from_reference(jcfg) == cfg
+    js.initialize(jcfg)
+    js.set_state(JSnapshot(force_method=jnb.ForceMethod.SPATIAL_HASH,
+                           **snap))
+    for s in (ps, js):
+        s.run_steps(3)
+    np.testing.assert_allclose(ps.positions(), js.positions(), rtol=2e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(ps.velocities(), js.velocities(), rtol=2e-3,
+                               atol=1e-4)
