@@ -14,8 +14,11 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
      (direct forces) at N = 16384, on the 100K direct path's own scene and
      at the Barnes-Hut accuracy gates' 4096 sampled targets against all 1M
      rows, two calls bit-equal, with its device time by graph replay; K2
-     and K3 at the Barnes-Hut tiles main path (the 1M spherical scene,
-     radius 10, seed 42, θ = 0.5 at d = 64, k = 16, ws = 1); K4 at the
+     (every slot, placed and filler, and the counts bit-equal, moments
+     within 1e-5·|x| + 1e-6·max|channel|, two calls bit-equal, device
+     time by graph replay) and K3 at the Barnes-Hut tiles main path (the
+     1M spherical scene, radius 10, seed 42, θ = 0.5 at d = 64, k = 16,
+     ws = 1); K4 at the
      three 1M shapes that run it (BH tiles with the 19-channel far plane,
      the monopole path at ws = 2 with none, the sparse hash with cutoff² 4
      at d = 56, k = 16; ``k4_inputs``), two calls bit-equal, with its
@@ -57,7 +60,9 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
      expected and that no plain twin ran. These go through the facade
      (``path_configs``): ``initialize``, ``run_steps`` warm, ``reset()``,
      ``run_steps`` timed:
-       a. 1M Barnes-Hut, tiles engine (bh_max_level 6): 30 steps;
+       a. 1M Barnes-Hut, tiles engine (bh_max_level 6): 30 steps, then
+          K2's main form held to its twin at the state they reach (the
+          cold collapse: long runs in the centre cells);
        b. 1M dense spatial hash (the spherical scene, cell 1.0, cutoff 2.0,
           "auto" → window engine): 30 steps;
        c. 1M sparse spatial hash (uniform cube of side 100, cell 2.0,
@@ -309,7 +314,10 @@ def add_shape(res: dict, name: str, label: str, rec: dict) -> None:
 
 
 def k2_check(res, label, grid, lo, cell, *, d, k):
-    """K2 against its plain twin → (tiles, moments, step-0 overflow)."""
+    """K2 against its plain twin → (tiles, moments, overflow): every slot
+    (placed and filler) and the counts bit-equal, moments within
+    1e-5·|x| + 1e-6·max|channel|, two calls bit-equal; kernel, plain and
+    device (graph replay) times."""
     import torch
 
     from nbody_tpu_torch.ops.scatter import tile_scatter, tile_scatter_plain
@@ -325,33 +333,50 @@ def k2_check(res, label, grid, lo, cell, *, d, k):
     live = live[:, None].expand(d, 4, k, d * d)
     check(torch.equal(tk[live], tp[live]),
           f"K2 {label}: placed slots not bit-equal")
-    cube = float(cell) * d
     fill_err = float((tk[~live] - tp[~live]).abs().max())
-    check(fill_err <= 1e-6 * cube,
-          f"K2 {label}: filler centres off by {fill_err}")
+    check(fill_err == 0.0, f"K2 {label}: filler centres off by {fill_err}")
     mom_err = (mk - mp).abs()
     mom_tol = 1e-5 * mp.abs() + 1e-6 * mp.abs().amax(dim=1, keepdim=True)
     check(bool((mom_err <= mom_tol).all()),
           f"K2 {label}: moments differ by {float(mom_err.max())}")
+    again = tile_scatter(*args, d=d, k=k)
+    check(torch.equal(again[0], tk) and torch.equal(again[1], mk),
+          f"K2 {label}: two calls differ")
     overflow = int(torch.clamp(counts - k, min=0).sum())
     nc = d ** 3
     rec = dict(
         max_abs_err=max(fill_err, float(mom_err.max())),
         ms=time_ms(lambda: tile_scatter(*args, d=d, k=k)),
+        device_ms=graph_ms(lambda: tile_scatter(*args, d=d, k=k)),
         plain_ms=time_ms(lambda: tile_scatter_plain(*args, d=d, k=k)),
         # psort in, cell_start in, tiles + moments out; ~20 ops per row
         **bound(20 * n, 16 * n + 4 * (nc + 1) + 16 * k * nc + 44 * nc),
         library_ms=None,
     )
     add_shape(res, "tile_scatter", label, rec)
-    print(f"K2 tile_scatter {label} (d={d}, k={k}): placed slots bit-equal, "
-          f"filler max|diff| {fill_err:.3e} (tol 1e-6*cube = "
-          f"{1e-6 * cube:.3e}), moments max|diff| {float(mom_err.max()):.3e}"
-          f" (tol 1e-5*|x| + 1e-6*max|ch|), counts equal; step-0 overflow "
-          f"{overflow} rows; kernel {rec['ms']:.4f} ms, plain "
-          f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-          f"({rec['bound_by']})")
+    print(f"K2 tile_scatter {label} (d={d}, k={k}): slots (placed and "
+          f"filler) bit-equal, moments max|diff| {float(mom_err.max()):.3e}"
+          f" (tol 1e-5*|x| + 1e-6*max|ch|), counts equal, two calls "
+          f"bit-equal; overflow {overflow} rows, longest cell "
+          f"{int(counts.max())} rows; kernel {rec['ms']:.4f} ms, device "
+          f"{rec['device_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
     return tk, mk, overflow
+
+
+def collapse_check(res, state, cfg, steps):
+    """K2's main form (``k2_check``) at the BH tiles path's state after its
+    timed steps: the cold collapse, whose centre cells hold long runs (up
+    to ~10² rows, ~1.3·10⁵ rows past k)."""
+    from nbody_tpu_torch.ops.barnes_hut import bh_engine_params, bin_particles
+    from nbody_tpu_torch.ops.sorted_window import build_sorted_grid
+
+    p = bh_engine_params(cfg)
+    d = 1 << p["levels"]
+    lo, cell, coords = bin_particles(state.pos, p["levels"])
+    grid = build_sorted_grid(state.pos, state.mass, coords, d)
+    k2_check(res, f"1M BH tiles after {steps} steps", grid, lo, cell, d=d,
+             k=p["near_k"])
 
 
 def mover_set(tiles, cov, ext, counts, d, k, m, gen):
@@ -402,7 +427,8 @@ def k2_table_checks(res, label, grid, lo, cell, tp):
     its row bookkeeping and high-water marks; then ``table_drift`` with the
     audit (velocities 20·N(0, 1), so a few percent of rows change cell)
     and ``table_kick`` on that table. Coverage and extra planes bit-equal,
-    placed slots bit-equal, filler centres within 1e-6·cube; moments as
+    placed slots bit-equal, filler centres bit-equal in the rank form and
+    within 1e-6·cube after the moves; moments and two calls as
     ``k2_check``; the drift (tables, mover ids, stale count) and the kick
     bit for bit."""
     import torch
@@ -444,9 +470,14 @@ def k2_table_checks(res, label, grid, lo, cell, tp):
     check(bool((mom_err <= mom_tol).all()),
           f"{what}: moments differ by {float(mom_err.max())}")
     fill = slots(tk, tp_, ck, what)
+    check(fill == 0.0, f"{what}: filler centres off by {fill}")
+    check(all(torch.equal(a, b) for a, b in
+              zip(tile_scatter(*args, **kw), (tk, mk, ck, xk))),
+          f"{what}: two calls differ")
     rec = dict(
         max_abs_err=max(fill, float(mom_err.max())),
         ms=time_ms(lambda: tile_scatter(*args, **kw)),
+        device_ms=graph_ms(lambda: tile_scatter(*args, **kw)),
         plain_ms=time_ms(lambda: tile_scatter_plain(*args, **kw)),
         # psort + extra + cell_start in; tiles, cov, extra planes and
         # moments out; ~20 ops per row
@@ -455,11 +486,12 @@ def k2_table_checks(res, label, grid, lo, cell, tp):
         library_ms=None,
     )
     add_shape(res, "tile_scatter", f"{label}, coverage + 3 extra", rec)
-    print(f"{what} (d={d}, k={k}): placed slots, coverage and extra planes "
-          f"bit-equal to plain, filler max|diff| {fill:.3e}, moments "
-          f"max|diff| {float(mom_err.max()):.3e}; kernel {rec['ms']:.4f} "
-          f"ms, plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} "
-          f"ms ({rec['bound_by']})")
+    print(f"{what} (d={d}, k={k}): slots (placed and filler), coverage "
+          f"and extra planes bit-equal to plain, moments max|diff| "
+          f"{float(mom_err.max()):.3e}, two calls bit-equal; kernel "
+          f"{rec['ms']:.4f} ms, device {rec['device_ms']:.4f} ms, plain "
+          f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']})")
 
     # the dest form: REPAIR_CAP occupied slots moved one cell up in x
     m = REPAIR_CAP
@@ -1851,8 +1883,9 @@ def main() -> None:
         return out, phases
 
     levels = bh_engine_params(bh_cfg)["levels"]
-    drive("1M BH tiles", 30, tile_scatter=30, far_taps=30 * levels,
-          tile_sweep_plane=30)
+    bh_run = drive("1M BH tiles", 30, tile_scatter=30, far_taps=30 * levels,
+                   tile_sweep_plane=30)
+    collapse_check(res, bh_run[2].state, bh_cfg, 30)
     drive("1M dense hash", 30, window_sweep=30)
     drive("1M sparse hash", 30, tile_scatter=30, tile_sweep_plane=30)
     check(bh_engine_params(bhw_cfg)["near_engine"] == "window",

@@ -48,24 +48,66 @@
 // What bounds it on the H100: device memory. The rank form reads psort
 // once (16 B a row, plus 12 B of extra) and writes (4 [+ 1 + 3])*k*4 B of
 // slots plus 44 B of moments per cell: at d = 64, k = 16, 1M rows,
-// ~16 + 67 + 12 MB in the main form, tens of microseconds at 3.35 TB/s;
-// cov and the 3 extra planes add 67 MB. The dest form moves ~100 B a
-// mover (its slot read, its new slot and the vacated one written, the
-// bookkeeping, and the k cov values of two cells), so a repair step costs
-// what its movers cost, not the table's size; at a few hundred movers it
-// is two launches' latency. Design: in the rank
-// form a thread owns one cell, so the run is reduced in a fixed order with
-// no atomics (deterministic), and neighbouring threads own neighbouring z
-// cells, so every slot store of a warp is one coalesced row of the
-// plane-major layout. Each form is its own template instantiation
-// (coverage, E), so the main path's kernel keeps its code. The dest form
-// is a thread per mover (distinct slots: no races), then a thread per
-// touched cell; the whole move is one call, because on the card a repair
-// step is bound by the host's launches, not by its bytes.
+// ~16 + 67 + 12 MB in the main form, ~29 us at 3.35 TB/s; the table
+// form's cov and 3 extra planes add 67 MB. The slot stores are 70 % of
+// the bytes, so the design makes every one of them a full coalesced line.
+//
+// Rank form design: one block of kThreads per (x, y) z-row of d cells.
+// The z-row's cells are consecutive cell ids, so its rows are one
+// contiguous range of psort, from cell_start[c0] to cell_start[c0 + d],
+// and the block reads nothing else but those d + 1 entries of cell_start.
+//   * Staging: the range is copied to shared memory kChunkRows rows at a
+//     time with 16-byte cp.async (4-byte ones for the 12-byte extra rows).
+//     At the 1M shapes every z-row fits one chunk (the longest: 520 rows
+//     at step 0, 1060 after the Barnes-Hut collapse); a longer one loops
+//     over chunks, so a cell of any length stays exact.
+//   * Slot stores: a thread per slot (r, z), z fastest, writes its slot's
+//     4 channels (and cov, ext) exactly once: the staged row of rank r
+//     when r < count(z), else the filler. Each store instruction of a warp
+//     covers consecutive z of one (channel, r) plane row, the d floats at
+//     tiles[x, ch, r, y*d : y*d + d]: one coalesced pass, no second
+//     filler loop. A z-row longer than a chunk stores each placed slot
+//     while its row is staged and the filler with the first chunk.
+//   * Moments, summed from shared memory in a fixed order with no float
+//     atomics, so two calls are bit-equal. A run of at most kSlice rows
+//     (all but a few cells even in the collapse) is summed by one thread
+//     serially in row order, the arithmetic of the one-thread-per-cell
+//     kernel this replaces. A longer run is cut by the fixed kSlice-row
+//     slices of the z-row's row range: a warp sums each slice a row a
+//     lane, then a fixed __shfl_xor tree; the cell's slice sums are added
+//     in slice order, and a run that spans chunks carries its sum from one
+//     chunk to the next. Since a long run has more rows than a slice,
+//     a slice meets at most two long runs (the one holding its first row
+//     and the one holding its last), so a slice's sums have two fixed
+//     places. The count is cell_start[c+1] - cell_start[c] as a float.
+// Each form is its own template instantiation (coverage, E).
+//
+// Dest form design: a thread per mover (distinct slots: no races), then a
+// thread per touched cell reading the cell's k entries of slot_row, one
+// 64-byte line at k = 16: occupied (cov 1) exactly where slot_row >= 0,
+// which the table keeps after every build and move. The whole move is one
+// call, because on the card a repair step is bound by the host's
+// launches, not by its bytes (~100 B a mover).
 
 #include <cuda_runtime.h>
 
 namespace {
+
+constexpr int kThreads = 256;     // rank form: a block per z-row, 8 warps
+constexpr int kChunkRows = 1024;  // rows staged at a time (16 KB float4)
+constexpr int kSlice = 32;        // rows a warp sums at once; longer runs
+                                  // are summed by slices
+constexpr int kSlices = kChunkRows / kSlice;
+constexpr int kMoveThreads = 128;
+constexpr int kMaxSmem = 200 * 1024;
+
+// Dynamic shared memory of the rank form: the staged rows, their extra
+// channels, the per-cell moment sums (10, d), two slice sums a slice, and
+// the z-row's d + 1 cell starts.
+__host__ __device__ constexpr int scatter_smem(int d, int e) {
+  return kChunkRows * 16 + kChunkRows * e * 4 + 10 * d * 4 +
+         kSlices * 20 * 4 + (d + 1) * 4;
+}
 
 // Centres rounded as the plain twin rounds them (no FMA contraction), so
 // filler slots and moment offsets match it bit for bit.
@@ -73,89 +115,241 @@ __device__ __forceinline__ float centre(float lo, int c, float cw) {
   return __fadd_rn(lo, __fmul_rn(static_cast<float>(c) + 0.5f, cw));
 }
 
-template <bool kCov, int kE>
-__global__ void tile_scatter_kernel(const float4* __restrict__ psort,
-                                    const float* __restrict__ extra,
-                                    const int* __restrict__ cell_start,
-                                    const float* __restrict__ lo,
-                                    const float* __restrict__ cellw,
-                                    float* __restrict__ tiles,
-                                    float* __restrict__ moments,
-                                    float* __restrict__ cov,
-                                    float* __restrict__ ext, int d, int k) {
-  const int d2 = d * d;
-  const int nc = d2 * d;
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= nc) return;
-  const int x = c / d2;
-  const int yz = c - x * d2;
-  const int y = yz / d;
-  const int z = yz - y * d;
-  const float cw = cellw[0];
-  const float cx = centre(lo[0], x, cw);
-  const float cy = centre(lo[1], y, cw);
-  const float cz = centre(lo[2], z, cw);
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+      static_cast<unsigned>(__cvta_generic_to_shared(dst))), "l"(src));
+}
 
-  const size_t chs = static_cast<size_t>(k) * d2;  // channel stride
-  float* slot = tiles + static_cast<size_t>(x) * 4 * chs + yz;
-  float* cslot = nullptr;
-  float* eslot = nullptr;
-  if constexpr (kCov) cslot = cov + static_cast<size_t>(x) * chs + yz;
-  if constexpr (kE > 0) eslot = ext + static_cast<size_t>(x) * kE * chs + yz;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+      static_cast<unsigned>(__cvta_generic_to_shared(dst))), "l"(src));
+}
 
-  const int s0 = cell_start[c];
-  const int s1 = cell_start[c + 1];
+// Row p's ten moment terms about the centre (cx, cy, cz), added to mom.
+__device__ __forceinline__ void add_row(float* mom, float4 p, float cx,
+                                        float cy, float cz) {
+  const float xr = p.x - cx;
+  const float yr = p.y - cy;
+  const float zr = p.z - cz;
+  const float m = p.w;
+  mom[0] += m;
+  mom[1] += m * xr;
+  mom[2] += m * yr;
+  mom[3] += m * zr;
+  mom[4] += m * (xr * xr);
+  mom[5] += m * (yr * yr);
+  mom[6] += m * (zr * zr);
+  mom[7] += m * (xr * yr);
+  mom[8] += m * (xr * zr);
+  mom[9] += m * (yr * zr);
+}
+
+// The z-row cell holding row i: the last z with cs[z] <= i.
+__device__ __forceinline__ int cell_of(const int* cs, int d, int i) {
+  int lo = 0, hi = d - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (cs[mid] <= i) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  return lo;
+}
+
+// A warp's sum of the staged rows [a, b) (b - a <= 32, a row a lane) by a
+// fixed xor tree; lane 0 stores the ten sums at out. Every lane calls it.
+__device__ __forceinline__ void slice_sum(const float4* rows, int clo, int a,
+                                          int b, float cx, float cy, float cz,
+                                          int lane, float* out) {
   float mom[10];
 #pragma unroll
   for (int i = 0; i < 10; ++i) mom[i] = 0.f;
-  for (int i = s0; i < s1; ++i) {
-    const float4 p = psort[i];
-    const float xr = p.x - cx;
-    const float yr = p.y - cy;
-    const float zr = p.z - cz;
-    const float m = p.w;
-    mom[0] += m;
-    mom[1] += m * xr;
-    mom[2] += m * yr;
-    mom[3] += m * zr;
-    mom[4] += m * (xr * xr);
-    mom[5] += m * (yr * yr);
-    mom[6] += m * (zr * zr);
-    mom[7] += m * (xr * yr);
-    mom[8] += m * (xr * zr);
-    mom[9] += m * (yr * zr);
-    const int r = i - s0;
-    if (r < k) {
-      const size_t off = static_cast<size_t>(r) * d2;
-      float* s = slot + off;
-      s[0] = p.x;
-      s[chs] = p.y;
-      s[2 * chs] = p.z;
-      s[3 * chs] = p.w;
-      if constexpr (kCov) cslot[off] = 1.f;
-      if constexpr (kE > 0) {
-        const float* e = extra + static_cast<size_t>(i) * kE;
+  if (a + lane < b) add_row(mom, rows[a + lane - clo], cx, cy, cz);
 #pragma unroll
-        for (int j = 0; j < kE; ++j) eslot[j * chs + off] = e[j];
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int i = 0; i < 10; ++i) {
+      mom[i] += __shfl_xor_sync(0xffffffffu, mom[i], off);
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < 10; ++i) out[i] = mom[i];
+  }
+}
+
+template <bool kCov, int kE>
+__global__ void __launch_bounds__(kThreads)
+    tile_scatter_kernel(const float4* __restrict__ psort,
+                        const float* __restrict__ extra,
+                        const int* __restrict__ cell_start,
+                        const float* __restrict__ lo,
+                        const float* __restrict__ cellw,
+                        float* __restrict__ tiles, float* __restrict__ moments,
+                        float* __restrict__ cov, float* __restrict__ ext,
+                        int d, int k) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float4* rows_s = reinterpret_cast<float4*>(smem);
+  float* ext_s = reinterpret_cast<float*>(rows_s + kChunkRows);
+  float* acc_s = ext_s + kChunkRows * kE;  // (10, d)
+  float* part_s = acc_s + 10 * d;          // (kSlices, 2, 10)
+  int* cs_s = reinterpret_cast<int*>(part_s + kSlices * 20);
+
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int d2 = d * d;
+  const int nc = d2 * d;
+  const int x = blockIdx.x / d;
+  const int y = blockIdx.x - x * d;
+  const int c0 = blockIdx.x * d;  // x*d^2 + y*d: the z-row's first cell
+  const float cw = cellw[0];
+  const float lz = lo[2];
+  const float cx = centre(lo[0], x, cw);
+  const float cy = centre(lo[1], y, cw);
+
+  const int r0 = cell_start[c0];
+  const int r1 = cell_start[c0 + d];
+  bool has_long = false;
+  for (int z = t; z < d; z += kThreads) {
+    const int a = cell_start[c0 + z];
+    cs_s[z] = a;
+    has_long |= cell_start[c0 + z + 1] - a > kSlice;
+#pragma unroll
+    for (int i = 0; i < 10; ++i) acc_s[i * d + z] = 0.f;
+  }
+  if (t == 0) cs_s[d] = r1;
+
+  // the z-row's slab: slot (r, z) of channel ch at ch*chs + r*d^2 + z
+  const size_t chs = static_cast<size_t>(k) * d2;
+  const size_t row0 = static_cast<size_t>(y) * d;
+  float* slot = tiles + static_cast<size_t>(x) * 4 * chs + row0;
+  float* cslot = nullptr;
+  float* eslot = nullptr;
+  if constexpr (kCov) cslot = cov + static_cast<size_t>(x) * chs + row0;
+  if constexpr (kE > 0) {
+    eslot = ext + static_cast<size_t>(x) * kE * chs + row0;
+  }
+
+  const int nrows = r1 - r0;
+  const int nchunks = nrows > 0 ? (nrows + kChunkRows - 1) / kChunkRows : 1;
+  for (int j = 0; j < nchunks; ++j) {
+    if (j > 0) __syncthreads();  // the previous chunk is read
+    const int clo = r0 + j * kChunkRows;
+    const int chi = min(clo + kChunkRows, r1);
+    const int len = chi - clo;
+    for (int i = t; i < len; i += kThreads) {
+      cp_async16(rows_s + i, psort + clo + i);
+    }
+    if constexpr (kE > 0) {
+      const float* src = extra + static_cast<size_t>(clo) * kE;
+      for (int i = t; i < len * kE; i += kThreads) {
+        cp_async4(ext_s + i, src + i);
       }
     }
-  }
-  for (int r = min(s1 - s0, k); r < k; ++r) {
-    const size_t off = static_cast<size_t>(r) * d2;
-    float* s = slot + off;
-    s[0] = cx;
-    s[chs] = cy;
-    s[2 * chs] = cz;
-    s[3 * chs] = 0.f;
-    if constexpr (kCov) cslot[off] = 0.f;
-    if constexpr (kE > 0) {
+    asm volatile("cp.async.wait_all;\n" ::);
+    const bool any_long = __syncthreads_or(has_long) != 0;
+
+    // slot stores: placed rows staged in this chunk, the filler once
+    for (int i = t; i < d * k; i += kThreads) {
+      const int r = i / d;
+      const int z = i - r * d;
+      const int s = cs_s[z];
+      const int g = s + r - clo;  // staged index of rank r's row
+      const bool placed = r < cs_s[z + 1] - s;
+      float4 v;
+      float e[kE > 0 ? kE : 1];
+      bool store;
+      if (placed) {
+        store = g >= 0 && g < len;
+        if (store) {
+          v = rows_s[g];
 #pragma unroll
-      for (int j = 0; j < kE; ++j) eslot[j * chs + off] = 0.f;
+          for (int c = 0; c < kE; ++c) e[c] = ext_s[g * kE + c];
+        }
+      } else {
+        store = j == 0;
+        v = make_float4(cx, cy, centre(lz, z, cw), 0.f);
+#pragma unroll
+        for (int c = 0; c < kE; ++c) e[c] = 0.f;
+      }
+      if (store) {
+        const size_t off = static_cast<size_t>(r) * d2 + z;
+        slot[off] = v.x;
+        slot[chs + off] = v.y;
+        slot[2 * chs + off] = v.z;
+        slot[3 * chs + off] = v.w;
+        if constexpr (kCov) cslot[off] = placed ? 1.f : 0.f;
+#pragma unroll
+        for (int c = 0; c < kE; ++c) eslot[c * chs + off] = e[c];
+      }
+    }
+
+    // moments of the short runs: a thread per cell, in row order
+    for (int z = t; z < d; z += kThreads) {
+      const int s = cs_s[z];
+      const int e = cs_s[z + 1];
+      const int a = max(s, clo);
+      const int b = min(e, chi);
+      if (e - s > kSlice || a >= b) continue;
+      const float cz = centre(lz, z, cw);
+      float mom[10];
+#pragma unroll
+      for (int i = 0; i < 10; ++i) mom[i] = acc_s[i * d + z];
+      for (int i = a; i < b; ++i) add_row(mom, rows_s[i - clo], cx, cy, cz);
+#pragma unroll
+      for (int i = 0; i < 10; ++i) acc_s[i * d + z] = mom[i];
+    }
+    if (!any_long) continue;
+
+    // the long runs: a warp per slice, then each cell's slices in order
+    const int nsl = (len + kSlice - 1) / kSlice;
+    for (int sl = t >> 5; sl < nsl; sl += kThreads / 32) {
+      const int a = clo + sl * kSlice;
+      const int b = min(a + kSlice, chi);
+      const int za = cell_of(cs_s, d, a);
+      const int zb = cell_of(cs_s, d, b - 1);
+      if (cs_s[za + 1] - cs_s[za] > kSlice) {
+        slice_sum(rows_s, clo, a, min(b, cs_s[za + 1]), cx, cy,
+                  centre(lz, za, cw), lane, part_s + sl * 20);
+      }
+      if (zb != za && cs_s[zb + 1] - cs_s[zb] > kSlice) {
+        slice_sum(rows_s, clo, cs_s[zb], b, cx, cy, centre(lz, zb, cw), lane,
+                  part_s + sl * 20 + 10);
+      }
+    }
+    __syncthreads();
+    for (int z = t; z < d; z += kThreads) {
+      const int s = cs_s[z];
+      const int e = cs_s[z + 1];
+      const int a = max(s, clo);
+      const int b = min(e, chi);
+      if (e - s <= kSlice || a >= b) continue;
+      float mom[10];
+#pragma unroll
+      for (int i = 0; i < 10; ++i) mom[i] = acc_s[i * d + z];
+      for (int sl = (a - clo) / kSlice; sl <= (b - 1 - clo) / kSlice; ++sl) {
+        // the run holds the slice's first row, or starts inside it
+        const float* p =
+            part_s + sl * 20 + (s <= clo + sl * kSlice ? 0 : 10);
+#pragma unroll
+        for (int i = 0; i < 10; ++i) mom[i] += p[i];
+      }
+#pragma unroll
+      for (int i = 0; i < 10; ++i) acc_s[i * d + z] = mom[i];
     }
   }
+
+  // each cell's sums were last written by this same thread
+  for (int z = t; z < d; z += kThreads) {
 #pragma unroll
-  for (int i = 0; i < 10; ++i) moments[static_cast<size_t>(i) * nc + c] = mom[i];
-  moments[static_cast<size_t>(10) * nc + c] = static_cast<float>(s1 - s0);
+    for (int i = 0; i < 10; ++i) {
+      moments[static_cast<size_t>(i) * nc + c0 + z] = acc_s[i * d + z];
+    }
+    moments[static_cast<size_t>(10) * nc + c0 + z] =
+        static_cast<float>(cs_s[z + 1] - cs_s[z]);
+  }
 }
 
 // Dest form, in place on one table: mover j's row moves from slot src[j]
@@ -226,11 +420,12 @@ __global__ void tile_move_kernel(const int* __restrict__ src,
 }
 
 // After the moves: each moved row's old and new cell get their high-water
-// mark (one past the highest occupied slot) recomputed from cov, as K4's
-// live count. Threads that share a cell write the same value.
+// mark (one past the highest occupied slot), K4's live count, from the
+// cell's k contiguous slot_row entries (occupied where >= 0, as cov is
+// 1). Threads that share a cell write the same value.
 __global__ void cell_hwm_kernel(const int* __restrict__ src,
                                 const int* __restrict__ dest, int m,
-                                const float* __restrict__ cov,
+                                const int* __restrict__ slot_row,
                                 float* __restrict__ live, int d, int k) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= 2 * m) return;
@@ -240,36 +435,33 @@ __global__ void cell_hwm_kernel(const int* __restrict__ src,
   const int t = dest[j];
   const int f = src[j];
   if (t < 0 || t >= nslots || f < 0 || f >= nslots) return;
-  int x, yz;
-  if (i < m) {
-    x = f / (d2 * k);
-    yz = f % d2;
-  } else {
-    const int c = t / k;
-    x = c / d2;
-    yz = c - x * d2;
-  }
-  const size_t chs = static_cast<size_t>(k) * d2;
-  const float* cs = cov + static_cast<size_t>(x) * chs + yz;
+  const int c = i < m ? (f / (d2 * k)) * d2 + f % d2 : t / k;
+  const int* row = slot_row + static_cast<size_t>(c) * k;
   int h = 0;
   for (int r = 0; r < k; ++r) {
-    if (cs[static_cast<size_t>(r) * d2] > 0.f) h = r + 1;
+    if (row[r] >= 0) h = r + 1;
   }
-  live[x * d2 + yz] = static_cast<float>(h);
+  live[c] = static_cast<float>(h);
 }
 
-constexpr int kThreads = 128;
-
 template <bool kCov, int kE>
-void launch_scatter(const float* psort, const float* extra,
-                    const int* cell_start, const float* lo, const float* cellw,
-                    float* tiles, float* moments, float* cov, float* ext,
-                    int d, int k, cudaStream_t stream) {
-  const int nc = d * d * d;
-  tile_scatter_kernel<kCov, kE>
-      <<<(nc + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-          reinterpret_cast<const float4*>(psort), extra, cell_start, lo,
-          cellw, tiles, moments, cov, ext, d, k);
+int launch_scatter(const float* psort, const float* extra,
+                   const int* cell_start, const float* lo, const float* cellw,
+                   float* tiles, float* moments, float* cov, float* ext, int d,
+                   int k, cudaStream_t stream) {
+  if (d < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = scatter_smem(d, kE);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = tile_scatter_kernel<kCov, kE>;
+  if (smem > 48 * 1024) {  // opt in above 48 KB: d > 400 (table), > 683
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<d * d, kThreads, smem, stream>>>(
+      reinterpret_cast<const float4*>(psort), extra, cell_start, lo, cellw,
+      tiles, moments, cov, ext, d, k);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -278,10 +470,9 @@ extern "C" int nbt_tile_scatter(const float* psort, const int* cell_start,
                                 const float* lo, const float* cellw,
                                 float* tiles, float* moments, int d, int k,
                                 void* stream) {
-  launch_scatter<false, 0>(psort, nullptr, cell_start, lo, cellw, tiles,
-                           moments, nullptr, nullptr, d, k,
-                           static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  return launch_scatter<false, 0>(psort, nullptr, cell_start, lo, cellw,
+                                  tiles, moments, nullptr, nullptr, d, k,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 // The rank form with coverage and the 3 velocity channels (extra (N, 3)
@@ -291,9 +482,20 @@ extern "C" int nbt_tile_scatter_ext(const float* psort, const float* extra,
                                     const float* cellw, float* tiles,
                                     float* moments, float* cov, float* ext,
                                     int d, int k, void* stream) {
-  launch_scatter<true, 3>(psort, extra, cell_start, lo, cellw, tiles, moments,
-                          cov, ext, d, k, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  return launch_scatter<true, 3>(psort, extra, cell_start, lo, cellw, tiles,
+                                 moments, cov, ext, d, k,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+// The rank form's plan: rows staged a chunk (field 0), and the longest run
+// a thread sums alone, also the rows of a warp's slice (1); -1 for another
+// field.
+extern "C" int nbt_tile_scatter_plan(int field) {
+  switch (field) {
+    case 0: return kChunkRows;
+    case 1: return kSlice;
+    default: return -1;
+  }
 }
 
 // The dest form, in place: src (M,) plane-order slot indices and dest (M,)
@@ -306,10 +508,12 @@ extern "C" int nbt_tile_place(const int* src, const int* dest, int m,
                               int k, void* stream) {
   if (m > 0) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    tile_move_kernel<<<(m + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-        src, dest, m, lo, cellw, tiles, cov, ext, slot_row, idx_ext, d, k);
-    cell_hwm_kernel<<<(2 * m + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-        src, dest, m, cov, live, d, k);
+    tile_move_kernel<<<(m + kMoveThreads - 1) / kMoveThreads, kMoveThreads,
+                       0, s>>>(src, dest, m, lo, cellw, tiles, cov, ext,
+                               slot_row, idx_ext, d, k);
+    cell_hwm_kernel<<<(2 * m + kMoveThreads - 1) / kMoveThreads,
+                      kMoveThreads, 0, s>>>(src, dest, m, slot_row, live, d,
+                                            k);
   }
   return static_cast<int>(cudaGetLastError());
 }

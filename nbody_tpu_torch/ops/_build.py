@@ -89,6 +89,9 @@ QUERIES = {
     # rows a staged chunk (1), halo columns a group (2), dynamic shared
     # memory bytes (3); -1 for another field or a bad shape
     "nbt_tile_near_plan": ((_I, _I, _I, _I), _I),
+    # field -> nbt_tile_scatter's plan: rows a staged chunk (field 0), the
+    # longest run a thread sums alone (1); -1 for another field
+    "nbt_tile_scatter_plan": ((_I,), _I),
     # C, n, num_dest -> floats of nbt_segment_sum's buffer
     "nbt_segment_sum_buffer_floats": ((_I, _I, _I), ctypes.c_longlong),
     # -> rows per chunk of nbt_segment_sum

@@ -119,8 +119,10 @@ def _table_form(with_coverage: bool, extra, n: int) -> bool:
 
 def tile_scatter(psort, cell_start, lo, cell, *, d: int, k: int,
                  with_coverage: bool = False, extra=None):
-    """Kernel K2's rank form (``csrc/scatter.cu``, one thread per cell):
-    placement, moments and counts in one pass with no atomics →
+    """Kernel K2's rank form (``csrc/scatter.cu``: a block per z-row of d
+    cells, its rows staged in shared memory, each slot stored once in
+    coalesced plane rows, the moments summed in a fixed order with no
+    atomics; ``k2_plan``): placement, moments and counts in one pass →
     ``(tiles, moments)``. The table form, ``with_coverage=True`` and
     ``extra`` (N, 3), appends cov (d, 1, k, d²), 1.0 where a row was placed,
     and the extra rows placed at their slots (d, 3, k, d²), 0.0 in empty
@@ -172,6 +174,17 @@ def tile_scatter(psort, cell_start, lo, cell, *, d: int, k: int,
 tile_scatter.launches = 0
 
 
+def k2_plan() -> dict:
+    """The rank form's plan, from the kernel library (``csrc/scatter.cu``
+    defines it; needs the CUDA build): the rows staged at a time
+    (``chunk_rows``) and the longest run one thread sums alone in row
+    order, past which a run is summed by warp slices of as many rows
+    (``long_run``)."""
+    lib = _build.library()
+    return {"chunk_rows": lib.nbt_tile_scatter_plan(0),
+            "long_run": lib.nbt_tile_scatter_plan(1)}
+
+
 def _plane_index(f, d: int, k: int):
     """Flat (d, k, d²) slot indices (x·k + r)·d² + yz → (x, r, yz)."""
     return f // (k * d * d), (f // (d * d)) % k, f % (d * d)
@@ -213,15 +226,18 @@ tile_place_plain.calls = 0
 def tile_place(tiles, cov, ext, live, slot_row, idx_ext, src, dest, lo,
                cell, *, d: int, k: int) -> None:
     """Kernel K2's dest form (``csrc/scatter.cu``: a thread per mover, then
-    a thread per touched cell), in place on one table: mover j's row — its
-    4 channels of ``tiles`` (d, 4, k, d²) and 3 of ``ext`` (d, 3, k, d²) —
-    moves from slot ``src[j]``, a flat index (x·k + r)·d² + yz of the
-    (d, k, d²) slot grid (the audit's order), to slot id ``dest[j]`` =
-    cell·k + slot, with ``cov`` (d, 1, k, d²) 1 there; its old slot gets
-    the filler (its cell centre, mass 0, cov 0, extra 0); the bookkeeping
+    a thread per touched cell reading its k ``slot_row`` entries), in place
+    on one table: mover j's row — its 4 channels of ``tiles`` (d, 4, k, d²)
+    and 3 of ``ext`` (d, 3, k, d²) — moves from slot ``src[j]``, a flat
+    index (x·k + r)·d² + yz of the (d, k, d²) slot grid (the audit's
+    order), to slot id ``dest[j]`` = cell·k + slot, with ``cov``
+    (d, 1, k, d²) 1 there; its old slot gets the filler (its cell centre,
+    mass 0, cov 0, extra 0); the bookkeeping
     follows (``slot_row`` (d³·k,) the row of each slot id, −1 when empty;
     ``idx_ext`` the slot id of each row); and ``live`` (d³,), K4's count,
-    becomes the high-water mark of each cell a row left or entered. dest
+    becomes the high-water mark of each cell a row left or entered (the
+    kernel reads it from ``slot_row``, the twin from ``cov``: a table is
+    occupied exactly where ``slot_row`` ≥ 0, as ``cov`` is 1). dest
     ids outside [0, d³·k), such as ``SENTINEL_DEST`` (a denied arrival),
     move nothing; the valid sources and destinations are distinct slots.
     The JAX kernel called with explicit ``dest``, ``with_coverage=True``

@@ -35,6 +35,7 @@ from nbody_tpu_torch.ops import table_step as T
 from nbody_tpu_torch.ops.forces import make_table_step_params
 from nbody_tpu_torch.ops.scatter import (
     SENTINEL_DEST,
+    k2_plan,
     segment_sum,
     segment_sum_plain,
     tile_place,
@@ -147,17 +148,79 @@ def test_direct_kernel_cases(dev, case):
     assert torch.equal(got, direct_forces_kernel(p, m, 1.0, eps, targets=tgt))
 
 
-def test_scatter_kernel(dev):
-    """K2 vs plain: slots and counts equal, moments rtol 1e-5 + 1e-6·max."""
-    p, m = (t.to(dev) for t in _sphere(20000, 4.0, seed=2))
-    lo, cell, coords = bin_particles(p, 4)
-    g = build_sorted_grid(p, m, coords, 16)
-    tk, mk = tile_scatter(g.psort, g.cell_start, lo, cell, d=16, k=16)
-    tp, mp = tile_scatter_plain(g.psort, g.cell_start, lo, cell, d=16, k=16)
-    assert torch.equal(tk, tp)
-    assert torch.equal(mk[10], mp[10])
-    tol = 1e-5 * mp.abs() + 1e-6 * mp.abs().amax(dim=1, keepdim=True)
-    assert bool(((mk - mp).abs() <= tol).all())
+def _k2_counts(case, plan, k, rng):
+    """(d, per-cell row counts) of a skewed K2 case: one cell holding more
+    rows than a staged chunk; a z-row whose rows span several chunks, with
+    short and long runs astride the chunk edges; cells of exactly k, k + 1
+    rows and either side of the long-run threshold; an all-empty z-row
+    (and an empty x-plane); d = 56."""
+    chunk, long_run = plan["chunk_rows"], plan["long_run"]
+    d = 56 if case == "d56" else 8
+    counts = rng.poisson(3 if case == "d56" else 5, d ** 3)
+    if case == "chunk-cell":
+        counts[(3 * d + 4) * d + 5] = chunk + 517
+    elif case == "chunk-zrow":
+        row = (2 * d + 6) * d
+        counts[row:row + d] = [chunk - 100, 5, 700, 0, long_run,
+                               long_run + 1, chunk + 300, 3]
+    elif case == "k-edge":
+        counts[:] = rng.choice([k, k + 1, 0, long_run, long_run + 1],
+                               d ** 3)
+    elif case == "empty-zrow":
+        counts[(4 * d + 1) * d:(4 * d + 2) * d] = 0
+        counts[:d * d] = 0
+    return d, counts
+
+
+def _k2_case(case, dev):
+    """A K2 rank-form input: the 20000-row sphere at d 16, or a skewed
+    grid (``_k2_counts``) whose rows lie uniformly inside their cells →
+    (psort, cell_start, lo, cell, d)."""
+    if case == "sphere":
+        p, m = (t.to(dev) for t in _sphere(20000, 4.0, seed=2))
+        lo, cell, coords = bin_particles(p, 4)
+        g = build_sorted_grid(p, m, coords, 16)
+        return g.psort, g.cell_start, lo, cell, 16
+    rng = np.random.default_rng(7)
+    d, counts = _k2_counts(case, k2_plan(), 16, rng)
+    ids = np.repeat(np.arange(d ** 3), counts)
+    xyz = np.stack([ids // (d * d), (ids // d) % d, ids % d], axis=1)
+    lo, cell = np.array([-3.0, -2.0, -1.0]), 0.75
+    pos = lo + (xyz + rng.uniform(0.0, 1.0, xyz.shape)) * cell
+    psort = np.concatenate([pos, rng.uniform(0.5, 1.5, (len(ids), 1))], 1)
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    return (torch.from_numpy(psort.astype(np.float32)).to(dev),
+            torch.from_numpy(starts.astype(np.int32)).to(dev),
+            torch.tensor(lo, dtype=torch.float32, device=dev),
+            torch.tensor(cell, dtype=torch.float32, device=dev), d)
+
+
+@pytest.mark.parametrize("case", ["sphere", "chunk-cell", "chunk-zrow",
+                                  "k-edge", "empty-zrow", "d56"])
+def test_scatter_kernel(dev, case):
+    """K2's rank forms against their twins on skewed grids (``_k2_case``),
+    k = 16: slots (placed and filler), counts, coverage and extra planes
+    bit-equal; moments within 1e-5·|x| + 1e-6·max|channel|; two calls of
+    each form bit-equal."""
+    psort, cell_start, lo, cell, d = _k2_case(case, dev)
+    k = 16
+    args = (psort, cell_start, lo, cell)
+    ex = torch.randn(psort.shape[0], 3, device=dev)
+    kw = dict(d=d, k=k, with_coverage=True, extra=ex)
+    before = tile_scatter.launches
+    main, table = tile_scatter(*args, d=d, k=k), tile_scatter(*args, **kw)
+    assert tile_scatter.launches == before + 2
+    for got, want in ((main, tile_scatter_plain(*args, d=d, k=k)),
+                      (table, tile_scatter_plain(*args, **kw))):
+        tk, mk, tp, mp = got[0], got[1], want[0], want[1]
+        assert torch.equal(tk, tp)
+        assert torch.equal(mk[10], mp[10])
+        tol = 1e-5 * mp.abs() + 1e-6 * mp.abs().amax(dim=1, keepdim=True)
+        assert bool(((mk - mp).abs() <= tol).all())
+        assert all(torch.equal(a, b) for a, b in zip(got[2:], want[2:]))
+    for got, again in ((main, tile_scatter(*args, d=d, k=k)),
+                       (table, tile_scatter(*args, **kw))):
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 _K3_CASES = [(p, ws) for ws in (1, 2) for p in (1, 2, 4, 8, 16, 32)]
@@ -958,6 +1021,34 @@ def test_table_drivers_on_card_match_row_space(dev):
     assert _near(rep.pos, row.pos, 1e-4)
     assert torch.equal(rep.mass, st.mass)
     assert bool(torch.isfinite(rep.vel).all())
+
+
+def test_table_slot_row_marks_coverage(dev):
+    """The invariant K2's dest form reads its high-water marks by: a table
+    slot is occupied (cov 1) exactly where its ``slot_row`` entry is ≥ 0,
+    after a build (``_sort_build``) and after each of four repair steps of
+    the hot scene (movers every step, holes left behind); and ``live`` is
+    the high-water mark of cov wherever a repair touched a cell (min(count,
+    k) after the build)."""
+    _sf, tp, st = _table_case(dev, 30.0, cube=True)
+    dt, d, k = 1e-3, tp.d, tp.k
+    ts = T._entry(st, dt, tp)
+    slot1 = torch.arange(1, k + 1, device=dev)
+    for step in range(5):
+        occ = ts.cov_t[:, 0] > 0                              # (d, k, d²)
+        rows = ts.slot_row.reshape(d, d * d, k).permute(0, 2, 1) >= 0
+        assert torch.equal(occ, rows)
+        hwm = torch.where(occ, slot1[None, :, None], 0).amax(dim=1)
+        assert torch.equal(ts.live, hwm.reshape(-1).to(ts.live.dtype))
+        if step == 4:
+            break
+        before = tile_place.launches
+        pos_d_t, vel_h, side_pd, mover, n_stale = T._drift(ts, dt, tp,
+                                                           audit=True)
+        assert int(n_stale) > 0
+        ts = T._repair_step(ts, pos_d_t, vel_h, side_pd, mover, int(n_stale),
+                            dt, tp)
+        assert tile_place.launches == before + 1
 
 
 def test_table_holes_are_inert_to_the_sweep(dev):
