@@ -11,11 +11,12 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
   2. holds every kernel against its plain PyTorch twin on the same inputs
      at the shapes its path gives it, with the tolerance stated beside it,
      and times both (median of 7 calls after warm-up, CUDA events): K1
-     (direct forces) at N = 16384, on the 100K direct path's own scene and
+     (direct forces) at N = 16384, on the 100K direct path's own scene,
      at the Barnes-Hut accuracy gates' 4096 sampled targets against all 1M
-     rows, two calls bit-equal, with its device time by graph replay; K2
-     (every slot, placed and filler, and the counts bit-equal, moments
-     within 1e-5·|x| + 1e-6·max|channel|, two calls bit-equal, device
+     rows and on phase 6's 10K Plummer sphere, two calls bit-equal, with
+     its device time by graph replay; K2 (every slot, placed and filler,
+     and the counts bit-equal, moments within 1e-5·|x| + 1e-6·max|channel|
+     of the twin's terms summed in float64, two calls bit-equal, device
      time by graph replay) and K3 at the Barnes-Hut tiles main path (the
      1M spherical scene, radius 10, seed 42, θ = 0.5 at d = 64, k = 16,
      ws = 1); K4 at the
@@ -112,7 +113,32 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
      ``scripts/measure_drift_torch.py``), printing E at every checkpoint
      and |ΔE/E| beside the 1e-4 target (the pass flag is printed, not
      enforced), checking every E is finite and K5 launched once per
-     checkpoint.
+     checkpoint;
+  6. the CLI entry point (``nbody_tpu_torch.cli``, ``cli_phase``), each
+     run counted as the paths of 3 are (its launches: a(t=0), the warm
+     chunk and the timed chunks):
+       k1. ``python -m nbody_tpu_torch.cli`` with ``--list-algorithms``,
+           ``--diagnostics`` and ``--help`` as subprocesses, each to exit 0;
+       k2. ``--particles 10000 --method direct-n2 --init plummer
+           --benchmark --benchmark-steps 100`` through ``cli.main``: K1
+           only, the record printed;
+       k3. ``--particles 1000000 --method barnes-hut --benchmark
+           --benchmark-steps 30 --export s.nbody``: K2, K3 ×6, K4, steps/s
+           of its record beside path a's;
+       k4. ``--import s.nbody``: pos, vel and mass bit-equal to k3's final
+           state, a(t) bit-equal to ``initialize_forces``;
+       k5. ``--init disk`` and ``--init plummer`` at 1M through Barnes-Hut
+           tiles, 10 timed steps each: a finite state, and as readings
+           (not enforced) ``audit_short_range()``, ms a step and the median
+           relative error against K1 (``bh_vs_direct``); K2 held to its
+           twin at each final state (``collapse_check``); then
+           ``--method spatial-hash --benchmark-steps 30`` at 1M (K7),
+           steps/s beside path b's;
+       k6. ``HAVE_HDF5``: without h5py, ``--export x.h5`` must exit non-zero
+           with the ``SerializationError`` text and write nothing; with it,
+           a round trip;
+       k7. ``ParticleSystem.compute_potential_energy`` at 100K: one K5
+           launch and no twin, K5 held to its twin there (``k5_held``).
 
 It stops at the first failed check with a non-zero exit. It needs one CUDA
 card and exits non-zero without one. The last two lines of its output are
@@ -121,12 +147,17 @@ shape's under ``shapes``, the launches summed over the timed paths and
 each path's own under ``launches_by_path``) and the device JSON line.
 """
 
+import contextlib
+import io
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
+REPO = Path(__file__).resolve().parent
 N = 1_000_000
 FP32_OPS = 67e12   # H100 SXM FP32 outside the tensor cores, op/s
 TF32_OPS = 495e12  # H100 SXM TF32 on the tensor cores, dense, op/s
@@ -316,8 +347,11 @@ def add_shape(res: dict, name: str, label: str, rec: dict) -> None:
 def k2_check(res, label, grid, lo, cell, *, d, k):
     """K2 against its plain twin → (tiles, moments, overflow): every slot
     (placed and filler) and the counts bit-equal, moments within
-    1e-5·|x| + 1e-6·max|channel|, two calls bit-equal; kernel, plain and
-    device (graph replay) times."""
+    1e-5·|x| + 1e-6·max|channel| of the twin's terms summed in float64
+    (``accumulate="f64"``: a float32 sum of a run of ~10³ rows, in the
+    twin's order or any other, is off by more than that), two calls
+    bit-equal; kernel, plain (float32 sums) and device (graph replay)
+    times."""
     import torch
 
     from nbody_tpu_torch.ops.scatter import tile_scatter, tile_scatter_plain
@@ -325,8 +359,8 @@ def k2_check(res, label, grid, lo, cell, *, d, k):
     n = grid.psort.shape[0]
     args = (grid.psort, grid.cell_start, lo, cell)
     tk, mk = tile_scatter(*args, d=d, k=k)
-    tp, mp = tile_scatter_plain(*args, d=d, k=k)
-    counts = mp[10]
+    tp, mp = tile_scatter_plain(*args, d=d, k=k, accumulate="f64")
+    counts = mp[10].float()
     check(torch.equal(mk[10], counts), f"K2 {label}: counts differ from plain")
     live = (torch.arange(k, device=counts.device)[:, None]
             < counts.reshape(1, -1)).reshape(k, d, d * d).permute(1, 0, 2)
@@ -335,10 +369,12 @@ def k2_check(res, label, grid, lo, cell, *, d, k):
           f"K2 {label}: placed slots not bit-equal")
     fill_err = float((tk[~live] - tp[~live]).abs().max())
     check(fill_err == 0.0, f"K2 {label}: filler centres off by {fill_err}")
-    mom_err = (mk - mp).abs()
+    mom_err = (mk.double() - mp).abs()
     mom_tol = 1e-5 * mp.abs() + 1e-6 * mp.abs().amax(dim=1, keepdim=True)
+    share = float((mom_err / mom_tol.clamp(min=1e-300)).max())
     check(bool((mom_err <= mom_tol).all()),
-          f"K2 {label}: moments differ by {float(mom_err.max())}")
+          f"K2 {label}: moments differ by {float(mom_err.max())}, "
+          f"{share:.3f} of the tolerance")
     again = tile_scatter(*args, d=d, k=k)
     check(torch.equal(again[0], tk) and torch.equal(again[1], mk),
           f"K2 {label}: two calls differ")
@@ -356,7 +392,8 @@ def k2_check(res, label, grid, lo, cell, *, d, k):
     add_shape(res, "tile_scatter", label, rec)
     print(f"K2 tile_scatter {label} (d={d}, k={k}): slots (placed and "
           f"filler) bit-equal, moments max|diff| {float(mom_err.max()):.3e}"
-          f" (tol 1e-5*|x| + 1e-6*max|ch|), counts equal, two calls "
+          f", {share:.4f} of the tolerance "
+          f"(1e-5*|x| + 1e-6*max|ch| of the f64 sum), counts equal, two calls "
           f"bit-equal; overflow {overflow} rows, longest cell "
           f"{int(counts.max())} rows; kernel {rec['ms']:.4f} ms, device "
           f"{rec['device_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
@@ -364,10 +401,11 @@ def k2_check(res, label, grid, lo, cell, *, d, k):
     return tk, mk, overflow
 
 
-def collapse_check(res, state, cfg, steps):
-    """K2's main form (``k2_check``) at the BH tiles path's state after its
-    timed steps: the cold collapse, whose centre cells hold long runs (up
-    to ~10² rows, ~1.3·10⁵ rows past k)."""
+def collapse_check(res, state, cfg, label):
+    """K2's main form (``k2_check``) at a Barnes-Hut tiles state after
+    its timed steps, recorded as K2's shape ``label``: the BH tiles path's
+    cold collapse, whose centre cells hold long runs (up to ~10² rows,
+    ~1.3·10⁵ rows past k), and the disk and Plummer scenes of phase 6."""
     from nbody_tpu_torch.ops.barnes_hut import bh_engine_params, bin_particles
     from nbody_tpu_torch.ops.sorted_window import build_sorted_grid
 
@@ -375,8 +413,7 @@ def collapse_check(res, state, cfg, steps):
     d = 1 << p["levels"]
     lo, cell, coords = bin_particles(state.pos, p["levels"])
     grid = build_sorted_grid(state.pos, state.mass, coords, d)
-    k2_check(res, f"1M BH tiles after {steps} steps", grid, lo, cell, d=d,
-             k=p["near_k"])
+    k2_check(res, label, grid, lo, cell, d=d, k=p["near_k"])
 
 
 def mover_set(tiles, cov, ext, counts, d, k, m, gen):
@@ -682,16 +719,20 @@ def k4_checks(res, pos, mass, cfg, sp_pos, sp_mass):
 
 
 def k1_inputs(pos, mass, cfg, dev):
-    """K1's inputs at its three shapes, as ``[(label, pos, mass,
+    """K1's inputs at its four shapes, as ``[(label, pos, mass,
     targets)]``: N = 16384 all pairs (the first rows of the 1M scene), the
-    100K direct path's own scene all pairs, and the Barnes-Hut accuracy
-    gates' 4096 sampled targets (``bh_vs_direct``) against all 1M rows."""
+    100K direct path's own scene all pairs, the Barnes-Hut accuracy
+    gates' 4096 sampled targets (``bh_vs_direct``) against all 1M rows,
+    and the 10K Plummer sphere of phase 6's k2 (``K2_ARGV``)."""
     import torch
 
+    from nbody_tpu_torch.cli import parse_app_cli_options
     from nbody_tpu_torch.models.distributions import init_from_config
 
     n1 = 16384
     s100 = init_from_config(path_configs()["100K direct"], device=dev)
+    s10 = init_from_config(parse_app_cli_options(K2_ARGV).to_config(),
+                           device=dev)
     sgen = torch.Generator(device=pos.device)
     sgen.manual_seed(0)
     idx = torch.randperm(pos.shape[0], generator=sgen,
@@ -702,11 +743,12 @@ def k1_inputs(pos, mass, cfg, dev):
          None),
         (f"4096 x {pos.shape[0]} (accuracy gate)", pos, mass,
          pos[idx].contiguous()),
+        (f"N = {s10.pos.shape[0]} (k2 CLI Plummer)", s10.pos, s10.mass, None),
     ]
 
 
 def k1_checks(res, pos, mass, cfg, dev):
-    """K1 against its plain twin at its three shapes (``k1_inputs``;
+    """K1 against its plain twin at its four shapes (``k1_inputs``;
     1e-5·max|a|), two calls bit-equal, timed (one call, and its device
     time by graph replay)."""
     import torch
@@ -833,62 +875,68 @@ def kernel_checks(res, pos, mass, cfg):
     return overflow
 
 
-def k5_check(res, pos, mass, cfg):
-    """K5 (the all-pairs potential) against its plain twin at relative
-    1e-5 (rsqrtf and torch.rsqrt differ by ulps on each term, the sums are
-    float64 in both): first on the drift gate's own step-0 input (the
-    Hénon sphere at N = 1M; the twin run once, ~1 min), then at N = 131072
-    on the BH scene's first rows. Kernel times are medians of 3 calls
-    after 1 warm-up."""
+def k5_held(res, label, p, m, G, eps, plain_reps):
+    """K5 (the all-pairs potential) against its plain twin on (p, m) at
+    relative 1e-5 (rsqrtf and torch.rsqrt differ by ulps on each term, the
+    sums are float64 in both), recorded as K5's shape ``label``: kernel
+    time the median of 3 calls after 1 warm-up, the twin's the median of
+    ``plain_reps`` calls (one call when 0)."""
     import torch
 
-    from nbody_tpu_torch.drift import drift_config, henon_sphere
     from nbody_tpu_torch.ops.direct import (
         pairwise_potential,
         pairwise_potential_plain,
     )
 
-    def held(label, p, m, G, eps, plain_reps):
-        n = p.shape[0]
-        got = float(pairwise_potential(p, m, G, eps))
-        if plain_reps:
-            want = float(pairwise_potential_plain(p, m, G, eps))
-            plain_ms = time_ms(lambda: pairwise_potential_plain(p, m, G, eps),
-                               reps=plain_reps, warm=1)
-        else:
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            out = pairwise_potential_plain(p, m, G, eps)
-            b.record()
-            b.synchronize()
-            want, plain_ms = float(out), a.elapsed_time(b)
-        rel = abs(got - want) / abs(want)
-        check(rel <= 1e-5, f"K5 pairwise_potential {label}: rel diff {rel}")
-        rec = dict(
-            max_abs_err=abs(got - want),
-            ms=time_ms(lambda: pairwise_potential(p, m, G, eps), reps=3,
-                       warm=1),
-            plain_ms=plain_ms,
-            # n² pair terms; pos + mass in, one partial per 256 rows out
-            **bound(PAIR_OPS * n * n, 16 * n + 8 * (n // 256)),
-            library_ms=None,
-        )
-        add_shape(res, "pairwise_potential", label, rec)
-        print(f"K5 pairwise_potential {label}: kernel {got:.9e}, plain "
-              f"{want:.9e}, rel diff {rel:.3e} (tol 1e-5); kernel "
-              f"{rec['ms']:.4f} ms (median of 3), plain {plain_ms:.4f} ms "
-              f"({'median of %d' % plain_reps if plain_reps else 'one call'}"
-              f"), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    n = p.shape[0]
+    got = float(pairwise_potential(p, m, G, eps))
+    if plain_reps:
+        want = float(pairwise_potential_plain(p, m, G, eps))
+        plain_ms = time_ms(lambda: pairwise_potential_plain(p, m, G, eps),
+                           reps=plain_reps, warm=1)
+    else:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = pairwise_potential_plain(p, m, G, eps)
+        b.record()
+        b.synchronize()
+        want, plain_ms = float(out), a.elapsed_time(b)
+    rel = abs(got - want) / abs(want)
+    check(rel <= 1e-5, f"K5 pairwise_potential {label}: rel diff {rel}")
+    rec = dict(
+        max_abs_err=abs(got - want),
+        ms=time_ms(lambda: pairwise_potential(p, m, G, eps), reps=3,
+                   warm=1),
+        plain_ms=plain_ms,
+        # n² pair terms; pos + mass in, one partial per 256 rows out
+        **bound(PAIR_OPS * n * n, 16 * n + 8 * (n // 256)),
+        library_ms=None,
+    )
+    add_shape(res, "pairwise_potential", label, rec)
+    print(f"K5 pairwise_potential {label}: kernel {got:.9e}, plain "
+          f"{want:.9e}, rel diff {rel:.3e} (tol 1e-5); kernel "
+          f"{rec['ms']:.4f} ms (median of 3), plain {plain_ms:.4f} ms "
+          f"({'median of %d' % plain_reps if plain_reps else 'one call'}"
+          f"), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    return got
+
+
+def k5_check(res, pos, mass, cfg):
+    """K5 (``k5_held``) on the drift gate's own step-0 input (the Hénon
+    sphere at N = 1M; the twin run once, ~1 min), then at N = 131072 on
+    the BH scene's first rows."""
+    from nbody_tpu_torch.drift import drift_config, henon_sphere
 
     n = pos.shape[0]
     dcfg = drift_config(n)
     h = henon_sphere(n, pos.device)
-    held(f"N = {n} (drift gate)", h.pos, h.mass, dcfg.G, dcfg.softening, 0)
+    k5_held(res, f"N = {n} (drift gate)", h.pos, h.mass, dcfg.G,
+            dcfg.softening, 0)
     del h
     n1 = 131072
-    held(f"N = {n1}", pos[:n1].contiguous(), mass[:n1].contiguous(), cfg.G,
-         cfg.softening, 3)
+    k5_held(res, f"N = {n1}", pos[:n1].contiguous(), mass[:n1].contiguous(),
+            cfg.G, cfg.softening, 3)
 
 
 def k6_check(res, pos, mass, cfg):
@@ -1277,9 +1325,10 @@ def ground_truth_hash(pos, mass, acc, coords, cutoff, eps, G, *,
     return err, scale, float(rel.median()), int(idx.shape[0])
 
 
-def bh_vs_direct(pos, mass, acc_bh, cfg, label):
-    """BH at step 0 against the direct kernel (ground truth) on 4096
-    sampled rows with all sources: median relative error < 0.05."""
+def bh_vs_direct(pos, mass, acc_bh, cfg, label, gate=True):
+    """BH against the direct kernel (ground truth) on 4096 sampled rows
+    with all sources: median relative error < 0.05, enforced when
+    ``gate``, else printed as a reading. Returns the median."""
     import torch
 
     from nbody_tpu_torch.ops.direct import direct_forces_kernel
@@ -1295,15 +1344,22 @@ def bh_vs_direct(pos, mass, acc_bh, cfg, label):
     med = float(rel.median())
     print(f"{label} vs direct (4096 sampled rows, all {n} sources): median "
           f"rel err {med:.4e}, p90 {float(rel.quantile(0.9)):.4e}, max "
-          f"{float(rel.max()):.4e} (gate: median < 0.05)")
-    check(med < 0.05, f"{label} median relative error {med} >= 0.05")
+          f"{float(rel.max()):.4e} ("
+          f"{'gate: median < 0.05' if gate else 'reading; 0.05 not enforced'})")
+    if gate:
+        check(med < 0.05, f"{label} median relative error {med} >= 0.05")
+    return med
+
+
+# steps/s of every counted run, by label
+RATES = {}
 
 
 def counted_run(label, steps, run, want, wrappers, plains, smi):
     """Every count set to 0, ``run()`` timed (host clock to a synchronize),
     the counts read: checks the launches and that no plain twin ran,
-    prints steps/s, phases and launches. Returns (launches, run's
-    result, phases)."""
+    prints steps/s (kept in ``RATES``), phases and launches. Returns
+    (launches, run's result, phases)."""
     import torch
 
     from nbody_tpu_torch.utils.profiling import consume_global_phase_snapshot
@@ -1320,6 +1376,7 @@ def counted_run(label, steps, run, want, wrappers, plains, smi):
     launches = {name: f.launches for name, f in wrappers.items()}
     plain_calls = sum(f.calls for f in plains)
     phases = consume_global_phase_snapshot()
+    RATES[label] = steps / wall
     print(f"{label}: {steps} steps in {wall:.4f} s = "
           f"{steps / wall:.3f} steps/s ({smi})")
     for name, st in sorted(phases.items()):
@@ -1734,6 +1791,200 @@ def drift_phase(steps, chunk, want, wrappers, plains, smi, dev):
     return launches
 
 
+CLI_MODULE = "nbody_tpu_torch.cli"
+# k2: BASELINE.json's first configuration ("Direct N², 10K particles,
+# Plummer-sphere init, Velocity Verlet, headless")
+K2_ARGV = ["--particles", "10000", "--method", "direct-n2", "--init",
+           "plummer", "--benchmark", "--benchmark-steps", "100"]
+# The keys of the JAX CLI's BenchmarkRunRecord and of its params
+# (nbody_tpu/utils/profiling.py, nbody_tpu/app.py run_benchmark_mode)
+RECORD_KEYS = ["name", "method", "particle_count", "iterations", "metrics",
+               "params", "phase_timings"]
+PARAM_KEYS = ["dt", "G", "softening", "theta", "cell_size", "cutoff", "init",
+              "devices", "resort_every", "resort_stale_frac"]
+
+
+def cli_subprocess(args, timeout=300):
+    """``python -m nbody_tpu_torch.cli ARGS`` from the checkout's root."""
+    return subprocess.run([sys.executable, "-m", CLI_MODULE, *args],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=timeout)
+
+
+def captured(fn):
+    """``fn()`` with its standard output captured: (result, text)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, buf.getvalue()
+
+
+def cli_bench(label, argv, want, wrappers, plains, smi, keep, via_main=False):
+    """One benchmark-mode command line under ``counted_run``: through
+    ``cli.main(argv)`` when ``via_main``, else through
+    ``Application(parse_app_cli_options(argv)).run()`` (``main`` without
+    its exit-code mapping, so the system stays readable). ``want`` counts
+    a(t=0), the warm chunk and the timed chunks. Checks exit 0 and the
+    record's keys against the JAX CLI's, prints the record. Returns (the
+    application, None through ``main``; the record)."""
+    from nbody_tpu_torch.app import Application
+    from nbody_tpu_torch.cli import main as cli_main
+    from nbody_tpu_torch.cli import parse_app_cli_options
+
+    opts = parse_app_cli_options(argv)
+    steps = opts.benchmark_steps
+    chunk = min(steps, 50)
+    steps = -(-steps // chunk) * chunk + chunk
+    app = None if via_main else Application(opts)
+    run = (lambda: cli_main(argv)) if via_main else app.run
+    launches, (rc, text), _ = counted_run(
+        f"{label} (a(0), {chunk} warm + {steps - chunk} timed steps)",
+        steps, lambda: captured(run), want, wrappers, plains, smi)
+    keep(label, launches)
+    check(rc == 0, f"{label}: exit code {rc}")
+    doc = json.loads(text[text.index("{"):])
+    (rec,) = doc["benchmark_runs"]
+    check(list(rec) == RECORD_KEYS and list(rec["params"]) == PARAM_KEYS,
+          f"{label}: record keys {list(rec)} / {list(rec['params'])}")
+    check(rec["iterations"] == steps - chunk, f"{label}: iterations")
+    print(f"  record: {json.dumps(rec)}")
+    return app, rec
+
+
+def cli_phase(res, wrappers, plains, none, keep, smi, dev, levels):
+    """Phase 6 (k): the CLI entry point, each run with the counts set to
+    0 just before it and read just after. Returns the readings."""
+    import torch
+
+    from nbody_tpu_torch import ParticleSystem
+    from nbody_tpu_torch.app import Application
+    from nbody_tpu_torch.cli import parse_app_cli_options
+    from nbody_tpu_torch.ops.integrator import initialize_forces
+    from nbody_tpu_torch.utils.hdf5_io import HAVE_HDF5, HDF5IO
+
+    def bh_want(evals):
+        return {**none, "tile_scatter": evals, "far_taps": evals * levels,
+                "tile_sweep_plane": evals}
+
+    def bench(label, argv, want, via_main=False):
+        return cli_bench(label, argv, want, wrappers, plains, smi, keep,
+                         via_main)
+
+    readings = {}
+    # k1
+    for flag in ("--list-algorithms", "--diagnostics", "--help"):
+        out = cli_subprocess([flag])
+        check(out.returncode == 0, f"k1 {flag}: exit {out.returncode}: "
+              f"{out.stderr[-2000:]}")
+        lines = out.stdout.strip().splitlines()
+        shown = lines if flag != "--help" else lines[:1]
+        print(f"k1 python -m {CLI_MODULE} {flag}: exit 0")
+        for line in shown:
+            print(f"  {line}")
+
+    # k2: BASELINE's first configuration, through cli.main
+    bench("k2 CLI 10K direct Plummer", K2_ARGV,
+          {**none, "direct_forces": 151}, via_main=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # k3: the 1M Barnes-Hut benchmark with an export
+        path = str(Path(tmp) / "s.nbody")
+        app, rec = bench(
+            "k3 CLI 1M BH",
+            ["--particles", str(N), "--method", "barnes-hut", "--benchmark",
+             "--benchmark-steps", "30", "--export", path], bh_want(61))
+        check_finite("k3 CLI 1M BH", app.system.state)
+        rate = rec["metrics"]["steps_per_sec"]
+        readings["k3 CLI 1M BH steps/s"] = rate
+        print(f"k3 CLI 1M BH: {rate:.3f} steps/s (its record) beside path "
+              f"a's facade {RATES['1M BH tiles']:.3f} steps/s ({smi})")
+
+        # k4: --import restores the state
+        imp = Application(parse_app_cli_options(
+            ["--method", "barnes-hut", "--import", path]))
+        imp._initialize_system()
+        got, want = imp.system.state, app.system.state
+        for f in ("pos", "vel", "mass"):
+            check(torch.equal(getattr(got, f), getattr(want, f)),
+                  f"k4: imported {f} not bit-equal to the exported state")
+        again = initialize_forces(got, imp.system._force_fn).acc
+        check(torch.equal(got.acc, again),
+              f"k4: a(t) differs from initialize_forces by "
+              f"{float((got.acc - again).abs().max())}")
+        print(f"k4 --import {Path(path).name} ({Path(path).stat().st_size} "
+              f"bytes): pos, vel, mass bit-equal to the exported state, "
+              f"a(t) bit-equal to initialize_forces, t = "
+              f"{imp.system.simulation_time:.6f}")
+        del app, imp, got, want, again
+
+    # k5: the disk and Plummer scenes at 1M through Barnes-Hut tiles
+    for dist in ("disk", "plummer"):
+        label = f"k5 CLI 1M BH {dist}"
+        app, rec = bench(label, ["--particles", str(N), "--method",
+                                 "barnes-hut", "--init", dist, "--benchmark",
+                                 "--benchmark-steps", "10"], bh_want(21))
+        st, cfg = app.system.state, app.system.config
+        check_finite(label, st)
+        audit = app.system.audit_short_range()
+        med = bh_vs_direct(st.pos, st.mass, st.acc, cfg, label, gate=False)
+        collapse_check(res, st, cfg, f"1M BH {dist} after 20 steps")
+        ms = rec["metrics"]["wall_time_ms_per_step"]
+        readings[f"k5 1M BH {dist}"] = dict(
+            overflow=audit["overflow"], median_rel_err_vs_k1=med,
+            ms_per_step=ms)
+        print(f"k5 1M BH {dist}: audit_short_range {audit}, median rel err "
+              f"vs K1 {med:.4e}, {ms:.4f} ms a step ({smi})")
+        del app, st
+    app, rec = bench("k5 CLI 1M spatial hash",
+                     ["--particles", str(N), "--method", "spatial-hash",
+                      "--benchmark", "--benchmark-steps", "30"],
+                     {**none, "window_sweep": 61})
+    check_finite("k5 CLI 1M spatial hash", app.system.state)
+    rate = rec["metrics"]["steps_per_sec"]
+    readings["k5 CLI 1M spatial hash steps/s"] = rate
+    print(f"k5 CLI 1M spatial hash: {rate:.3f} steps/s (its record) beside "
+          f"path b's facade {RATES['1M dense hash']:.3f} steps/s ({smi})")
+    del app
+
+    # k6: HDF5
+    print(f"k6 HAVE_HDF5: {HAVE_HDF5}")
+    with tempfile.TemporaryDirectory() as tmp:
+        h5 = Path(tmp) / "x.h5"
+        if not HAVE_HDF5:
+            out = cli_subprocess(["--particles", "1000", "--benchmark",
+                                  "--benchmark-steps", "1", "--export",
+                                  str(h5)])
+            msg = "HDF5 support unavailable: h5py is not installed"
+            check(out.returncode != 0 and msg in out.stderr,
+                  f"k6: --export x.h5 without h5py: exit {out.returncode}, "
+                  f"{out.stderr[-2000:]}")
+            check(not h5.exists(), "k6: a file was written without h5py")
+            print(f"k6 --export x.h5: exit {out.returncode}, "
+                  f"SerializationError: {msg}; no file written")
+        else:
+            ps = ParticleSystem()
+            ps.initialize(path_configs()["100K direct"], device=dev)
+            HDF5IO.export_to_file(str(h5), ps.get_state())
+            back = HDF5IO.import_from_file(str(h5))
+            check(back == ps.get_state(), "k6: HDF5 round trip differs")
+            print("k6 HDF5 round trip at 100K: equal")
+
+    # k7: the facade's exact potential energy on K5
+    cfg = path_configs()["100K direct"]
+    ps = ParticleSystem()
+    ps.initialize(cfg, device=dev)
+    label = "k7 compute_potential_energy 100K"
+    launches, pe, _ = counted_run(label, 1, ps.compute_potential_energy,
+                                  {**none, "pairwise_potential": 1},
+                                  wrappers, plains, smi)
+    keep(label, launches)
+    got = k5_held(res, f"N = {cfg.particle_count} (facade)", ps.state.pos,
+                  ps.state.mass, cfg.G, cfg.softening, 3)
+    check(pe == got, f"k7: facade PE {pe} != K5's {got}")
+    print(f"k7 compute_potential_energy: {pe:.9e} from one K5 launch")
+    return readings
+
+
 def main() -> None:
     import torch
 
@@ -1885,7 +2136,7 @@ def main() -> None:
     levels = bh_engine_params(bh_cfg)["levels"]
     bh_run = drive("1M BH tiles", 30, tile_scatter=30, far_taps=30 * levels,
                    tile_sweep_plane=30)
-    collapse_check(res, bh_run[2].state, bh_cfg, 30)
+    collapse_check(res, bh_run[2].state, bh_cfg, "1M BH tiles after 30 steps")
     drive("1M dense hash", 30, window_sweep=30)
     drive("1M sparse hash", 30, tile_scatter=30, tile_sweep_plane=30)
     check(bh_engine_params(bhw_cfg)["near_engine"] == "window",
@@ -1963,6 +2214,10 @@ def main() -> None:
         {**none, "pairwise_potential": 1 + steps // chunk,
          "tile_scatter": steps + 1, "far_taps": (steps + 1) * levels,
          "tile_sweep_plane": steps + 1}, wrappers, plains, smi, dev))
+
+    # Phase 6 (k): the CLI entry point
+    readings = cli_phase(res, wrappers, plains, none, keep, smi, dev, levels)
+    print(f"cli readings: {json.dumps(readings)} ({smi})")
     print(f"launches by path: {by_path}")
 
     sources = {

@@ -35,6 +35,10 @@ class ResourceError(NBodyError, RuntimeError):
         self.available_bytes = available_bytes
 
 
+class SerializationError(NBodyError, RuntimeError):
+    """Corrupt, truncated, or unsupported checkpoint data."""
+
+
 def _require_finite(value: float, name: str) -> None:
     if math.isnan(value) or math.isinf(value):
         raise ValidationError(f"{name} must be a finite number")

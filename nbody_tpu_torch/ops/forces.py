@@ -103,3 +103,16 @@ def make_table_step_params(config: SimulationConfig, *, device,
     if not tile_engine_fused(tp.d, tp.k):
         return None
     return tp
+
+
+def list_algorithms():
+    """(cli name, description) of each force method, for
+    ``--list-algorithms``."""
+    return [
+        (ForceMethod.DIRECT_N2.cli_name,
+         "Exact O(N²) all-pairs (CUDA kernel)"),
+        (ForceMethod.BARNES_HUT.cli_name,
+         "O(N log N) hierarchical multipole approximation"),
+        (ForceMethod.SPATIAL_HASH.cli_name,
+         "O(N) short-range with cutoff (sorted grid)"),
+    ]

@@ -13,6 +13,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from nbody_tpu_torch.ops.direct import pairwise_potential
 from nbody_tpu_torch.state import ParticleState
 
 # force_fn(pos (N,3), mass (N,)) -> acc (N,3)
@@ -305,18 +306,43 @@ def potential_energy(pos, mass, G=1.0, softening=0.1, *,
     return -0.5 * G * torch.cat(per_row).sum()
 
 
+def exact_potential_energy(pos, mass, G=1.0, softening=0.1) -> torch.Tensor:
+    """The exact all-pairs PE where ``pos`` lives: kernel K5
+    (``direct.pairwise_potential``, float64 sums) on a CUDA tensor, the
+    plain blocked loop ``potential_energy`` on a CPU tensor."""
+    if pos.device.type == "cuda":
+        return pairwise_potential(pos, mass, G, softening)
+    return potential_energy(pos, mass, G, softening)
+
+
+def total_energy(state: ParticleState, G=1.0, softening=0.1) -> torch.Tensor:
+    """KE + exact PE (``exact_potential_energy``)."""
+    return kinetic_energy(state) + exact_potential_energy(
+        state.pos, state.mass, G, softening)
+
+
 def sampled_potential_energy(pos, mass, G=1.0, softening=0.1, *,
                              samples: int = 16384,
                              generator: torch.Generator | None = None):
     """Unbiased O(S²) Monte-Carlo PE estimate from a uniform random
-    S-subset, scaled by N(N−1)/(S(S−1)); exact when S ≥ N."""
+    S-subset, scaled by N(N−1)/(S(S−1)); exact when S ≥ N. The subset's
+    PE is ``exact_potential_energy``."""
     n = pos.shape[0]
     s = min(samples, n)
     if s == n:
-        return potential_energy(pos, mass, G, softening)
+        return exact_potential_energy(pos, mass, G, softening)
     if generator is None:
         generator = torch.Generator(device=pos.device)
         generator.manual_seed(0)
     idx = torch.randperm(n, generator=generator, device=pos.device)[:s]
-    pe_s = potential_energy(pos[idx], mass[idx], G, softening)
+    pe_s = exact_potential_energy(pos[idx], mass[idx], G, softening)
     return pe_s * ((n * (n - 1.0)) / (s * (s - 1.0)))
+
+
+def sampled_total_energy(state: ParticleState, G=1.0, softening=0.1, *,
+                         samples: int = 16384,
+                         generator: torch.Generator | None = None):
+    """KE (exact, O(N)) + sampled PE — the at-scale diagnostics path."""
+    return kinetic_energy(state) + sampled_potential_energy(
+        state.pos, state.mass, G, softening, samples=samples,
+        generator=generator)

@@ -58,10 +58,15 @@ def _filler_tiles(lo, cell, d: int, k: int, dtype, dev):
 
 
 def tile_scatter_plain(psort, cell_start, lo, cell, *, d: int, k: int,
-                       with_coverage: bool = False, extra=None):
+                       with_coverage: bool = False, extra=None,
+                       accumulate: str = "f32"):
     """Plain twin of kernel K2's rank form → (tiles (d, 4, k, d²), moments
     (11, d³)), then with ``with_coverage`` and ``extra`` (N, 3) the cov
-    plane (d, 1, k, d²) and the extra planes (d, 3, k, d²)."""
+    plane (d, 1, k, d²) and the extra planes (d, 3, k, d²). The moments
+    sum each row's terms (computed in ``psort``'s dtype) in that dtype,
+    or with ``accumulate="f64"`` in float64 and returned as float64: the
+    terms' exact sum, a reference for a cell's long run, whose f32 sum in
+    any order carries ~(run length)·ε of error."""
     tile_scatter_plain.calls += 1
     table = _table_form(with_coverage, extra, psort.shape[0])
     n = psort.shape[0]
@@ -90,7 +95,11 @@ def tile_scatter_plain(psort, cell_start, lo, cell, *, d: int, k: int,
          torch.ones_like(m)],
         dim=-1,
     )                                                        # (N, 11)
-    moments = torch.zeros((nc, 11), dtype=psort.dtype, device=dev)
+    if accumulate not in ("f32", "f64"):
+        raise ValueError(f"unknown accumulate mode {accumulate!r}")
+    if accumulate == "f64":
+        vals = vals.to(torch.float64)
+    moments = torch.zeros((nc, 11), dtype=vals.dtype, device=dev)
     moments.index_add_(0, ids, vals)
     if not table:
         return tiles, moments.T.contiguous()

@@ -20,8 +20,10 @@ import numpy as np
 import torch
 
 from nbody_tpu_torch.types import (
+    DiskDistParams,
     ForceMethod,
     InitDistribution,
+    PlummerDistParams,
     SimulationConfig,
     SphericalDistParams,
     UniformDistParams,
@@ -169,8 +171,9 @@ class SimulationState:
 
 
 _DIST_PARAMS = {
-    "UniformDistParams": UniformDistParams,
-    "SphericalDistParams": SphericalDistParams,
+    cls.__name__: cls
+    for cls in (UniformDistParams, SphericalDistParams, DiskDistParams,
+                PlummerDistParams)
 }
 _ENUMS = {"force_method": ForceMethod, "init_distribution": InitDistribution}
 
@@ -179,7 +182,7 @@ def config_from_reference(obj) -> SimulationConfig:
     """This package's ``SimulationConfig`` from any object carrying the
     JAX package's config attribute names (duck-typed: nothing of the JAX
     package is imported). Enums map by ``.name``; ``dist_params`` maps by
-    class name onto the distribution parameter types this package has."""
+    class name onto this package's distribution parameter types."""
     kw = {}
     for f in dataclasses.fields(SimulationConfig):
         if not hasattr(obj, f.name):
@@ -188,13 +191,7 @@ def config_from_reference(obj) -> SimulationConfig:
         if f.name in _ENUMS:
             v = _ENUMS[f.name][v.name]
         elif f.name == "dist_params" and v is not None:
-            kind = type(v).__name__
-            if kind not in _DIST_PARAMS:
-                raise NotImplementedError(
-                    f"dist_params {kind} has no counterpart in "
-                    "nbody_tpu_torch yet (ROADMAP A4)"
-                )
-            cls = _DIST_PARAMS[kind]
+            cls = _DIST_PARAMS[type(v).__name__]
             v = cls(**{g.name: getattr(v, g.name)
                        for g in dataclasses.fields(cls)})
         kw[f.name] = v

@@ -1,20 +1,22 @@
 """ParticleSystem facade.
 
-PyTorch counterpart of the core of ``nbody_tpu/system.py``: validate →
-initialize → compute initial forces; ``update()`` is one Verlet step,
-``run_steps(n)`` the scale path (cell-sorted stepping for Barnes-Hut, as
-``bench.py`` measures on the TPU, with the re-sort cadence
-``resort_every``, the audited re-sort ``resort_stale_frac`` or the exact
-repair ``resort_repair``: on the card through table-resident stepping
-where it was measured to beat row space, ``TABLE_ROUTES``, else in row
-space); pause/resume/reset; state get/set;
-energy queries; ``audit_short_range`` for the short-range engines'
-capacity audits. Every tensor lives on the device given to
+PyTorch counterpart of ``nbody_tpu/system.py``: validate → initialize →
+compute initial forces; ``update()`` is one Verlet step, ``run_steps(n)``
+the scale path (cell-sorted stepping for Barnes-Hut, as ``bench.py``
+measures on the TPU, with the re-sort cadence ``resort_every``, the
+audited re-sort ``resort_stale_frac`` or the exact repair
+``resort_repair``: on the card through table-resident stepping where it
+was measured to beat row space, ``TABLE_ROUTES``, else in row space);
+pause/resume/reset; the live setters (force method, G, ε, θ, cell size,
+cutoff, dt), which rebuild the whole strategy; state get/set and
+``.nbody`` save/load; energy queries (the exact potential on kernel K5
+on the card); ``audit_short_range`` for the short-range engines' capacity
+audits; ``diagnostics``. Every tensor lives on the device given to
 ``initialize``: the CUDA card unless the caller passes ``device="cpu"``.
 
 Not ported yet, and rejected with ``NotImplementedError`` rather than run
-some other path: sharding (``shard_devices > 1``) and the distributions
-other than uniform and spherical. Instances are not thread-safe.
+some other path: sharding (``shard_devices > 1``). Instances are not
+thread-safe.
 """
 
 from __future__ import annotations
@@ -25,10 +27,14 @@ import numpy as np
 import torch
 
 from nbody_tpu_torch.errors import (
+    STATE_BYTES_PER_PARTICLE,
     ValidationError,
     validate_config,
+    validate_gravitational_constant,
     validate_particle_count,
     validate_resource_requirements,
+    validate_softening,
+    validate_theta,
 )
 from nbody_tpu_torch.models.distributions import init_from_config
 from nbody_tpu_torch.ops.forces import (
@@ -37,6 +43,7 @@ from nbody_tpu_torch.ops.forces import (
     make_table_step_params,
 )
 from nbody_tpu_torch.ops.integrator import (
+    exact_potential_energy,
     initialize_forces,
     kinetic_energy,
     make_adaptive_multi_step,
@@ -44,7 +51,6 @@ from nbody_tpu_torch.ops.integrator import (
     make_resort_multi_step,
     make_sorted_multi_step,
     make_verlet_step,
-    potential_energy,
 )
 from nbody_tpu_torch.ops.table_step import (
     make_table_adaptive_multi_step,
@@ -54,6 +60,7 @@ from nbody_tpu_torch.ops.table_step import (
 from nbody_tpu_torch.state import ParticleState, SimulationState
 from nbody_tpu_torch.types import ForceMethod, SimulationConfig
 from nbody_tpu_torch.utils.profiling import profile_phase
+from nbody_tpu_torch.utils.serialization import Serializer
 
 
 # The (engine, knob) pairs that step table-resident on the card: those
@@ -127,14 +134,21 @@ class ParticleSystem:
         self._initialized = True
 
     def _install_state(self, state: ParticleState) -> None:
-        """Build the force strategy for ``state`` (both the plain and the
-        sorted force, once per strategy) and compute a(t)."""
+        """Build the force strategy for ``state`` and compute a(t)."""
+        self._rebuild_strategy(state.pos)
+        self._state = initialize_forces(state, self._force_fn)
+
+    def _rebuild_strategy(self, pos: torch.Tensor) -> None:
+        """Build everything the config selects, once per strategy: the
+        plain and the sorted force, the table route and the Verlet step.
+        ``pos`` feeds the hash's ``hash_engine="auto"`` choice, so a live
+        setter re-resolves it from the current state."""
         cfg = self._config
-        # The hash's engine choice reads positions on the host: once here,
+        # The hash's engine choice reads positions on the host: here,
         # never inside a timed run_steps.
         hint = None
         if cfg.force_method == ForceMethod.SPATIAL_HASH:
-            hint = state.pos.detach().cpu().numpy()
+            hint = pos.detach().cpu().numpy()
         self._force_fn = make_force_fn(cfg, pos_hint=hint)
         self._sorted_force = make_sorted_force_fn(cfg, pos_hint=hint)
         self._table_params = None
@@ -145,7 +159,6 @@ class ParticleSystem:
             if tp is not None and (tp.mode, knob) in TABLE_ROUTES:
                 self._table_params = tp
         self._step = make_verlet_step(self._force_fn, cfg.dt)
-        self._state = initialize_forces(state, self._force_fn)
 
     def _require_init(self):
         if not self._initialized:
@@ -226,12 +239,59 @@ class ParticleSystem:
         self._require_init()
         self.initialize(self._config, device=self._device)
 
+    # ---- runtime setters ---------------------------------------------------
+
+    def set_force_method(self, method: ForceMethod) -> None:
+        """Switch the force method and recompute a(t) with it, so the next
+        step kicks with the new strategy's accelerations."""
+        self._require_init()
+        cfg = self._config.replace(force_method=method)
+        validate_config(cfg)
+        self._config = cfg
+        self._rebuild_strategy(self._state.pos)
+        self._state = initialize_forces(self._state, self._force_fn)
+
     def set_time_step(self, dt: float) -> None:
+        """The multi-step drivers read ``dt`` from the config on every
+        ``run_steps``, so only the single step is rebuilt."""
         self._require_init()
         cfg = self._config.replace(dt=float(dt))
         validate_config(cfg)
         self._config = cfg
         self._step = make_verlet_step(self._force_fn, cfg.dt)
+
+    def _set_param(self, **kw) -> None:
+        """Rebuild the strategy for the new parameters. a(t) is kept, as
+        in the JAX facade: the next step's first half-kick uses the
+        accelerations of the old parameters."""
+        self._require_init()
+        cfg = self._config.replace(**kw)
+        validate_config(cfg)
+        self._config = cfg
+        self._rebuild_strategy(self._state.pos)
+
+    def set_gravitational_constant(self, G: float) -> None:
+        validate_gravitational_constant(G)
+        self._set_param(G=float(G))
+
+    def set_softening(self, eps: float) -> None:
+        validate_softening(eps)
+        self._set_param(softening=float(eps))
+
+    def set_theta(self, theta: float) -> None:
+        # validated whatever the active method, as in the JAX facade
+        validate_theta(theta)
+        self._set_param(barnes_hut_theta=float(theta))
+
+    def set_cell_size(self, cell_size: float) -> None:
+        if not (cell_size > 0):
+            raise ValidationError("Spatial hash cell size must be positive")
+        self._set_param(spatial_hash_cell_size=float(cell_size))
+
+    def set_cutoff(self, cutoff: float) -> None:
+        if not (cutoff > 0):
+            raise ValidationError("Spatial hash cutoff must be positive")
+        self._set_param(spatial_hash_cutoff=float(cutoff))
 
     # ---- accessors -------------------------------------------------------
 
@@ -239,6 +299,11 @@ class ParticleSystem:
     def config(self) -> SimulationConfig:
         self._require_init()
         return self._config
+
+    @property
+    def particle_count(self) -> int:
+        self._require_init()
+        return self._state.n
 
     @property
     def state(self) -> ParticleState:
@@ -293,6 +358,14 @@ class ParticleSystem:
         self._install_state(snapshot.to_particle_state(self._device))
         self._initialized = True
 
+    def save_state(self, filename: str) -> None:
+        """Write the state as a ``.nbody`` file (no accelerations)."""
+        Serializer.save(filename, self.get_state())
+
+    def load_state(self, filename: str, device=None) -> None:
+        """``set_state`` from a ``.nbody`` file: a(t) is recomputed."""
+        self.set_state(Serializer.load(filename), device=device)
+
     # ---- energy ----------------------------------------------------------
 
     def compute_kinetic_energy(self) -> float:
@@ -300,8 +373,10 @@ class ParticleSystem:
         return float(kinetic_energy(self._state))
 
     def compute_potential_energy(self) -> float:
+        """Exact all-pairs PE: kernel K5 on the card, the plain blocked
+        loop on the CPU (``exact_potential_energy``)."""
         self._require_init()
-        return float(potential_energy(
+        return float(exact_potential_energy(
             self._state.pos, self._state.mass, self._config.G,
             self._config.softening,
         ))
@@ -374,7 +449,30 @@ class ParticleSystem:
         return out
 
     def synchronize(self) -> None:
-        """Wait for outstanding device work (timing helper)."""
+        """Wait for outstanding device work (timing helper; the JAX
+        facade's ``block_until_ready``)."""
         self._require_init()
         if self._device.type == "cuda":
             torch.cuda.synchronize(self._device)
+
+    def diagnostics(self) -> dict:
+        """Runtime diagnostics, keyed as the JAX facade's: ``backend`` is
+        the torch device type and ``devices`` the CUDA device count (1 on
+        the CPU)."""
+        self._require_init()
+        n = self.particle_count
+        cuda = self._device.type == "cuda"
+        return {
+            "particle_count": n,
+            "shard_devices": 1,
+            "force_distribution": "single-device",
+            "force_method": self._config.force_method.cli_name,
+            "simulation_time": float(self._state.time),
+            "paused": self._paused,
+            "dt": self._config.dt,
+            "G": self._config.G,
+            "softening": self._config.softening,
+            "state_bytes": n * STATE_BYTES_PER_PARTICLE,
+            "backend": self._device.type,
+            "devices": torch.cuda.device_count() if cuda else 1,
+        }

@@ -19,6 +19,28 @@ class ForceMethod(enum.IntEnum):
     BARNES_HUT = 1    # O(N log N) hierarchical multipole approximation
     SPATIAL_HASH = 2  # O(N) short-range with cutoff
 
+    @classmethod
+    def parse(cls, name: str) -> "ForceMethod":
+        """Parse a CLI-style method name (the JAX package's aliases)."""
+        key = name.strip().lower().replace("_", "-")
+        table = {
+            "direct-n2": cls.DIRECT_N2,
+            "direct": cls.DIRECT_N2,
+            "n2": cls.DIRECT_N2,
+            "barnes-hut": cls.BARNES_HUT,
+            "bh": cls.BARNES_HUT,
+            "spatial-hash": cls.SPATIAL_HASH,
+            "hash": cls.SPATIAL_HASH,
+        }
+        if key not in table:
+            from nbody_tpu_torch.errors import ValidationError
+
+            raise ValidationError(
+                f"Unknown force method: {name!r} "
+                "(expected direct-n2 | barnes-hut | spatial-hash)"
+            )
+        return table[key]
+
     @property
     def cli_name(self) -> str:
         return {
@@ -29,13 +51,36 @@ class ForceMethod(enum.IntEnum):
 
 
 class InitDistribution(enum.IntEnum):
-    """Initial particle distribution (values shared with the JAX package;
-    only UNIFORM and SPHERICAL have initializers in this package so far)."""
+    """Initial particle distribution (values shared with the JAX package)."""
 
     UNIFORM = 0
     SPHERICAL = 1
     DISK = 2
     PLUMMER = 3
+
+    @classmethod
+    def parse(cls, name: str) -> "InitDistribution":
+        key = name.strip().lower().replace("_", "-")
+        table = {
+            "uniform": cls.UNIFORM,
+            "spherical": cls.SPHERICAL,
+            "sphere": cls.SPHERICAL,
+            "disk": cls.DISK,
+            "plummer": cls.PLUMMER,
+        }
+        if key not in table:
+            from nbody_tpu_torch.errors import ValidationError
+
+            raise ValidationError(f"Unknown init distribution: {name!r}")
+        return table[key]
+
+
+class ColorMode(enum.IntEnum):
+    """Particle coloring mode."""
+
+    DEPTH = 0
+    VELOCITY = 1
+    DENSITY = 2
 
 
 # Hard validation cap shared with the serializer.
@@ -80,6 +125,18 @@ class SimulationConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Rendering configuration (the interactive loop cycles its
+    ``color_mode``; the renderer itself is not ported yet)."""
+
+    window_width: int = 1280
+    window_height: int = 720
+    point_size: float = 2.0
+    color_mode: ColorMode = ColorMode.DEPTH
+    show_stats: bool = True
+
+
 Vec3Like = Tuple[float, float, float]
 
 
@@ -101,3 +158,26 @@ class SphericalDistParams:
     radius: float = 10.0
     min_mass: float = 1.0
     max_mass: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class DiskDistParams:
+    """Rotating disk."""
+
+    center: Vec3Like = (0.0, 0.0, 0.0)
+    radius: float = 10.0
+    thickness: float = 1.0
+    min_mass: float = 1.0
+    max_mass: float = 1.0
+    rotation_speed: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class PlummerDistParams:
+    """Plummer sphere: density ρ(r) ∝ (1 + r²/a²)^(-5/2), truncated at
+    ``max_radius_factor`` scale radii, isotropic velocities."""
+
+    center: Vec3Like = (0.0, 0.0, 0.0)
+    scale_radius: float = 1.0
+    total_mass: float = 1.0
+    max_radius_factor: float = 10.0  # truncate at this many scale radii

@@ -1,8 +1,11 @@
-"""Phase-scoped profiling.
+"""Phase-scoped profiling and JSON benchmark records.
 
-PyTorch counterpart of ``nbody_tpu/utils/profiling.py``'s phase profiler:
-a lock-guarded ``PhaseProfiler`` accumulating (total_ms, samples) per named
-phase, and the ``profile_phase(name)`` context manager.
+PyTorch counterpart of ``nbody_tpu/utils/profiling.py``: a lock-guarded
+``PhaseProfiler`` accumulating (total_ms, samples) per named phase, the
+``profile_phase(name)`` context manager, and ``BenchmarkRunRecord``
+serialized to the JAX package's JSON schema (``{"benchmark_runs":
+[...]}``). Profiling is on by default; ``set_profiling_enabled(False)``
+or ``NBODY_TPU_PROFILING=0`` turns ``profile_phase`` into a no-op.
 
 On a CUDA device a phase is timed with a pair of CUDA events recorded on
 the current stream, so it measures device time without synchronizing the
@@ -15,13 +18,26 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
+import os
 import threading
 import time
-from typing import Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
 MAX_PENDING = 1024
+
+_ENABLED = os.environ.get("NBODY_TPU_PROFILING", "1") != "0"
+
+
+def set_profiling_enabled(enabled: bool) -> None:
+    global _ENABLED
+    _ENABLED = enabled
+
+
+def profiling_enabled() -> bool:
+    return _ENABLED
 
 
 @dataclasses.dataclass
@@ -59,6 +75,13 @@ class PhaseProfiler:
             self._add(name, start.elapsed_time(end))
         self._pending = []
 
+    def snapshot(self) -> Dict[str, PhaseStats]:
+        """Resolve pending event pairs, then return a copy (no drain)."""
+        with self._lock:
+            self._resolve()
+            return {k: PhaseStats(v.total_ms, v.samples)
+                    for k, v in self._phases.items()}
+
     def consume(self) -> Dict[str, PhaseStats]:
         """Resolve pending event pairs, then drain and return."""
         with self._lock:
@@ -67,8 +90,18 @@ class PhaseProfiler:
             self._phases = {}
             return snap
 
+    def reset(self) -> None:
+        """Drop every phase and every pending event pair."""
+        with self._lock:
+            self._phases = {}
+            self._pending = []
+
 
 _GLOBAL = PhaseProfiler()
+
+
+def get_global_profiler() -> PhaseProfiler:
+    return _GLOBAL
 
 
 def consume_global_phase_snapshot() -> Dict[str, PhaseStats]:
@@ -81,7 +114,11 @@ def profile_phase(name: str, device: torch.device | str | None = None,
     """Time the enclosed block as phase ``name`` — with CUDA events on the
     current stream when ``device`` is a CUDA device, else with the host
     clock. One yield on every path: an exception from the block propagates
-    unchanged, and the partial phase is not recorded."""
+    unchanged, and the partial phase is not recorded. A no-op while
+    profiling is disabled."""
+    if not _ENABLED:
+        yield
+        return
     prof = profiler or _GLOBAL
     device = torch.device(device) if device is not None else None
     if device is not None and device.type == "cuda":
@@ -95,3 +132,44 @@ def profile_phase(name: str, device: torch.device | str | None = None,
         t0 = time.perf_counter()
         yield
         prof.record(name, (time.perf_counter() - t0) * 1e3)
+
+
+@dataclasses.dataclass
+class BenchmarkRunRecord:
+    """One benchmark run, in the JAX package's JSON schema."""
+
+    name: str
+    method: str
+    particle_count: int
+    iterations: int
+    metrics: Dict[str, float] = dataclasses.field(default_factory=dict)
+    params: Dict[str, str] = dataclasses.field(default_factory=dict)
+    phase_timings: Dict[str, Dict[str, float]] = dataclasses.field(
+        default_factory=dict
+    )
+
+    def attach_phase_snapshot(self, snapshot: Dict[str, PhaseStats]) -> None:
+        for name, st in sorted(snapshot.items()):
+            self.phase_timings[name] = {
+                "total_ms": st.total_ms,
+                "samples": st.samples,
+                "mean_ms": st.total_ms / max(st.samples, 1),
+            }
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "name": self.name,
+            "method": self.method,
+            "particle_count": self.particle_count,
+            "iterations": self.iterations,
+            "metrics": self.metrics,
+            "params": self.params,
+            "phase_timings": self.phase_timings,
+        }
+
+
+def serialize_benchmark_run_records(records: List[BenchmarkRunRecord]) -> str:
+    """``{"benchmark_runs": [...]}``, indented as the JAX package's."""
+    return json.dumps(
+        {"benchmark_runs": [r.to_dict() for r in records]}, indent=2
+    )

@@ -1095,3 +1095,59 @@ def test_table_holes_are_inert_to_the_sweep(dev):
     got = raw[x, :, s % k, yz]
     want = fresh[x, :, r_new, yz]
     assert _near(got, want, 2e-5)
+
+
+def test_facade_potential_energy_runs_k5(dev):
+    """``compute_potential_energy`` on the card launches K5 once and no
+    plain twin, and is within 1e-5 relative of the plain loop summed in
+    float64 (N = 16384, the spherical scene); ``total_energy`` takes the
+    same route."""
+    from nbody_tpu_torch import ParticleSystem
+    from nbody_tpu_torch.ops.integrator import potential_energy, total_energy
+
+    ps = ParticleSystem()
+    ps.initialize(SimulationConfig(particle_count=16384), device=dev)
+    launches, calls = pairwise_potential.launches, pairwise_potential_plain.calls
+    got = ps.compute_potential_energy()
+    assert pairwise_potential.launches == launches + 1
+    assert pairwise_potential_plain.calls == calls
+    st = ps.state
+    want = float(potential_energy(st.pos.double(), st.mass.double(), 1.0,
+                                  0.1, accumulate="f64"))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    total_energy(st, 1.0, 0.1)
+    assert pairwise_potential.launches == launches + 2
+    assert pairwise_potential_plain.calls == calls
+
+
+def test_cli_export_import_on_card(dev, tmp_path, capsys):
+    """The CLI's benchmark on the card (N = 4096, Barnes-Hut, 4 steps)
+    launches K2, K3 and K4 and no plain twin, prints one record, and its
+    ``--export`` file imports bit-equal, with a(t) bit-equal to
+    ``initialize_forces`` on the imported state."""
+    import json
+
+    from nbody_tpu_torch.app import Application
+    from nbody_tpu_torch.cli import parse_app_cli_options
+
+    path = str(tmp_path / "s.nbody")
+    opts = parse_app_cli_options(["--particles", "4096", "--method", "bh",
+                                  "--benchmark-steps", "4", "--export", path])
+    plains = (tile_scatter_plain.calls, far_taps_plain.calls,
+              tile_sweep_plane_plain.calls)
+    before = tile_scatter.launches
+    app = Application(opts)
+    assert app.run() == 0
+    assert tile_scatter.launches == before + 9   # a(0), warm 4, timed 4
+    assert plains == (tile_scatter_plain.calls, far_taps_plain.calls,
+                      tile_sweep_plane_plain.calls)
+    (rec,) = json.loads(capsys.readouterr().out)["benchmark_runs"]
+    assert rec["iterations"] == 4
+    imp = Application(parse_app_cli_options(["--import", path]))
+    imp._initialize_system()
+    a, b = imp.system.state, app.system.state
+    assert a.pos.is_cuda
+    for x, y in ((a.pos, b.pos), (a.vel, b.vel), (a.mass, b.mass)):
+        assert torch.equal(x, y)
+    assert torch.equal(a.acc, tint.initialize_forces(
+        a, imp.system._force_fn).acc)

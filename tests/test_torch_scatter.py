@@ -128,6 +128,28 @@ def test_wrapper_takes_plain_twin_on_cpu(both):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+def test_plain_twin_float64_sums(both):
+    """``accumulate="f64"``: the same tiles, the same per-row terms summed
+    in float64 (returned as float64) — within the JAX moments' tolerance
+    above and within 1e-6·max|channel| of the float32 sums; an unknown
+    mode raises."""
+    g = both["grid"]
+    args = (g.psort, g.cell_start, both["lo"], both["tcell"])
+    t32, m32 = tile_scatter_plain(*args, d=D, k=K)
+    t64, m64 = tile_scatter_plain(*args, d=D, k=K, accumulate="f64")
+    assert m64.dtype == torch.float64 and torch.equal(t32, t64)
+    jm = np.asarray(both["jtb"].moments)
+    for ch in range(11):
+        scale = float(np.abs(jm[ch]).max())
+        np.testing.assert_allclose(m64[ch].numpy(), jm[ch], rtol=1e-5,
+                                   atol=1e-6 * scale)
+        np.testing.assert_allclose(m32[ch].double().numpy(),
+                                   m64[ch].numpy(), rtol=0,
+                                   atol=1e-6 * scale)
+    with pytest.raises(ValueError, match="accumulate"):
+        tile_scatter_plain(*args, d=D, k=K, accumulate="f16")
+
+
 E = 3  # extra channels: the velocities the table stepping places
 
 

@@ -217,15 +217,26 @@ def test_cuda_device_raises_without_a_card():
 
 
 @pytest.mark.parametrize(
-    "change",
-    [dict(shard_devices=2), dict(init_distribution=InitDistribution.DISK)],
+    "change,raises",
+    [(dict(shard_devices=2), True),
+     (dict(init_distribution=InitDistribution.DISK), False)],
     ids=["shard", "disk"],
 )
-def test_unported_paths_raise_not_implemented(change):
-    """Sharding and the disk distribution are not ported yet."""
+def test_unported_paths_raise_not_implemented(change, raises):
+    """Sharding is not ported yet and raises; the disk distribution, ported
+    since, builds its state on the CPU (a unit-thickness disk of radius
+    10, finite a(t=0))."""
     cfg = SimulationConfig(particle_count=64, **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnb.ParticleSystem().initialize(cfg, device="cpu")
+    s = tnb.ParticleSystem()
+    if raises:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            s.initialize(cfg, device="cpu")
+        return
+    s.initialize(cfg, device="cpu")
+    pos = s.positions()
+    assert pos.shape == (64, 3) and np.abs(pos[:, 2]).max() <= 0.5
+    assert np.hypot(pos[:, 0], pos[:, 1]).max() <= 10.0 * (1 + 1e-6)
+    assert torch.isfinite(s.state.acc).all()
 
 
 @pytest.mark.parametrize(
@@ -354,3 +365,115 @@ def test_profile_phase_records_and_propagates_errors():
     snap = prof.consume()
     assert snap["p"].samples == 2 and "q" not in snap
     assert prof.consume() == {}
+
+
+def _setter_pair(method, scene, **cfg):
+    """Both facades from one numpy state (n = 256). The JAX facade takes
+    its config straight from ``set_state`` (its ``initialize`` would only
+    compile a state that is replaced)."""
+    pos, vel, mass = scene
+    snap = dict(pos=pos, vel=vel, mass=mass, dt=1e-3, G=1.0, softening=0.1)
+    jcfg = jnb.SimulationConfig(particle_count=256,
+                                force_method=jnb.ForceMethod[method], **cfg)
+    js = jnb.ParticleSystem()
+    js._config = jcfg
+    js.set_state(JSnapshot(force_method=jcfg.force_method, **snap))
+    ts = tnb.ParticleSystem()
+    ts.initialize(config_from_reference(jcfg), device="cpu")
+    ts.set_state(SimulationState(force_method=ForceMethod[method], **snap))
+    return js, ts
+
+
+SETTERS = [
+    ("DIRECT_N2", "set_gravitational_constant", 2.0),
+    ("DIRECT_N2", "set_softening", 0.05),
+    ("DIRECT_N2", "set_theta", 0.9),
+    ("DIRECT_N2", "set_force_method", "SPATIAL_HASH"),
+    ("DIRECT_N2", "set_time_step", 2e-3),
+    ("SPATIAL_HASH", "set_cell_size", 0.75),
+    ("SPATIAL_HASH", "set_cutoff", 1.5),
+    ("SPATIAL_HASH", "set_force_method", "DIRECT_N2"),
+]
+
+
+@pytest.mark.parametrize("method,setter,value", SETTERS,
+                         ids=[f"{m}-{f}" for m, f, _ in SETTERS])
+def test_setters_match_the_jax_facade(method, setter, value):
+    """Each live setter on both facades from one state (n = 256: direct,
+    the dense hash: a ball of radius 2.5, auto → window): the same config
+    after it, a(t) right after it within
+    1e-5·max|a| (recomputed by ``set_force_method``, kept by the parameter
+    setters), then run_steps(3): positions within rtol 2e-4 / atol 1e-5 and
+    velocities within rtol 2e-3 / atol 1e-4, the facade tests' tolerance."""
+    js, ts = _setter_pair(method, _ball_snapshot(256, 2.5, seed=36))
+    acc0 = ts.state.acc.clone()
+    arg = value
+    if setter == "set_force_method":
+        getattr(js, setter)(jnb.ForceMethod[value])
+        arg = ForceMethod[value]
+    else:
+        getattr(js, setter)(value)
+    getattr(ts, setter)(arg)
+    assert config_from_reference(js.config) == ts.config
+    want = np.asarray(js.state.acc)
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(ts.state.acc.numpy(), want, rtol=0,
+                               atol=1e-5 * scale)
+    if setter == "set_force_method":
+        assert not torch.equal(ts.state.acc, acc0)
+    else:
+        assert torch.equal(ts.state.acc, acc0)
+    for s in (js, ts):
+        s.run_steps(3)
+    assert abs(ts.simulation_time - js.simulation_time) < 1e-6
+    np.testing.assert_allclose(ts.positions(), js.positions(), rtol=2e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(ts.velocities(), js.velocities(), rtol=2e-3,
+                               atol=1e-4)
+    if ts.config.force_method == ForceMethod.SPATIAL_HASH:
+        assert ts.audit_short_range() == js.audit_short_range()
+
+
+def test_setters_validate_like_jax():
+    s = tnb.ParticleSystem()
+    s.initialize(SimulationConfig(particle_count=32), device="cpu")
+    for setter, bad in (("set_gravitational_constant", 0.0),
+                        ("set_softening", -1.0), ("set_theta", 3.0),
+                        ("set_cell_size", 0.0), ("set_cutoff", -2.0),
+                        ("set_time_step", 5.0)):
+        with pytest.raises(tnb.ValidationError):
+            getattr(s, setter)(bad)
+    assert s.config == SimulationConfig(particle_count=32)
+
+
+def test_save_load_state_and_diagnostics(tmp_path):
+    """save_state then load_state on another system: pos, vel, mass bit
+    for bit, the file's scalars, a(t) recomputed; the file loads in the
+    JAX facade; ``diagnostics()`` has the JAX facade's keys."""
+    pos, vel, mass = _uniform_snapshot(128, 3.0, seed=37)
+    s = tnb.ParticleSystem()
+    s.initialize(SimulationConfig(particle_count=128), device="cpu")
+    s.set_state(SimulationState(pos=pos, vel=vel, mass=mass,
+                                force_method=ForceMethod.DIRECT_N2,
+                                dt=2e-3, G=1.5, softening=0.2))
+    s.run_steps(2)
+    path = str(tmp_path / "s.nbody")
+    s.save_state(path)
+    t = tnb.ParticleSystem()
+    t.load_state(path, device="cpu")
+    for a, b in ((t.state.pos, s.state.pos), (t.state.vel, s.state.vel),
+                 (t.state.mass, s.state.mass)):
+        assert torch.equal(a, b)
+    assert (t.config.dt, t.config.G, t.config.softening) == (
+        pytest.approx(2e-3), 1.5, pytest.approx(0.2))
+    assert t.particle_count == 128 and abs(t.simulation_time - 4e-3) < 1e-6
+    np.testing.assert_allclose(t.state.acc.numpy(), s.state.acc.numpy(),
+                               rtol=1e-5, atol=1e-6)
+    js = jnb.ParticleSystem()
+    js.load_state(path)
+    np.testing.assert_array_equal(js.positions(), s.positions())
+    d = t.diagnostics()
+    assert d.keys() == js.diagnostics().keys()
+    assert (d["backend"], d["devices"], d["force_distribution"],
+            d["particle_count"], d["state_bytes"]) == (
+        "cpu", 1, "single-device", 128, 128 * 40)
