@@ -138,7 +138,29 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
            with the ``SerializationError`` text and write nothing; with it,
            a round trip;
        k7. ``ParticleSystem.compute_potential_energy`` at 100K: one K5
-           launch and no twin, K5 held to its twin there (``k5_held``).
+           launch and no twin, K5 held to its twin there (``k5_held``);
+  7. rendering (``render_phase``):
+       r1. R1 (``render_points``, the point splat) against its twin on the
+           1M Barnes-Hut step-0 scene at 1280x720, at the app's camera and
+           a close one (distance 5: radii 2-8, points behind the eye and
+           off screen), in each color mode: px, py, size and colours bit
+           for bit, the image within 1e-5 of the twin's terms summed in
+           float64, the uint8 copy exact; call and graph-replay time,
+           kernels a call, the byte bound and the float atomics issued;
+       r2. ``python -m nbody_tpu_torch.cli --particles 1000000 --method
+           barnes-hut --render --render-output DIR --steps 30`` as a
+           subprocess: exit 0 and exactly frame_00000..frame_00028.png,
+           each decoded with the standard library to 720x1280x3 with
+           something drawn; the same run in this process, counted (R1 29
+           times), then ``--render`` alone and the plain loop: frames/s of
+           each loop and ms a frame for the step, R1, the copy and the PNG
+           write; the last frame against R1 on the state after 29 updates
+           made again here (within one uint8 step);
+       r3. ``--live --steps 10`` as a subprocess: one clear and 9 frames;
+           ``TerminalView.compose`` on the card equals it on the host copy;
+       r4. ``PointStream`` on the card: a request then two steps, and
+           ``latest()`` is the state at request time bit for bit;
+           ``verify_data_integrity``.
 
 It stops at the first failed check with a non-zero exit. It needs one CUDA
 card and exits non-zero without one. The last two lines of its output are
@@ -1985,6 +2007,269 @@ def cli_phase(res, wrappers, plains, none, keep, smi, dev, levels):
     return readings
 
 
+# Phase 7 (r): rendering. The CLI's render path: its defaults (the
+# spherical scene, BH tiles at d 64, k 16) at 1M, 30 steps.
+RENDER_ARGV = ["--particles", str(N), "--method", "barnes-hut", "--steps",
+               "30"]
+APP_CAMERA = dict(distance=45.0, azimuth=0.7, elevation=0.75)
+CLOSE_CAMERA = dict(distance=5.0, azimuth=0.7, elevation=0.75)
+
+
+def read_png(path):
+    """An 8-bit RGB PNG with filter 0 on every row (the port's writer),
+    decoded with the standard library → (H, W, 3) uint8 array."""
+    import binascii
+    import struct
+    import zlib
+
+    import numpy as np
+
+    data = Path(path).read_bytes()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+    at, idat, size = 8, b"", None
+    while at < len(data):
+        (length,) = struct.unpack(">I", data[at:at + 4])
+        kind, body = data[at + 4:at + 8], data[at + 8:at + 8 + length]
+        (crc,) = struct.unpack(">I", data[at + 8 + length:at + 12 + length])
+        check(binascii.crc32(kind + body) == crc, f"{path}: bad {kind} CRC")
+        if kind == b"IHDR":
+            w, h, depth, ctype = struct.unpack(">IIBB", body[:10])
+            check((depth, ctype) == (8, 2), f"{path}: not 8-bit RGB")
+            size = (h, w)
+        elif kind == b"IDAT":
+            idat += body
+        at += 12 + length
+    h, w = size
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    check(bool((raw[:, 0] == 0).all()), f"{path}: a row filter is not 0")
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def r1_atomics(sprites, width, height) -> int:
+    """The float atomics R1 issues for these sprites: 3 for each pixel of
+    each visible point's disc that lies inside the image."""
+    import torch
+
+    from nbody_tpu_torch.ops.render import _disc, _round_half_away
+
+    px, py, size, _ = sprites
+    vis = size > 0
+    cx, cy = _round_half_away(px[vis]), _round_half_away(py[vis])
+    radius = _round_half_away(size[vis] * 0.5).clamp(min=1)
+    total = 0
+    for r in range(1, 9):
+        sel = radius == r
+        dy, dx, _, _ = _disc(r)
+        dy = torch.from_numpy(dy).to(px.device)
+        dx = torch.from_numpy(dx).to(px.device)
+        uy, ux = cy[sel][:, None] + dy, cx[sel][:, None] + dx
+        total += int(((uy >= 0) & (uy < height) & (ux >= 0)
+                      & (ux < width)).sum())
+    return 3 * total
+
+
+def r1_checks(res, scene):
+    """r1: R1 against its twin on the 1M BH step-0 scene at 1280×720, at
+    the app's camera and a close one (inside the cloud: radii 2-8, points
+    behind the eye and off screen), in each color mode. px, py, size and
+    colours bit-equal; the image within 1e-5 of the twin's float32 terms
+    summed in float64; the uint8 copy (img·255) truncated. Times the app's
+    call form (with the uint8 copy)."""
+    import torch
+
+    from nbody_tpu_torch.ops.render import render_points, render_points_plain
+    from nbody_tpu_torch.render import Camera
+    from nbody_tpu_torch.types import ColorMode
+
+    pos, vel = scene.pos, scene.vel
+    n, width, height = pos.shape[0], 1280, 720
+    for cam_name, cam_kw in (("app", APP_CAMERA), ("close", CLOSE_CAMERA)):
+        cam = Camera(**cam_kw)
+        for mode in ColorMode:
+            label = f"{cam_name} camera, {mode.name}"
+            kw = dict(width=width, height=height, point_size=2.0, mode=mode)
+            got = render_points(pos, vel, cam, uint8=True, sprites=True, **kw)
+            want = render_points_plain(pos, vel, cam, accumulate="f64",
+                                       sprites=True, **kw)
+            for name, g, w in zip(("px", "py", "size", "rgb"), got.sprites,
+                                  want.sprites):
+                check(torch.equal(g, w), f"R1 {label}: {name} differs from "
+                      f"the twin's")
+            e = float((got.image - want.image).abs().max())
+            check(e <= 1e-5, f"R1 {label}: image max|diff| {e} > 1e-5")
+            check(torch.equal(got.image_u8,
+                              (got.image * 255).to(torch.uint8)),
+                  f"R1 {label}: uint8 copy is not (img*255) truncated")
+            size = got.sprites[2]
+            vis = int((size > 0).sum())
+            radii = torch.bincount(torch.round(size[size > 0] * 0.5).clamp(
+                min=1).long(), minlength=9)[1:].tolist()
+            atomics = r1_atomics(got.sprites, width, height)
+
+            def call():
+                return render_points(pos, vel, cam, uint8=True, **kw)
+
+            # points read once (velocities in VELOCITY mode), the float32
+            # image and its uint8 copy written once
+            nbytes = (12 + 12 * (mode == ColorMode.VELOCITY)) * n + (
+                width * height * 3 * 5)
+            # beside it: both arrays read, the image written, read and
+            # written again by the atomics' read-modify-write
+            rmw_bytes = 24 * n + width * height * 3 * (4 * 3 + 1)
+            rec = dict(
+                max_abs_err=e,
+                ms=time_ms(call),
+                device_ms=graph_ms(call),
+                kernels_per_call=graph_kernels(call),
+                plain_ms=time_ms(lambda: render_points_plain(
+                    pos, vel, cam, uint8=True, **kw), reps=3, warm=1),
+                **bound(0, nbytes),
+                library_ms=None,
+                visible=vis, atomics=atomics,
+                rmw_bound_ms=rmw_bytes / HBM_BYTES * 1e3,
+            )
+            add_shape(res, "render_points", label, rec)
+            print(f"R1 render_points {label} (N = {n}, {width}x{height}): "
+                  f"{vis} visible, sprites per radius 1-8 {radii}; px, py, "
+                  f"size, rgb bit-equal to the twin, image max|diff| "
+                  f"{e:.3e} against the twin summed in float64 (tol 1e-5), "
+                  f"uint8 copy exact; kernel {rec['ms']:.4f} ms a call "
+                  f"({rec['device_ms']:.4f} ms of device time, "
+                  f"{rec['kernels_per_call']} kernels a call, CUDA graph), "
+                  f"plain {rec['plain_ms']:.4f} ms, bound "
+                  f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
+                  f"{nbytes} B; {rec['rmw_bound_ms']:.4f} ms with the "
+                  f"image's read-modify-write, {rmw_bytes} B), {atomics} "
+                  f"float atomics")
+
+
+def app_run(label, argv, want, wrappers, plains, smi, keep):
+    """``Application(parse_app_cli_options(argv)).run()`` in this process
+    under ``counted_run`` (stdout captured); returns the app's phases,
+    whose ``app.loop`` is the step loop to its last device work."""
+    from nbody_tpu_torch.app import Application
+    from nbody_tpu_torch.cli import parse_app_cli_options
+
+    app = Application(parse_app_cli_options(argv))
+    launches, (rc, text), phases = counted_run(
+        label, 30, lambda: captured(app.run), want, wrappers, plains, smi)
+    keep(label, launches)
+    check(rc == 0, f"{label}: exit code {rc}")
+    summary = json.loads(text.strip().splitlines()[-1])
+    check(summary["steps"] == 30, f"{label}: summary {summary}")
+    loop = phases["app.loop"].total_ms / 1e3
+    print(f"  {label}: step loop {loop:.4f} s = {30 / loop:.3f} frames/s "
+          f"({smi})")
+    return phases, 30 / loop
+
+
+def render_phase(res, scene, wrappers, plains, none, keep, smi, dev, levels):
+    """Phase 7 (r): R1 against its twin (r1); the CLI's render path at 1M
+    as a subprocess and in this process, counted (r2); the live view
+    (r3); ``PointStream`` on the card (r4). Returns the readings."""
+    import torch
+
+    from nbody_tpu_torch import ParticleSystem
+    from nbody_tpu_torch.cli import parse_app_cli_options
+    from nbody_tpu_torch.render import Camera, PointStream, TerminalView
+    from nbody_tpu_torch.render.renderer import PointRenderer
+
+    r1_checks(res, scene)
+    frames = [f"frame_{k:05d}.png" for k in range(29)]
+    bh = {**none, "tile_scatter": 31, "far_taps": 31 * levels,
+          "tile_sweep_plane": 31, "pairwise_potential": 1}
+    readings = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "cli"
+        t0 = time.perf_counter()
+        run = cli_subprocess(RENDER_ARGV + ["--render", "--render-output",
+                                            str(out)])
+        wall = time.perf_counter() - t0
+        check(run.returncode == 0, f"r2 CLI --render: exit "
+              f"{run.returncode}: {run.stderr[-2000:]}")
+        got = sorted(p.name for p in out.iterdir())
+        check(got == frames, f"r2: files {got[:3]}...{got[-3:]} "
+              f"({len(got)}), expected frame_00000..frame_00028.png")
+        for name in frames:
+            img = read_png(out / name)
+            check(img.shape == (720, 1280, 3) and img.max() > 0,
+                  f"r2 {name}: shape {img.shape}, max {img.max()}")
+        print(f"r2 python -m {CLI_MODULE} {' '.join(RENDER_ARGV)} --render "
+              f"--render-output DIR: exit 0 in {wall:.2f} s, 29 PNG files "
+              f"frame_00000..frame_00028, each 720x1280x3 with something "
+              f"drawn; stderr: {run.stderr.strip().splitlines()[-2:]}")
+
+        own = Path(tmp) / "own"
+        phases, fps = app_run(
+            "r2 app 1M BH --render --render-output",
+            RENDER_ARGV + ["--render", "--render-output", str(own)],
+            {**bh, "render_points": 29}, wrappers, plains, smi, keep)
+        readings["frames/s, --render --render-output"] = fps
+        # update: device span of a step; render: of R1's call; copy: on
+        # the side stream; encode: host clock (PNG encode + write)
+        split = {k: phases[k].total_ms / phases[k].samples
+                 for k in ("simulation.update", "render.frame",
+                           "render.copy", "render.encode") if k in phases}
+        readings["ms a frame"] = split
+        print(f"  ms a frame: {json.dumps(split)} ({smi})")
+        _, fps = app_run("r2 app 1M BH --render", RENDER_ARGV + ["--render"],
+                         {**bh, "render_points": 29}, wrappers, plains, smi,
+                         keep)
+        readings["frames/s, --render"] = fps
+        _, fps = app_run("r2 app 1M BH, no render", RENDER_ARGV, bh,
+                         wrappers, plains, smi, keep)
+        readings["frames/s, step loop"] = fps
+
+        # the last frame (the state after 29 updates) made again here
+        ps = ParticleSystem()
+        ps.initialize(parse_app_cli_options(RENDER_ARGV).to_config(),
+                      device=dev)
+        for _ in range(29):
+            ps.update()
+        st = ps.state
+        again = PointRenderer(camera=Camera(**APP_CAMERA)).frame(
+            st.pos, st.vel).cpu().numpy().astype(int)
+        for where in (out, own):
+            diff = abs(read_png(where / frames[-1]).astype(int) - again)
+            check(int(diff.max()) <= 1, f"r2 {where.name} {frames[-1]}: "
+                  f"max diff {int(diff.max())} against R1 on the state "
+                  f"after 29 updates made here")
+            print(f"r2 {where.name}/{frames[-1]} against R1 on the state "
+                  f"after 29 updates made here: {int((diff > 0).sum())} "
+                  f"values differ, by at most {int(diff.max())} (a float "
+                  f"atomic sum crossing a uint8 step)")
+
+    run = cli_subprocess(RENDER_ARGV[:4] + ["--live", "--steps", "10"])
+    check(run.returncode == 0, f"r3 --live: exit {run.returncode}: "
+          f"{run.stderr[-2000:]}")
+    text = run.stdout
+    clears, homes = text.count("\x1b[2J"), text.count("\x1b[H")
+    check((clears, homes) == (1, 9), f"r3 --live --steps 10: {clears} "
+          f"clears, {homes} frames (expected 1, 9)")
+    summary = json.loads(text.strip().splitlines()[-1])
+    check(summary["steps"] == 10, f"r3: summary {summary}")
+    view = TerminalView(Camera(**APP_CAMERA))
+    check(view.compose(st.pos, "s") == view.compose(st.pos.cpu().numpy(),
+                                                    "s"),
+          "r3: compose on the card differs from compose on the host copy")
+    print(f"r3 --live --steps 10: exit 0, 1 clear, 9 frames, summary "
+          f"{json.dumps(summary)}; compose on the card == on the host copy "
+          f"(grid sum {int(view.raster(st.pos).sum())})")
+
+    stream = PointStream(ps)
+    want = ps.state.pos.cpu()
+    stream.request()
+    ps.update()
+    ps.update()
+    snap = stream.latest()
+    check(torch.equal(torch.from_numpy(snap.positions), want),
+          "r4: the snapshot is not the state at request time")
+    check(stream.verify_data_integrity(), "r4: verify_data_integrity")
+    print("r4 PointStream: request, 2 steps, latest() = the positions at "
+          "request time bit for bit; verify_data_integrity True")
+    return readings
+
+
 def main() -> None:
     import torch
 
@@ -2038,6 +2323,7 @@ def main() -> None:
         window_sweep_kernel,
         window_sweep_plain,
     )
+    from nbody_tpu_torch.ops.render import render_points, render_points_plain
 
     # Every matmul and convolution on the card in FP32.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2104,12 +2390,13 @@ def main() -> None:
         "bitonic_sort": bitonic_sort_pairs,
         "table_drift": T.table_drift,
         "table_kick": T.table_kick,
+        "render_points": render_points,
     }
     plains = [direct_forces, tile_scatter_plain, tile_place_plain,
               far_taps_plain, tile_sweep_plane_plain, window_sweep_plain,
               pairwise_potential_plain, segment_sum_plain,
               bitonic_sort_pairs_plain, T.table_drift_plain,
-              T.table_kick_plain]
+              T.table_kick_plain, render_points_plain]
     none = {name: 0 for name in wrappers}
     by_path = {name: {} for name in wrappers}
 
@@ -2218,6 +2505,11 @@ def main() -> None:
     # Phase 6 (k): the CLI entry point
     readings = cli_phase(res, wrappers, plains, none, keep, smi, dev, levels)
     print(f"cli readings: {json.dumps(readings)} ({smi})")
+
+    # Phase 7 (r): rendering
+    readings = render_phase(res, scene, wrappers, plains, none, keep, smi,
+                            dev, levels)
+    print(f"render readings: {json.dumps(readings)} ({smi})")
     print(f"launches by path: {by_path}")
 
     sources = {
@@ -2244,6 +2536,11 @@ def main() -> None:
                         "nbody_tpu/ops/table_step.py:324 (XLA fusion)"),
         "table_kick": ("nbody_tpu_torch/csrc/table_step.cu",
                        "nbody_tpu/ops/table_step.py:399 (XLA fusion)"),
+        # no TPU kernel: the JAX package renders on the host
+        "render_points": ("nbody_tpu_torch/csrc/render.cu",
+                          "native/rasterizer.cpp:23 + "
+                          "nbody_tpu/render/renderer.py:77 (host code, no "
+                          "TPU kernel)"),
     }
     for name in sources:
         check(bool(by_path[name]), f"{name} never launched on a timed path")

@@ -11,8 +11,10 @@ tiles engines) forces, Velocity Verlet with cell-sorted, frozen-grid and
 table-resident stepping, energies (the exact all-pairs potential), the
 energy-drift measurement (``drift.run_drift``), the bitonic sort
 (``ops.sort``), the ``ParticleSystem`` facade with its live setters,
-``.nbody`` and HDF5 state IO (``utils``), and the application entry
-point (``python -m nbody_tpu_torch.cli``, ``app.Application``). The CUDA
+``.nbody`` and HDF5 state IO (``utils``), rendering on the card
+(``render``: camera, colours, the point renderer, the point stream, the
+terminal view), and the application entry point (``python -m
+nbody_tpu_torch.cli``, ``app.Application``). The CUDA
 kernels (``csrc/``) build on first use; see ``ops/_build.py``.
 """
 

@@ -4,19 +4,20 @@ PyTorch-package counterpart of ``nbody_tpu/app.py``. Benchmark mode runs
 the JAX package's flow: initialize (and import) → one warm chunk → the
 timed chunks → optional export → the ``BenchmarkRunRecord`` JSON on stdout
 (and in ``--benchmark-output``), with the phase timings. The step loop is
-the JAX loop without rendering: key controls through the ``UIPanel``
-handshake, per-second stats on stderr, and a final JSON summary.
+the JAX loop: key controls through the ``UIPanel`` handshake, per-second
+stats, a final JSON summary, and with ``--render`` / ``--live`` the frames
+rendered on the card (``nbody_tpu_torch.render``), written as the JAX
+app's PNG files or drawn in the terminal.
 
 Everything runs on the CUDA card unless the caller passes ``device="cpu"``
 (the tests do); without a card ``Application`` raises, apart from
-``--diagnostics``, which only reports. ``--render`` and ``--live`` are not
-ported (ROADMAP A7) and raise ``NotImplementedError``.
+``--diagnostics``, which only reports.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
-import dataclasses
 import json
 import os
 import sys
@@ -26,6 +27,10 @@ import torch
 
 from nbody_tpu_torch.cli import AppCliOptions
 from nbody_tpu_torch.ops.integrator import sampled_total_energy
+from nbody_tpu_torch.render.camera import Camera
+from nbody_tpu_torch.render.renderer import PointRenderer, png_rows, write_png
+from nbody_tpu_torch.render.stream import HostDoubleBuffer
+from nbody_tpu_torch.render.terminal import TerminalView
 from nbody_tpu_torch.render.ui import UIPanel
 from nbody_tpu_torch.system import ParticleSystem
 from nbody_tpu_torch.types import ColorMode, ForceMethod, RenderConfig
@@ -33,13 +38,14 @@ from nbody_tpu_torch.utils.hdf5_io import HAVE_HDF5, HDF5IO
 from nbody_tpu_torch.utils.profiling import (
     BenchmarkRunRecord,
     consume_global_phase_snapshot,
+    profile_phase,
     serialize_benchmark_run_records,
 )
 
 # Key → action: Space pause/resume, r reset, 1/2/3 force method, c color
 # mode cycle, p panel toggle, q/Esc quit; h/l orbit azimuth, j/k orbit
-# elevation, +/- zoom, 0 camera reset (camera keys act once a renderer's
-# camera exists).
+# elevation, +/- zoom, 0 camera reset (the camera keys act once --render or
+# --live made a camera).
 _CAM_STEP = 0.15  # radians per keypress
 KEY_ACTIONS = {
     " ": "toggle_pause",
@@ -111,6 +117,11 @@ class Application:
         self.device = device
         self.system = ParticleSystem()
         self.render_config = RenderConfig()
+        # the step loop's controls and views (set by run_interactive)
+        self.panel = UIPanel()
+        self.camera = self.renderer = self.live_view = None
+        self._stats_line = ""
+        self._write = None  # the PNG write in flight
 
     # ---- top-level dispatch ------------------------------------------------
 
@@ -254,78 +265,165 @@ class Application:
 
     # ---- step loop ----------------------------------------------------------
 
+    def _apply_action(self, action) -> bool:
+        """Act on one key's action between steps; True for quit. The panel
+        takes pause, reset, a method switch and its visibility; ``c``
+        cycles the renderer's color mode once a renderer exists; the
+        camera keys move the loop's camera."""
+        if action == "quit":
+            return True
+        if action == "toggle_pause":
+            self.panel.click_pause()
+        elif action == "reset":
+            self.panel.click_reset()
+        elif action and action.startswith("method:"):
+            self.panel.select_method(
+                ForceMethod.parse(action.split(":", 1)[1]))
+        elif action == "cycle_color":
+            if self.renderer is not None:
+                mode = self.renderer.config.color_mode
+                self.renderer.set_color_mode(
+                    ColorMode((mode + 1) % len(ColorMode)))
+        elif action == "toggle_panel":
+            self.panel.toggle_visibility()
+        else:
+            apply_camera_action(self.camera, action)
+        return False
+
+    def _start_frame(self, copies: HostDoubleBuffer):
+        """Render the current state where it lies and start copying what
+        the host needs of it: the uint8 image when frames are written, the
+        terminal view's count grid when live. None when nothing is
+        copied."""
+        st, out = self.system.state, []
+        if self.renderer is not None:
+            with profile_phase("render.frame", device=st.pos.device):
+                image = self.renderer.frame(st.pos, st.vel)
+            if self.options.render_output:
+                out.append(image)
+        if self.live_view is not None:
+            out.append(self.live_view.raster(st.pos))
+        return copies.put(*out) if out else None
+
+    def _finish_frame(self, copy, frame: int, writer) -> None:
+        """Frame ``frame`` from its copy: its PNG handed to ``writer`` (one
+        write in flight: the previous one is waited for first), and drawn
+        live."""
+        host = copy.wait()
+        if self.renderer is not None and self.options.render_output:
+            rows = png_rows(host[0])
+            self._wait_write()
+            self._write = writer.submit(
+                self._encode, os.path.join(self.options.render_output,
+                                           f"frame_{frame:05d}.png"), rows)
+        if self.live_view is not None:
+            self.live_view.show(self.live_view.frame(host[-1],
+                                                     self._stats_line))
+
+    @staticmethod
+    def _encode(path: str, rows) -> None:
+        with profile_phase("render.encode"):
+            write_png(path, rows)
+
+    def _wait_write(self) -> None:
+        """Wait for the PNG write in flight, raising its error."""
+        if self._write is not None:
+            write, self._write = self._write, None
+            write.result()
+
     def run_interactive(self) -> int:
         """``--steps`` steps (1000 when unset) of ``update()``, with the
         panel's flags consumed before each step (pause/resume, reset, a
-        method switch), key controls read from a TTY, per-second stats on
-        stderr, and a JSON summary at the end: the exact total energy up
-        to ``EXACT_ENERGY_MAX_N`` particles, the sampled estimate above."""
+        method switch), key controls read from a TTY, per-second stats
+        (on stderr unless the live view shows them), and a JSON summary at
+        the end: the exact total energy up to ``EXACT_ENERGY_MAX_N``
+        particles, the sampled estimate above.
+
+        ``--render`` renders each state but the last right after its
+        update, where the state lies (kernel R1 on the card), and with
+        ``--render-output`` copies its uint8 image to the host on a side
+        stream; the previous frame's PNG is compressed and written by a
+        writer thread while the loop launches the next step. ``--live``
+        draws the same frames in the terminal (only the count grid crosses
+        to the host). Frame k is the state after k + 1 updates, and the
+        last state is not drawn, as in the JAX app (which draws each
+        update's snapshot after the next update)."""
         o = self.options
-        if o.render or o.live:
-            raise NotImplementedError(
-                "--render / --live: the renderer is not ported to "
-                "nbody_tpu_torch yet (ROADMAP A7)")
         self._initialize_system()
 
-        panel = UIPanel()
+        if o.render or o.live:
+            self.camera = Camera(distance=45.0, azimuth=0.7, elevation=0.75)
+            if o.render:
+                self.renderer = PointRenderer(self.render_config, self.camera)
+            if o.live:
+                self.live_view = TerminalView(camera=self.camera)
+        if o.render_output:
+            os.makedirs(o.render_output, exist_ok=True)
+        copies = HostDoubleBuffer()
+        pending = None  # (copy, frame) of the last state rendered
         steps = o.steps if o.steps > 0 else 1000
         fps_t0 = time.perf_counter()
         fps_frames = 0
         interactive_tty = sys.stdin.isatty()
-        for frame in range(steps):
-            if interactive_tty:
-                for key in _poll_keys():
-                    action = key_to_action(key)
-                    if action == "quit":
-                        self.system.synchronize()
-                        self._export_if_requested()
-                        print(json.dumps({"steps": frame, "quit": True}))
-                        return 0
-                    if action == "toggle_pause":
-                        panel.click_pause()
-                    elif action == "reset":
-                        panel.click_reset()
-                    elif action and action.startswith("method:"):
-                        panel.select_method(
-                            ForceMethod.parse(action.split(":", 1)[1]))
-                    elif action == "cycle_color":
-                        mode = self.render_config.color_mode
-                        self.render_config = dataclasses.replace(
-                            self.render_config,
-                            color_mode=ColorMode((mode + 1) % len(ColorMode)))
-                    elif action == "toggle_panel":
-                        panel.toggle_visibility()
-            if panel.consume_pause_clicked():
-                if self.system.is_paused:
-                    self.system.resume()
-                else:
-                    self.system.pause()
-            if panel.consume_reset_clicked():
-                self.system.reset()
-            new_method = panel.consume_method_change()
-            if new_method is not None:
-                self.system.set_force_method(new_method)
-            self.system.update()
-            if o.debug_nans:
-                self._check_finite(f"step {frame}")
-            fps_frames += 1
-            now = time.perf_counter()
-            if now - fps_t0 >= 1.0:
-                self.system.synchronize()
-                fps = fps_frames / (now - fps_t0)
-                method = self.system.config.force_method.cli_name
-                panel.set_stats(
-                    fps=fps,
-                    particle_count=self.system.particle_count,
-                    method=method,
-                    sim_time=self.system.simulation_time,
-                )
-                print(f"t={self.system.simulation_time:.3f} "
-                      f"N={self.system.particle_count} {method} "
-                      f"{fps:.1f} steps/s", file=sys.stderr)
-                fps_t0, fps_frames = now, 0
+        # the loop to its last device work, on the host clock; the PNG
+        # files are compressed and written by one thread beside it (zlib
+        # releases the interpreter lock), so the steps never wait on them
+        with profile_phase("app.loop"), \
+                concurrent.futures.ThreadPoolExecutor(1) as writer:
+            for frame in range(steps):
+                if interactive_tty:
+                    for key in _poll_keys():
+                        if self._apply_action(key_to_action(key)):
+                            self.system.synchronize()
+                            self._wait_write()
+                            if self.live_view is not None:
+                                self.live_view.close()
+                            self._export_if_requested()
+                            print(json.dumps({"steps": frame, "quit": True}))
+                            return 0
+                if self.panel.consume_pause_clicked():
+                    if self.system.is_paused:
+                        self.system.resume()
+                    else:
+                        self.system.pause()
+                if self.panel.consume_reset_clicked():
+                    self.system.reset()
+                new_method = self.panel.consume_method_change()
+                if new_method is not None:
+                    self.system.set_force_method(new_method)
+                self.system.update()
+                if o.debug_nans:
+                    self._check_finite(f"step {frame}")
+                fps_frames += 1
+                shown = None
+                if (self.renderer or self.live_view) and frame < steps - 1:
+                    shown = self._start_frame(copies)
+                if pending is not None:
+                    self._finish_frame(*pending, writer)
+                pending = None if shown is None else (shown, frame)
+                now = time.perf_counter()
+                if now - fps_t0 >= 1.0:
+                    self.system.synchronize()
+                    fps = fps_frames / (now - fps_t0)
+                    method = self.system.config.force_method.cli_name
+                    self.panel.set_stats(
+                        fps=fps,
+                        particle_count=self.system.particle_count,
+                        method=method,
+                        sim_time=self.system.simulation_time,
+                    )
+                    self._stats_line = (
+                        f"t={self.system.simulation_time:.3f} "
+                        f"N={self.system.particle_count} {method} "
+                        f"{fps:.1f} steps/s")
+                    if self.live_view is None:
+                        print(self._stats_line, file=sys.stderr)
+                    fps_t0, fps_frames = now, 0
 
-        self.system.synchronize()
+            self.system.synchronize()
+            self._wait_write()
+        if self.live_view is not None:
+            self.live_view.close()
         self._export_if_requested()
         if self.system.particle_count <= EXACT_ENERGY_MAX_N:
             energy = self.system.compute_total_energy()

@@ -393,7 +393,7 @@ Data export/import:
   --export-format FMT    Export format: checkpoint (default) | hdf5
   --import PATH          Load a particle state from PATH
 
-Rendering (not ported yet: these raise NotImplementedError):
+Rendering (on the card; PNG frames or the terminal view):
   --render               Render frames while stepping
   --render-output DIR    Write PNG frames to DIR
   --live                 Live ANSI terminal view (in-place redraw)

@@ -39,6 +39,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 # C signature of every entry point (each returns int = cudaError_t).
 SIGNATURES = {
     # tgt, nt, src_pos, src_mass, ns, range (rows), G, eps2, acc, scratch,
@@ -78,6 +79,10 @@ SIGNATURES = {
     # keys_in, vals_in, n, m, plan (host), n_launches, work, keys_out,
     # vals_out, stream
     "nbt_bitonic_sort": (_P, _P, _I, _I, _P, _I, _P, _P, _P, _P),
+    # pos, vel, n, mats (host), half_near, ps30, mode, width, height, img,
+    # u8, pts, key, rgb, range, stream
+    "nbt_render_points": (_P, _P, _I, _P, _D, _D, _I, _I, _I, _P, _P, _P,
+                          _P, _P, _P, _P),
 }
 
 # Entry points that launch nothing: name -> (argument types, result type).

@@ -127,8 +127,8 @@ class SimulationConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """Rendering configuration (the interactive loop cycles its
-    ``color_mode``; the renderer itself is not ported yet)."""
+    """Rendering configuration: the frame size, the point size and the
+    color mode of ``render.PointRenderer``."""
 
     window_width: int = 1280
     window_height: int = 720

@@ -1,15 +1,18 @@
 """nbody_tpu_torch ``Application`` against the JAX package's (CPU, with
 ``device="cpu"``): the benchmark record, export/import, the step loop's
-summary, the key controls and the panel handshake, and what is refused."""
+summary, the key controls and the panel handshake, the rendered frames
+and the live view, and what is refused."""
 
 import json
 
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 import nbody_tpu.app as japp
 import nbody_tpu.cli as jcli
+import nbody_tpu.render.camera as jcam
 import nbody_tpu.render.ui as jui
 import nbody_tpu.types as jtypes
 import nbody_tpu.utils.profiling as jprof
@@ -19,7 +22,7 @@ import nbody_tpu_torch.cli as tcli
 import nbody_tpu_torch.render.ui as tui
 import nbody_tpu_torch.utils.profiling as tprof
 from nbody_tpu_torch.ops.integrator import initialize_forces
-from nbody_tpu_torch.types import ForceMethod
+from nbody_tpu_torch.types import ColorMode, ForceMethod
 from nbody_tpu_torch.utils import serialization as tser
 
 
@@ -198,9 +201,6 @@ def test_ui_panel_handshake_matches_jax():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--render"], "ROADMAP A7"),
-    (["--live"], "ROADMAP A7"),
-    (["--render-output", "frames"], "ROADMAP A7"),
     (["--devices", "2", "--benchmark"], "ROADMAP A10"),
     (["--devices", "2", "--steps", "1"], "ROADMAP A10"),
 ])
@@ -209,6 +209,101 @@ def test_unported_flags_raise(argv, match):
         ["--particles", "32"] + argv), device="cpu")
     with pytest.raises(NotImplementedError, match=match):
         app.run()
+
+
+RENDER_ARGV = ["--particles", "2000", "--method", "direct-n2", "--render",
+               "--steps", "3"]
+
+
+def test_render_output_writes_the_jax_frames(capsys, tmp_path):
+    """``--render --render-output DIR --steps 3`` writes the JAX app's file
+    names (frame k = the state after k + 1 updates; the last state is not
+    drawn), each a 720×1280 RGB PNG with something drawn; the summary
+    follows."""
+    names = []
+    for pkg in ("jax", "torch"):
+        out = tmp_path / pkg
+        rc, summary, _ = _run(pkg, RENDER_ARGV + ["--render-output",
+                                                  str(out)], capsys)
+        assert rc == 0 and summary["steps"] == 3
+        names.append(sorted(p.name for p in out.iterdir()))
+    assert names[0] == names[1] == ["frame_00000.png", "frame_00001.png"]
+    for name in names[1]:
+        img = np.asarray(Image.open(tmp_path / "torch" / name))
+        assert img.shape == (720, 1280, 3) and img.max() > 0
+
+
+def test_render_alone_writes_no_files(capsys, tmp_path, monkeypatch):
+    """``--render`` without an output renders every state but the last and
+    writes nothing, as the JAX app."""
+    monkeypatch.chdir(tmp_path)
+    frames = []
+    real = tapp.PointRenderer.frame
+
+    def frame(self, *a):
+        frames.append(1)
+        return real(self, *a)
+
+    monkeypatch.setattr(tapp.PointRenderer, "frame", frame)
+    rc, summary, app = _run("torch", RENDER_ARGV, capsys)
+    assert rc == 0 and summary["energy_kind"] == "exact"
+    assert len(frames) == 2 and list(tmp_path.iterdir()) == []
+    assert app.renderer is not None and app.live_view is None
+
+
+def test_live_view_draws_steps_minus_one_frames(capsys):
+    """``--live --steps 4``: one screen clear, 3 frames redrawn in place
+    (36 rows and a stats line each), the cursor restored, then the JSON
+    summary last; no stats on stderr (the live view carries them)."""
+    app = tapp.Application(tcli.parse_app_cli_options(
+        ["--particles", "500", "--method", "direct-n2", "--live", "--steps",
+         "4"]), device="cpu")
+    assert app.run() == 0
+    assert app.renderer is None and app.live_view is not None
+    out = capsys.readouterr()
+    text = out.out
+    assert text.count("\x1b[2J") == 1 and text.count("\x1b[H") == 3
+    assert text.count("\x1b[?25h") == 1
+    frames = text.split("\x1b[H")[1:]
+    assert all(f.count("\n") >= 37 for f in frames)
+    assert json.loads(text.strip().splitlines()[-1])["steps"] == 4
+    assert "steps/s" not in out.err
+
+
+def test_color_key_cycles_the_renderer():
+    """``c`` cycles the renderer's color mode DEPTH → VELOCITY → DENSITY →
+    DEPTH once a renderer exists, and does nothing before."""
+    app = tapp.Application(tcli.parse_app_cli_options(["--render"]),
+                           device="cpu")
+    assert not app._apply_action(tapp.key_to_action("c"))
+    app.renderer = tapp.PointRenderer(app.render_config)
+    seen = []
+    for _ in range(3):
+        assert not app._apply_action(tapp.key_to_action("C"))
+        seen.append(app.renderer.config.color_mode)
+    assert seen == [ColorMode.VELOCITY, ColorMode.DENSITY, ColorMode.DEPTH]
+    assert app.renderer.color_mapper.mode == ColorMode.DEPTH
+    assert app._apply_action(tapp.key_to_action("q"))
+
+
+def test_loop_keys_reach_the_panel_and_the_camera():
+    """The loop's handler: space, r, 2 and p set the panel's flags; the
+    camera keys move the loop's camera as the JAX camera moves."""
+    app = tapp.Application(tcli.parse_app_cli_options(["--live"]),
+                           device="cpu")
+    for key in " r2p":
+        app._apply_action(tapp.key_to_action(key))
+    assert app.panel.consume_pause_clicked()
+    assert app.panel.consume_reset_clicked()
+    assert app.panel.consume_method_change() == ForceMethod.BARNES_HUT
+    assert not app.panel.visible
+    app.camera = tapp.Camera(distance=45.0, azimuth=0.7, elevation=0.75)
+    ref = jcam.Camera(distance=45.0, azimuth=0.7, elevation=0.75)
+    for key in "hlkk+-=0j":
+        app._apply_action(tapp.key_to_action(key))
+        japp.apply_camera_action(ref, japp.key_to_action(key))
+        np.testing.assert_array_equal(app.camera.view_matrix,
+                                      ref.view_matrix)
 
 
 def test_application_needs_the_card(capsys):

@@ -1151,3 +1151,127 @@ def test_cli_export_import_on_card(dev, tmp_path, capsys):
         assert torch.equal(x, y)
     assert torch.equal(a.acc, tint.initialize_forces(
         a, imp.system._force_fn).acc)
+
+
+def _r1_held(dev, pos, vel, cam, mode, width=320, height=180):
+    """R1 against its twin on the same points: visibility, px, py, size
+    and colours bit-equal, the image within 1e-5 of the twin's float32
+    terms summed in float64 (the atomics add in no fixed order), the uint8
+    copy (img·255) truncated; one launch, no twin call."""
+    from nbody_tpu_torch.ops.render import render_points, render_points_plain
+
+    kw = dict(width=width, height=height, point_size=2.0, mode=mode,
+              uint8=True, sprites=True)
+    pos, vel = pos.to(dev), vel.to(dev)
+    launches, calls = render_points.launches, render_points_plain.calls
+    got = render_points(pos, vel, cam, **kw)
+    assert render_points.launches == launches + 1
+    assert render_points_plain.calls == calls
+    want = render_points_plain(pos, vel, cam, accumulate="f64", **kw)
+    for name, g, w in zip(("px", "py", "size", "rgb"), got.sprites,
+                          want.sprites):
+        assert torch.equal(g, w), name
+    assert float((got.image - want.image).abs().max()) <= 1e-5
+    assert torch.equal(got.image_u8, (got.image * 255).to(torch.uint8))
+    assert float(got.image.min()) >= 0 and float(got.image.max()) <= 1
+    return got
+
+
+def _at_view(cam, ndc_xy, depth):
+    """World points that project to ``ndc_xy`` at view depth ``depth``."""
+    p = cam.projection_matrix
+    ndc_xy, depth = np.asarray(ndc_xy, float), np.asarray(depth, float)
+    view = np.stack([ndc_xy[:, 0] * depth / p[0, 0],
+                     ndc_xy[:, 1] * depth / p[1, 1], -depth,
+                     np.ones_like(depth)], axis=1)
+    world = view @ np.linalg.inv(cam.view_matrix).T
+    return torch.from_numpy(world[:, :3].astype(np.float32))
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2], ids=["depth", "velocity",
+                                                  "density"])
+def test_render_kernel_cases(dev, mode):
+    """One point; each radius 1-8 at the centre; a radius-8 sprite at each
+    image corner (clipped by the edges); a ragged cloud of 1037 points with
+    points behind the eye and off screen, at the app's camera and a close
+    one — in each color mode."""
+    from nbody_tpu_torch.render import Camera
+    from nbody_tpu_torch.types import ColorMode
+
+    mode = ColorMode(mode)
+    cam = Camera(distance=45.0, azimuth=0.7, elevation=0.75)
+    one = _at_view(cam, [[0.1, -0.2]], [40.0])
+    _r1_held(dev, one, torch.ones(1, 3), cam, mode)
+    r = np.arange(1, 9, dtype=float)
+    radii = _at_view(cam, np.stack([np.linspace(-0.8, 0.8, 8),
+                                    np.zeros(8)], 1), 30.0 / r)
+    got = _r1_held(dev, radii, torch.rand(8, 3), cam, mode)
+    assert sorted(torch.round(got.sprites[2] * 0.5).tolist()) == list(
+        range(1, 9))
+    corners = _at_view(cam, [[-1, -1], [-1, 1], [1, -1], [1, 1]],
+                       [30.0 / 8] * 4)
+    _r1_held(dev, corners, torch.rand(4, 3), cam, mode)
+    pos = _sphere(1037, 10.0, 7)[0]
+    vel = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(1037, 3)).astype(np.float32))
+    for c in (cam, Camera(distance=5.0, azimuth=0.7, elevation=0.75)):
+        _r1_held(dev, pos, vel, c, mode)
+    _r1_held(dev, pos[:0], vel[:0], cam, mode)
+
+
+def test_point_renderer_on_card_launches_r1(dev):
+    """``PointRenderer`` on CUDA tensors launches R1 and returns the image
+    on the card, equal to ``render_points`` there; the 1280×720 default."""
+    from nbody_tpu_torch.ops.render import render_points
+    from nbody_tpu_torch.render import PointRenderer
+
+    pos = _sphere(5000, 10.0, 2)[0].to(dev)
+    vel = torch.randn(5000, 3, device=dev)
+    rend = PointRenderer()
+    before = render_points.launches
+    img = rend.render(pos, vel)
+    u8 = rend.frame(pos, vel)
+    assert render_points.launches == before + 2
+    assert img.is_cuda and img.shape == (720, 1280, 3)
+    assert u8.dtype == torch.uint8 and u8.shape == (720, 1280, 3)
+    assert int((u8.int() - (img * 255).to(torch.uint8).int()).abs().max()) <= 1
+
+
+def test_point_stream_double_buffer_on_card(dev):
+    """A request, then two more steps: ``latest()`` gives the positions of
+    request time bit for bit (the double buffer and ``record_stream`` keep
+    the copy's source alive); a second snapshot requested after them is
+    the new state; ``verify_data_integrity`` holds."""
+    from nbody_tpu_torch import ParticleSystem
+    from nbody_tpu_torch.render import PointStream
+
+    ps = ParticleSystem()
+    ps.initialize(SimulationConfig(particle_count=65536,
+                                   force_method=ForceMethod.DIRECT_N2),
+                  device=dev)
+    stream = PointStream(ps)
+    want = ps.state.pos.cpu()
+    stream.request()
+    ps.update()
+    ps.update()
+    snap = stream.latest()
+    assert torch.equal(torch.from_numpy(snap.positions), want)
+    stream.request()
+    later = stream.latest()
+    assert torch.equal(torch.from_numpy(later.positions), ps.state.pos.cpu())
+    assert abs(later.sim_time - 2e-3) < 1e-6 and later.frame_id == 1
+    assert torch.equal(torch.from_numpy(snap.positions), want)
+    assert stream.verify_data_integrity()
+
+
+def test_terminal_view_on_card_matches_host(dev):
+    """The count grid made on the card equals the one made from the host
+    copy of the points, and ``compose`` gives the same string."""
+    from nbody_tpu_torch.render import TerminalView
+
+    pos = _sphere(20000, 10.0, 4)[0]
+    view = TerminalView()
+    grid = view.raster(pos.to(dev))
+    assert grid.is_cuda
+    assert torch.equal(grid.cpu(), view.raster(pos))
+    assert view.compose(pos.to(dev), "s") == view.compose(pos.numpy(), "s")
