@@ -144,9 +144,11 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
            1M Barnes-Hut step-0 scene at 1280x720, at the app's camera and
            a close one (distance 5: radii 2-8, points behind the eye and
            off screen), in each color mode: px, py, size and colours bit
-           for bit, the image within 1e-5 of the twin's terms summed in
-           float64, the uint8 copy exact; call and graph-replay time,
-           kernels a call, the byte bound and the float atomics issued;
+           for bit, the image and its uint8 copy bit for bit against the
+           twin's point-order sum and against a second call, within 1e-5
+           of the twin's terms summed in float64; call and graph-replay
+           time, kernels a call, the byte bound, the tiles' list entries
+           and the longest list;
        r2. ``python -m nbody_tpu_torch.cli --particles 1000000 --method
            barnes-hut --render --render-output DIR --steps 30`` as a
            subprocess: exit 0 and exactly frame_00000..frame_00028.png,
@@ -2045,39 +2047,24 @@ def read_png(path):
     return raw[:, 1:].reshape(h, w, 3)
 
 
-def r1_atomics(sprites, width, height) -> int:
-    """The float atomics R1 issues for these sprites: 3 for each pixel of
-    each visible point's disc that lies inside the image."""
-    import torch
-
-    from nbody_tpu_torch.ops.render import _disc, _round_half_away
-
-    px, py, size, _ = sprites
-    vis = size > 0
-    cx, cy = _round_half_away(px[vis]), _round_half_away(py[vis])
-    radius = _round_half_away(size[vis] * 0.5).clamp(min=1)
-    total = 0
-    for r in range(1, 9):
-        sel = radius == r
-        dy, dx, _, _ = _disc(r)
-        dy = torch.from_numpy(dy).to(px.device)
-        dx = torch.from_numpy(dx).to(px.device)
-        uy, ux = cy[sel][:, None] + dy, cx[sel][:, None] + dx
-        total += int(((uy >= 0) & (uy < height) & (ux >= 0)
-                      & (ux < width)).sum())
-    return 3 * total
-
-
 def r1_checks(res, scene):
     """r1: R1 against its twin on the 1M BH step-0 scene at 1280×720, at
     the app's camera and a close one (inside the cloud: radii 2-8, points
     behind the eye and off screen), in each color mode. px, py, size and
-    colours bit-equal; the image within 1e-5 of the twin's float32 terms
-    summed in float64; the uint8 copy (img·255) truncated. Times the app's
-    call form (with the uint8 copy)."""
+    colours bit-equal; the image and its uint8 copy bit-equal to the
+    twin's point-order sum (``accumulate="ordered"``) and to a second
+    call; the image within 1e-5 of the twin's float32 terms summed in
+    float64; the uint8 copy (img·255) truncated. Times the app's call
+    form (with the uint8 copy); prints the tiles' list entries and the
+    longest list (``tile_counts``)."""
     import torch
 
-    from nbody_tpu_torch.ops.render import render_points, render_points_plain
+    from nbody_tpu_torch.ops.render import (
+        TILE,
+        render_points,
+        render_points_plain,
+        tile_counts,
+    )
     from nbody_tpu_torch.render import Camera
     from nbody_tpu_torch.types import ColorMode
 
@@ -2089,14 +2076,26 @@ def r1_checks(res, scene):
             label = f"{cam_name} camera, {mode.name}"
             kw = dict(width=width, height=height, point_size=2.0, mode=mode)
             got = render_points(pos, vel, cam, uint8=True, sprites=True, **kw)
-            want = render_points_plain(pos, vel, cam, accumulate="f64",
-                                       sprites=True, **kw)
+            again = render_points(pos, vel, cam, uint8=True, **kw)
+            check(torch.equal(got.image, again.image)
+                  and torch.equal(got.image_u8, again.image_u8),
+                  f"R1 {label}: two calls differ")
+            want = render_points_plain(pos, vel, cam, accumulate="ordered",
+                                       uint8=True, sprites=True, **kw)
             for name, g, w in zip(("px", "py", "size", "rgb"), got.sprites,
                                   want.sprites):
                 check(torch.equal(g, w), f"R1 {label}: {name} differs from "
                       f"the twin's")
-            e = float((got.image - want.image).abs().max())
-            check(e <= 1e-5, f"R1 {label}: image max|diff| {e} > 1e-5")
+            bad = int((got.image != want.image).sum())
+            check(bad == 0, f"R1 {label}: {bad} image values differ from "
+                  f"the ordered twin's")
+            check(torch.equal(got.image_u8, want.image_u8),
+                  f"R1 {label}: uint8 copy differs from the ordered twin's")
+            f64 = render_points_plain(pos, vel, cam, accumulate="f64", **kw)
+            e = float((got.image - f64.image).abs().max())
+            del f64, want
+            check(e <= 1e-5, f"R1 {label}: image max|diff| {e} > 1e-5 "
+                  f"against the float64 sum")
             check(torch.equal(got.image_u8,
                               (got.image * 255).to(torch.uint8)),
                   f"R1 {label}: uint8 copy is not (img*255) truncated")
@@ -2104,7 +2103,7 @@ def r1_checks(res, scene):
             vis = int((size > 0).sum())
             radii = torch.bincount(torch.round(size[size > 0] * 0.5).clamp(
                 min=1).long(), minlength=9)[1:].tolist()
-            atomics = r1_atomics(got.sprites, width, height)
+            lists = tile_counts(*got.sprites[:3], width=width, height=height)
 
             def call():
                 return render_points(pos, vel, cam, uint8=True, **kw)
@@ -2113,34 +2112,32 @@ def r1_checks(res, scene):
             # image and its uint8 copy written once
             nbytes = (12 + 12 * (mode == ColorMode.VELOCITY)) * n + (
                 width * height * 3 * 5)
-            # beside it: both arrays read, the image written, read and
-            # written again by the atomics' read-modify-write
-            rmw_bytes = 24 * n + width * height * 3 * (4 * 3 + 1)
             rec = dict(
                 max_abs_err=e,
                 ms=time_ms(call),
                 device_ms=graph_ms(call),
                 kernels_per_call=graph_kernels(call),
                 plain_ms=time_ms(lambda: render_points_plain(
-                    pos, vel, cam, uint8=True, **kw), reps=3, warm=1),
+                    pos, vel, cam, uint8=True, accumulate="ordered", **kw),
+                    reps=3, warm=1),
                 **bound(0, nbytes),
                 library_ms=None,
-                visible=vis, atomics=atomics,
-                rmw_bound_ms=rmw_bytes / HBM_BYTES * 1e3,
+                visible=vis, tile=TILE, entries=int(lists.sum()),
+                longest_list=int(lists.max()),
             )
             add_shape(res, "render_points", label, rec)
             print(f"R1 render_points {label} (N = {n}, {width}x{height}): "
                   f"{vis} visible, sprites per radius 1-8 {radii}; px, py, "
-                  f"size, rgb bit-equal to the twin, image max|diff| "
-                  f"{e:.3e} against the twin summed in float64 (tol 1e-5), "
-                  f"uint8 copy exact; kernel {rec['ms']:.4f} ms a call "
-                  f"({rec['device_ms']:.4f} ms of device time, "
-                  f"{rec['kernels_per_call']} kernels a call, CUDA graph), "
-                  f"plain {rec['plain_ms']:.4f} ms, bound "
-                  f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
-                  f"{nbytes} B; {rec['rmw_bound_ms']:.4f} ms with the "
-                  f"image's read-modify-write, {rmw_bytes} B), {atomics} "
-                  f"float atomics")
+                  f"size, rgb bit-equal to the twin, image and uint8 copy "
+                  f"bit-equal to the ordered twin and across two calls, "
+                  f"max|diff| {e:.3e} against the twin summed in float64 "
+                  f"(tol 1e-5); {TILE}x{TILE} tiles: {rec['entries']} list "
+                  f"entries, longest list {rec['longest_list']}; kernel "
+                  f"{rec['ms']:.4f} ms a call ({rec['device_ms']:.4f} ms of "
+                  f"device time, {rec['kernels_per_call']} kernels a call, "
+                  f"CUDA graph), ordered twin {rec['plain_ms']:.4f} ms, "
+                  f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
+                  f"{nbytes} B)")
 
 
 def app_run(label, argv, want, wrappers, plains, smi, keep):
@@ -2236,8 +2233,9 @@ def render_phase(res, scene, wrappers, plains, none, keep, smi, dev, levels):
                   f"after 29 updates made here")
             print(f"r2 {where.name}/{frames[-1]} against R1 on the state "
                   f"after 29 updates made here: {int((diff > 0).sum())} "
-                  f"values differ, by at most {int(diff.max())} (a float "
-                  f"atomic sum crossing a uint8 step)")
+                  f"values differ, by at most {int(diff.max())} (R1 adds "
+                  f"in point order; one uint8 step allowed for the state "
+                  f"made again)")
 
     run = cli_subprocess(RENDER_ARGV[:4] + ["--live", "--steps", "10"])
     check(run.returncode == 0, f"r3 --live: exit {run.returncode}: "

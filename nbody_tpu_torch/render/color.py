@@ -26,7 +26,8 @@ FLAT_RANGE = 1e-12
 
 
 def _lerp(a, b, t: torch.Tensor) -> torch.Tensor:
-    """a·(1 − t) + b·t per row, t clipped to [0, 1] → (N, 3) float64."""
+    """a·(1 − t) + b·t per row, t clipped to [0, 1] → (N, 3) float64
+    (1 − t in t's precision, the rest in float64)."""
     t = t.clamp(0.0, 1.0)[:, None]
     a = torch.tensor(a, dtype=torch.float64, device=t.device)
     b = torch.tensor(b, dtype=torch.float64, device=t.device)
@@ -35,21 +36,31 @@ def _lerp(a, b, t: torch.Tensor) -> torch.Tensor:
 
 def _normalize(v: torch.Tensor) -> torch.Tensor:
     """(v − min) / (max − min) over the rows given; zeros when the range
-    is below ``FLAT_RANGE``. No host read."""
-    v = v.to(torch.float64)
+    is below ``FLAT_RANGE``. No host read. A float32 key is normalised in
+    float32 as NumPy does it with Python-float bounds (the range taken in
+    float64, then rounded to float32 for the division); any other in
+    float64."""
+    if v.dtype != torch.float32:
+        v = v.to(torch.float64)
     if v.numel() == 0:
         return v
     lo, hi = v.min(), v.max()
-    span = hi - lo
+    span = hi.to(torch.float64) - lo.to(torch.float64)
     return torch.where(span < FLAT_RANGE, torch.zeros_like(v),
-                       (v - lo) / span)
+                       (v - lo) / span.to(v.dtype))
 
 
 def speed(velocities: torch.Tensor) -> torch.Tensor:
-    """|v| in float64, summed in the kernel's order: √((x² + y²) + z²)."""
-    v = velocities.to(torch.float64)
+    """|v| in the velocities' precision, as ``np.linalg.norm`` gives it
+    (float32 for the simulation's float32 state, else float64), summed
+    in the kernel's order: √((x² + y²) + z²)."""
+    v = velocities
+    if v.dtype != torch.float32:
+        v = v.to(torch.float64)
     x, y, z = v[:, 0], v[:, 1], v[:, 2]
-    return torch.sqrt(x * x + y * y + z * z)
+    # float32: the square root taken in float64 and rounded once is the
+    # correctly rounded one (PyTorch's CPU float32 sqrt is not, always)
+    return torch.sqrt((x * x + y * y + z * z).to(torch.float64)).to(v.dtype)
 
 
 class ColorMapper:

@@ -1155,9 +1155,10 @@ def test_cli_export_import_on_card(dev, tmp_path, capsys):
 
 def _r1_held(dev, pos, vel, cam, mode, width=320, height=180):
     """R1 against its twin on the same points: visibility, px, py, size
-    and colours bit-equal, the image within 1e-5 of the twin's float32
-    terms summed in float64 (the atomics add in no fixed order), the uint8
-    copy (img·255) truncated; one launch, no twin call."""
+    and colours bit-equal; the image and its uint8 copy bit-equal to the
+    twin's point-order sum (``accumulate="ordered"``) and to a second
+    call; the image within 1e-5 of the twin's float32 terms summed in
+    float64. One launch a call, no twin call."""
     from nbody_tpu_torch.ops.render import render_points, render_points_plain
 
     kw = dict(width=width, height=height, point_size=2.0, mode=mode,
@@ -1165,13 +1166,19 @@ def _r1_held(dev, pos, vel, cam, mode, width=320, height=180):
     pos, vel = pos.to(dev), vel.to(dev)
     launches, calls = render_points.launches, render_points_plain.calls
     got = render_points(pos, vel, cam, **kw)
-    assert render_points.launches == launches + 1
+    again = render_points(pos, vel, cam, **kw)
+    assert render_points.launches == launches + 2
     assert render_points_plain.calls == calls
-    want = render_points_plain(pos, vel, cam, accumulate="f64", **kw)
+    assert torch.equal(got.image, again.image)
+    assert torch.equal(got.image_u8, again.image_u8)
+    want = render_points_plain(pos, vel, cam, accumulate="ordered", **kw)
     for name, g, w in zip(("px", "py", "size", "rgb"), got.sprites,
                           want.sprites):
         assert torch.equal(g, w), name
-    assert float((got.image - want.image).abs().max()) <= 1e-5
+    assert torch.equal(got.image, want.image)
+    assert torch.equal(got.image_u8, want.image_u8)
+    f64 = render_points_plain(pos, vel, cam, accumulate="f64", **kw)
+    assert float((got.image - f64.image).abs().max()) <= 1e-5
     assert torch.equal(got.image_u8, (got.image * 255).to(torch.uint8))
     assert float(got.image.min()) >= 0 and float(got.image.max()) <= 1
     return got
@@ -1188,16 +1195,32 @@ def _at_view(cam, ndc_xy, depth):
     return torch.from_numpy(world[:, :3].astype(np.float32))
 
 
+def _at_pixel(cam, px, py, radius, width=320, height=180):
+    """World points whose sprites sit near pixel (px, py) at ``radius``
+    (a sprite's radius is round(30 / depth) at point size 2)."""
+    px, py = np.asarray(px, float), np.asarray(py, float)
+    ndc = np.stack([2 * px / (width - 1) - 1, 1 - 2 * py / (height - 1)], 1)
+    return _at_view(cam, ndc, 30.0 / np.asarray(radius, float))
+
+
+LAYOUTS = [(8, 64), (16, 64), (8, 1)]  # R1's (tile side, chunks at most)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS, ids=lambda t: "t%d-c%d" % t)
 @pytest.mark.parametrize("mode", [0, 1, 2], ids=["depth", "velocity",
                                                   "density"])
-def test_render_kernel_cases(dev, mode):
-    """One point; each radius 1-8 at the centre; a radius-8 sprite at each
-    image corner (clipped by the edges); a ragged cloud of 1037 points with
+def test_render_kernel_cases(dev, mode, layout, monkeypatch):
+    """At each tile side, and with one index chunk a tile: one point; each radius 1-8 at the centre; a
+    radius-8 sprite at each image corner (clipped by the edges); sprites
+    centred on and beside tile edges; a ragged cloud of 1037 points with
     points behind the eye and off screen, at the app's camera and a close
-    one — in each color mode."""
+    one; no points — in each color mode."""
+    from nbody_tpu_torch.ops import render as render_ops
     from nbody_tpu_torch.render import Camera
     from nbody_tpu_torch.types import ColorMode
 
+    monkeypatch.setattr(render_ops, "TILE", layout[0])
+    monkeypatch.setattr(render_ops, "MAX_CHUNKS", layout[1])
     mode = ColorMode(mode)
     cam = Camera(distance=45.0, azimuth=0.7, elevation=0.75)
     one = _at_view(cam, [[0.1, -0.2]], [40.0])
@@ -1211,12 +1234,73 @@ def test_render_kernel_cases(dev, mode):
     corners = _at_view(cam, [[-1, -1], [-1, 1], [1, -1], [1, 1]],
                        [30.0 / 8] * 4)
     _r1_held(dev, corners, torch.rand(4, 3), cam, mode)
+    edge = np.array([7.0, 8.0, 15.0, 16.0, 31.5, 32.0, 47.4, 63.6])
+    gx, gy, gr = np.meshgrid(edge + 40, edge + 40, [1, 3, 8])
+    edges = _at_pixel(cam, gx.ravel(), gy.ravel(), gr.ravel())
+    _r1_held(dev, edges, torch.rand(edges.shape[0], 3), cam, mode)
     pos = _sphere(1037, 10.0, 7)[0]
     vel = torch.from_numpy(np.random.default_rng(8).normal(
         size=(1037, 3)).astype(np.float32))
     for c in (cam, Camera(distance=5.0, azimuth=0.7, elevation=0.75)):
         _r1_held(dev, pos, vel, c, mode)
     _r1_held(dev, pos[:0], vel[:0], cam, mode)
+
+
+@pytest.mark.parametrize("order", ["spread", "contiguous"])
+def test_render_kernel_sort_paths(dev, order):
+    """A tile list of 1500 sprites stacked on a few pixels among 50000
+    points: with the stacked indices spread over the index range, each
+    index chunk's run is short (sorted a warp a run); with them
+    contiguous, one chunk holds the whole list (sorted whole). Both
+    bit-equal to the ordered twin."""
+    from nbody_tpu_torch.ops.render import tile_counts
+    from nbody_tpu_torch.render import Camera
+    from nbody_tpu_torch.types import ColorMode
+
+    cam = Camera(distance=45.0, azimuth=0.7, elevation=0.75)
+    rng = np.random.default_rng(13)
+    m, n = 1500, 50000
+    stack = _at_pixel(cam, rng.choice([100.0, 101.4, 102.6], m),
+                      rng.choice([60.0, 61.5], m), np.ones(m))
+    pos = torch.from_numpy(np.tile(2 * cam.position, (n, 1)).astype(
+        np.float32))
+    at = (torch.from_numpy(np.sort(rng.choice(n, m, replace=False)))
+          if order == "spread" else torch.arange(20000, 20000 + m))
+    pos[at] = stack
+    vel = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
+    got = _r1_held(dev, pos, vel, cam, ColorMode.DEPTH)
+    counts = tile_counts(*got.sprites[:3], width=320, height=180)
+    assert 1000 < int(counts.max()) <= 2048
+
+
+@pytest.mark.parametrize("layout", LAYOUTS, ids=lambda t: "t%d-c%d" % t)
+def test_render_kernel_long_lists(dev, layout, monkeypatch):
+    """Tiles whose list is longer than shared memory holds (the second
+    splat kernel): 6000 sprites stacked on a few pixels among 2²² + 6000
+    points, most of them behind the eye, so that the stacked indices span
+    two partitions of the index range — bit-equal to the ordered twin."""
+    from nbody_tpu_torch.ops import render as render_ops
+    from nbody_tpu_torch.ops.render import tile_counts
+    from nbody_tpu_torch.render import Camera
+    from nbody_tpu_torch.types import ColorMode
+
+    tile = layout[0]
+    monkeypatch.setattr(render_ops, "TILE", tile)
+    monkeypatch.setattr(render_ops, "MAX_CHUNKS", layout[1])
+    cam = Camera(distance=45.0, azimuth=0.7, elevation=0.75)
+    rng = np.random.default_rng(12)
+    m, n = 6000, (1 << 22) + 6000
+    stack = _at_pixel(cam, rng.choice([100.0, 101.4, 106.0], m),
+                      rng.choice([60.0, 62.5], m), rng.integers(1, 9, m))
+    pos = torch.from_numpy(np.tile(2 * cam.position, (n, 1)).astype(
+        np.float32))
+    at = torch.from_numpy(np.sort(rng.choice(n, m, replace=False)))
+    pos[at] = stack
+    vel = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
+    got = _r1_held(dev, pos, vel, cam, ColorMode.VELOCITY)
+    counts = tile_counts(*got.sprites[:3], width=320, height=180, tile=tile)
+    assert int(counts.max()) > 2048
+    assert int(at[-1]) >= 2048 * 2048 and int(at[0]) < 2048 * 2048
 
 
 def test_point_renderer_on_card_launches_r1(dev):

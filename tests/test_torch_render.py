@@ -5,6 +5,7 @@ fallback, the terminal view's raster and text, the PNG writer and the
 point stream."""
 
 import io
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -14,13 +15,17 @@ from PIL import Image
 import nbody_tpu.render.camera as jcam
 import nbody_tpu.render.color as jcol
 import nbody_tpu.render.renderer as jren
+import nbody_tpu.native.rasterizer as jnative
 import nbody_tpu.render.terminal as jterm
 import nbody_tpu.types as jtypes
 from nbody_tpu_torch import ParticleSystem
 from nbody_tpu_torch.ops.render import (
     _round_half_away,
+    _splat_ordered,
+    fma32,
     render_points,
     render_points_plain,
+    tile_counts,
 )
 from nbody_tpu_torch.render import (
     Camera,
@@ -159,6 +164,118 @@ def test_renderer_matches_jax(mode, cam, native):
     assert (sp[2] == 0).any() == (cam == "close")  # culled points
 
 
+@pytest.mark.parametrize("cam", sorted(CAMERAS))
+@pytest.mark.parametrize("mode", list(ColorMode), ids=lambda m: m.name)
+def test_ordered_twin_equals_jax_native(mode, cam):
+    """The point-order sum with the native library's two FMAs (R1's sum):
+    ``render_points_plain(..., accumulate="ordered")`` and
+    ``PointRenderer.render`` on CPU tensors give the JAX renderer's image
+    with its native splat, bit for bit, in each mode and at both cameras
+    (VELOCITY's key is |v| in float32, as NumPy's norm gives it)."""
+    pos, vel = _cloud()
+    t, j = _pair(mode, cam)
+    assert j._native is not None, "native/libnbody_native.so not loaded"
+    want = j.render(pos, vel)
+    got = render_points_plain(
+        torch.from_numpy(pos), torch.from_numpy(vel), t.camera, width=W,
+        height=H, point_size=2.0, mode=mode, accumulate="ordered").image
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        t.render(torch.from_numpy(pos), torch.from_numpy(vel)).numpy(), want)
+    assert want.max() > 0
+
+
+def _f32_exact(x: Fraction) -> np.float32:
+    """The float32 nearest the rational ``x``, ties to even."""
+    r = np.float32(float(x))
+    cands = [np.nextafter(r, np.float32(-np.inf)), r,
+             np.nextafter(r, np.float32(np.inf))]
+    dist = [abs(Fraction(float(c)) - x) for c in cands]
+    best = min(dist)
+    near = [c for c, d in zip(cands, dist) if d == best]
+    return min(near, key=lambda c: int(c.view(np.int32)) & 1)
+
+
+def test_fma32_rounds_once():
+    """``fma32`` against the exact a·b + c rounded once (``Fraction``), on
+    operands where rounding in float64 then in float32 gives another
+    value (the sum lands a hair below a float32 midpoint whose even
+    neighbour is above it), their negations and scalings, and random
+    float32 triples."""
+    f32 = np.float32
+    a, b = f32(1 + 2.0 ** -23), f32(2.0 ** -24 - 2.0 ** -47)
+    c = f32(1 + 2.0 ** -23)
+    cases = []
+    for k in (0, -20, 7, 40):
+        s = f32(2.0 ** k)
+        for sa, sc in ((1, 1), (-1, -1)):
+            cases.append((f32(sa * a * s), b, f32(sc * c * s)))
+    rng = np.random.default_rng(11)
+    rand = rng.standard_normal((3, 2000)).astype(f32) * f32(1e3) ** \
+        rng.integers(-3, 4, (3, 2000)).astype(f32)
+    cases += list(zip(*rand))
+    x, y, z = (np.array(v, dtype=f32) for v in zip(*cases))
+    got = fma32(*(torch.from_numpy(v) for v in (x, y, z))).numpy()
+    want = np.array([_f32_exact(Fraction(float(p)) * Fraction(float(q))
+                                + Fraction(float(r)))
+                     for p, q, r in zip(x, y, z)], dtype=f32)
+    np.testing.assert_array_equal(got, want)
+    twice = (x.astype(np.float64) * y + z).astype(f32)
+    assert (twice[:8] != want[:8]).all()  # the constructed cases do differ
+
+
+@pytest.mark.parametrize("case", ["ragged", "stacked"])
+def test_ordered_splat_equals_native_rasterizer(case):
+    """``_splat_ordered`` (R1's sum) against
+    ``nbody_tpu.native.rasterizer.splat`` on the same sprites, bit for bit:
+    a ragged set of every size, partly off the 64×48 image, and a stack
+    of 3000 sprites on a few pixels (long per-pixel sums)."""
+    rng = np.random.default_rng(4 if case == "ragged" else 5)
+    n, w, h = 3000, 64, 48
+    if case == "ragged":
+        px = rng.uniform(-12, w + 12, n)
+        py = rng.uniform(-12, h + 12, n)
+    else:
+        px = rng.choice([10.0, 10.4, 11.5, 40.0], n)
+        py = rng.choice([20.0, 20.6, 47.0], n)
+    px, py = px.astype(np.float32), py.astype(np.float32)
+    size = rng.uniform(0.5, 16.0, n).astype(np.float32)
+    rgb = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)
+    want = np.zeros((h, w, 3), np.float32)
+    jnative.splat(want, px, py, size, rgb)
+    cx, cy = (_round_half_away(torch.from_numpy(v)) for v in (px, py))
+    r = _round_half_away(torch.from_numpy(size) * 0.5).clamp(min=1)
+    got = _splat_ordered(cx, cy, r, torch.from_numpy(rgb), w, h)
+    got = got.clamp(0.0, 1.0).reshape(h, w, 3).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (want > 0).sum() > 100
+
+
+@pytest.mark.parametrize("tile", [8, 16])
+def test_tile_counts_match_the_boxes(tile):
+    """Each tile's list length: every visible sprite counted once in each
+    tile its clipped bounding box touches (a loop over the sprites)."""
+    rng = np.random.default_rng(9)
+    n, w, h = 400, 53, 37
+    px = torch.from_numpy(rng.uniform(-10, w + 10, n).astype(np.float32))
+    py = torch.from_numpy(rng.uniform(-10, h + 10, n).astype(np.float32))
+    size = torch.from_numpy(rng.uniform(0.5, 16, n).astype(np.float32))
+    size[::7] = 0  # not visible
+    got = tile_counts(px, py, size, width=w, height=h, tile=tile)
+    want = np.zeros(got.shape, np.int64)
+    for x, y, s in zip(px.tolist(), py.tolist(), size.tolist()):
+        if s == 0:
+            continue
+        r = max(1, int(_round_half_away(torch.tensor([s * 0.5]))[0]))
+        cx, cy = (int(_round_half_away(torch.tensor([v]))[0])
+                  for v in (x, y))
+        x0, x1 = max(0, cx - r), min(w - 1, cx + r)
+        y0, y1 = max(0, cy - r), min(h - 1, cy + r)
+        if x0 <= x1 and y0 <= y1:
+            want[y0 // tile:y1 // tile + 1, x0 // tile:x1 // tile + 1] += 1
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("what", ["empty", "off screen", "behind"])
 def test_renderer_draws_nothing_without_visible_points(what):
     t, j = _pair(ColorMode.DEPTH, "app")
@@ -185,6 +302,9 @@ def test_plain_twin_accumulations_and_outputs():
     c = render_points(pos, vel, cam, **kw)
     assert render_points_plain.calls == calls + 1
     assert float((a.image - b.image).abs().max()) <= 1e-6
+    assert torch.equal(c.image, render_points_plain(
+        pos, vel, cam, accumulate="ordered", **kw).image)
+    assert float((c.image - b.image).abs().max()) <= 1e-6
     assert torch.equal(a.image_u8, (a.image * 255).to(torch.uint8))
     for x, y in zip(a.sprites, c.sprites):
         assert torch.equal(x, y)
