@@ -156,8 +156,8 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
            something drawn; the same run in this process, counted (R1 29
            times), then ``--render`` alone and the plain loop: frames/s of
            each loop and ms a frame for the step, R1, the copy and the PNG
-           write; the last frame against R1 on the state after 29 updates
-           made again here (within one uint8 step);
+           write; the last frame equal in every value to R1's on the
+           state after 29 updates made again here;
        r3. ``--live --steps 10`` as a subprocess: one clear and 9 frames;
            ``TerminalView.compose`` on the card equals it on the host copy;
        r4. ``PointStream`` on the card: a request then two steps, and
@@ -2228,14 +2228,13 @@ def render_phase(res, scene, wrappers, plains, none, keep, smi, dev, levels):
             st.pos, st.vel).cpu().numpy().astype(int)
         for where in (out, own):
             diff = abs(read_png(where / frames[-1]).astype(int) - again)
-            check(int(diff.max()) <= 1, f"r2 {where.name} {frames[-1]}: "
-                  f"max diff {int(diff.max())} against R1 on the state "
-                  f"after 29 updates made here")
-            print(f"r2 {where.name}/{frames[-1]} against R1 on the state "
-                  f"after 29 updates made here: {int((diff > 0).sum())} "
-                  f"values differ, by at most {int(diff.max())} (R1 adds "
-                  f"in point order; one uint8 step allowed for the state "
-                  f"made again)")
+            check(int(diff.max()) == 0, f"r2 {where.name} {frames[-1]}: "
+                  f"{int((diff > 0).sum())} values differ, by at most "
+                  f"{int(diff.max())}, from R1 on the state after 29 "
+                  f"updates made here")
+            print(f"r2 {where.name}/{frames[-1]} equals R1's uint8 frame of "
+                  f"the state after 29 updates made here in every value "
+                  f"(the step and R1 are deterministic)")
 
     run = cli_subprocess(RENDER_ARGV[:4] + ["--live", "--steps", "10"])
     check(run.returncode == 0, f"r3 --live: exit {run.returncode}: "

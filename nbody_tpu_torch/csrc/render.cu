@@ -28,8 +28,8 @@
 //      norm of the float32 velocities), the key's min and max over the
 //      visible points (a block reduction, then one atomicMax of an
 //      order-preserving 64-bit image of each: exact and order-free), and
-//      an integer atomicAdd to the counter (tile, chunk) of each kTile x
-//      kTile screen tile that the disc's bounding box, clipped to the
+//      an integer atomicAdd to the counter (tile, chunk) of each 8 x 8
+//      screen tile (kTile) that the disc's bounding box, clipped to the
 //      image, touches; chunk = the point's index range, one of `chunks`
 //      (up to kMaxChunks), which also spreads a hot tile's atomics;
 //   2. scan (two kernels: block sums, then each block's exclusive prefix
@@ -41,7 +41,7 @@
 //      at a slot taken with an integer atomicAdd (all of a point's slots
 //      first, so its atomics are in flight together). A run is in no
 //      order; the runs are, since a chunk's indices precede the next one's;
-//   4. splat (a block of kTile^2 threads per tile, a thread per pixel with
+//   4. splat (a block of 64 threads per tile, a thread per pixel with
 //      its three sums in registers): the tile's list (at most kCap
 //      entries) is loaded into shared memory and sorted there: by one warp
 //      when it has at most kWarpSort entries, else a warp a chunk run when
@@ -57,17 +57,20 @@
 //      then splats runs of whole buckets of at most kCap entries in bucket
 //      order, each sorted in shared memory as in pass 4. A list of any
 //      length is exact.
-// The scratch is sized from n and kTile alone (a disc of r <= 8, 17 px,
-// touches at most max_side_tiles^2 tiles), so the host never reads a
-// count and a call can be captured in a CUDA graph.
+// The scratch is sized from n alone, so the host never reads a count and
+// a call can be captured in a CUDA graph: a disc of r <= 8 (17 px) touches
+// at most kSideTiles^2 = 9 tiles, so the list takes n x 9 int32 (36 MB at
+// 1M points), and the long-list partition buffer as much again, which only
+// pass 5 touches and only for a list past kCap entries.
 //
 // What bounds it on the H100: memory, in the bound. Pass 1 reads 12 B a
 // point (24 B in VELOCITY mode); the image and its copy are written once
 // (11.06 + 2.76 MB at 1280x720): at 1M points ~26 MB, ~8 us at 3.35 TB/s.
 // The time goes elsewhere: the per-entry integer atomics of passes 1 and
 // 3, the per-tile sorts, and the splat's pixel tests (entries x kTile^2,
-// ~0.1G at the app's camera at kTile = 8; 16 x 16 tiles test 4x as many
-// pixels a hot tile), whose terms must be added one after another.
+// ~0.1G at the app's camera), whose terms must be added one after
+// another. 8 x 8 tiles took 0.60x the time of 16 x 16 at the app's camera
+// and 0.97-0.99x at a close one on an H100 (PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -76,6 +79,8 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kTile = 8;                  // screen tile side, pixels
+constexpr int kTilePix = kTile * kTile;   // threads of a splat block
 constexpr int kMaxBlocks = 132 * 8;
 constexpr int kMaxRadius = 8;  // round(MAX_SIZE / 2)
 constexpr int kCap = 2048;     // list entries a tile sorts in shared memory
@@ -105,10 +110,8 @@ struct Mats {
   double view[16];  // view, row-major
 };
 
-// Tiles of side t that an interval of 2 * kMaxRadius + 1 pixels can touch.
-__host__ __device__ constexpr int max_side_tiles(int t) {
-  return (2 * kMaxRadius - 1) / t + 2;
-}
+// Tiles that an interval of 2 * kMaxRadius + 1 pixels can touch.
+constexpr int kSideTiles = (2 * kMaxRadius - 1) / kTile + 2;
 
 // ((x*m0 + y*m1) + z*m2) + m3: one row of hom @ M^T, hom = (x, y, z, 1).
 __device__ __forceinline__ double mrow(double x, double y, double z,
@@ -206,7 +209,6 @@ inline Meta meta_of(void* base, int n_tiles, int chunks) {
   return mt;
 }
 
-template <int T>
 __global__ void project_kernel(const float* __restrict__ pos,
                                const float* __restrict__ vel, int n,
                                Mats mats, double half_near, double ps30,
@@ -247,8 +249,8 @@ __global__ void project_kernel(const float* __restrict__ pos,
       const Disc d = disc_of(px, py, size, width, height);
       if (d.x0 <= d.x1 && d.y0 <= d.y1) {
         const int sub = i / chunk_len;
-        for (int ty = d.y0 / T; ty <= d.y1 / T; ++ty) {
-          for (int tx = d.x0 / T; tx <= d.x1 / T; ++tx) {
+        for (int ty = d.y0 / kTile; ty <= d.y1 / kTile; ++ty) {
+          for (int tx = d.x0 / kTile; tx <= d.x1 / kTile; ++tx) {
             atomicAdd(meta.count + (ty * tiles_x + tx) * chunks + sub, 1);
           }
         }
@@ -350,14 +352,12 @@ __global__ void __launch_bounds__(kScanThreads)
   }
 }
 
-template <int T>
 __global__ void fill_kernel(int n, int mode, int width, int height,
                             int tiles_x, int chunks, int chunk_len,
                             const float* __restrict__ pts,
                             const double* __restrict__ key, Meta meta,
                             float* __restrict__ rgb, float4* __restrict__ rec,
                             unsigned* __restrict__ list) {
-  constexpr int kSide = max_side_tiles(T);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const float size = pts[2 * n + i];
@@ -368,12 +368,13 @@ __global__ void fill_kernel(int n, int mode, int width, int height,
   const Disc d = disc_of(pts[i], pts[n + i], size, width, height);
   const bool hit = d.x0 <= d.x1 && d.y0 <= d.y1;
   // the list slots first, all atomics in flight together
-  int slot[kSide * kSide];
+  int slot[kSideTiles * kSideTiles];
   const int sub = i / chunk_len;
 #pragma unroll
-  for (int q = 0; q < kSide * kSide; ++q) {
-    const int tx = d.x0 / T + q % kSide, ty = d.y0 / T + q / kSide;
-    slot[q] = hit && tx <= d.x1 / T && ty <= d.y1 / T
+  for (int q = 0; q < kSideTiles * kSideTiles; ++q) {
+    const int tx = d.x0 / kTile + q % kSideTiles,
+              ty = d.y0 / kTile + q / kSideTiles;
+    slot[q] = hit && tx <= d.x1 / kTile && ty <= d.y1 / kTile
                   ? atomicAdd(meta.cursor + (ty * tiles_x + tx) * chunks + sub,
                               1)
                   : -1;
@@ -423,7 +424,7 @@ __global__ void fill_kernel(int n, int mode, int width, int height,
   const unsigned entry = (static_cast<unsigned>(i) << 4) |
                          static_cast<unsigned>(d.r);
 #pragma unroll
-  for (int q = 0; q < kSide * kSide; ++q) {
+  for (int q = 0; q < kSideTiles * kSideTiles; ++q) {
     if (slot[q] >= 0) list[slot[q]] = entry;
   }
 }
@@ -432,9 +433,8 @@ __global__ void fill_kernel(int n, int mode, int width, int height,
 // for each warp of the block the chunk's records whose rows meet the
 // warp's (their places in the chunk, in order, and their count by staging
 // warp).
-template <int T>
 struct Stage {
-  static constexpr int kN = T * T, kWarps = kN / 32;
+  static constexpr int kN = kTilePix, kWarps = kN / 32;
   int4 pos[2][kN];    // cx, cy, r * r, r
   float4 col[2][kN];  // c = rgb * alpha, 1 / r^2
   unsigned char idx[2][kWarps][kN];
@@ -443,17 +443,16 @@ struct Stage {
 
 // A tile's pixel work, shared by the two splat kernels: the thread's pixel
 // (x, y), its warp's first row, and its three sums.
-template <int T>
 struct TileSplat {
-  static constexpr int kN = T * T, kWarps = kN / 32, kRows = 32 / T;
+  static constexpr int kN = kTilePix, kWarps = kN / 32, kRows = 32 / kTile;
   int x, y, row0;
   float acc[3];
 
   __device__ void init(int tile, int tiles_x) {
     const int tx = tile % tiles_x, ty = tile / tiles_x;
-    x = tx * T + static_cast<int>(threadIdx.x) % T;
-    y = ty * T + static_cast<int>(threadIdx.x) / T;
-    row0 = ty * T;
+    x = tx * kTile + static_cast<int>(threadIdx.x) % kTile;
+    y = ty * kTile + static_cast<int>(threadIdx.x) / kTile;
+    row0 = ty * kTile;
     acc[0] = acc[1] = acc[2] = 0.0f;
   }
 
@@ -538,7 +537,7 @@ struct TileSplat {
   // block adds this one; each warp walks only the records whose rows meet
   // its own (listed by ballots when staged, in order).
   __device__ void add(const unsigned* s_key, int len,
-                      const float4* __restrict__ rec, Stage<T>& st) {
+                      const float4* __restrict__ rec, Stage& st) {
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const unsigned below = (1u << lane) - 1u;
     unsigned e = 0;
@@ -619,14 +618,13 @@ struct TileSplat {
   }
 };
 
-template <int T>
-__global__ void __launch_bounds__(T * T)
+__global__ void __launch_bounds__(kTilePix)
     splat_kernel(int width, int height, int tiles_x, int chunks, Meta meta,
                  const unsigned* __restrict__ list,
                  const float4* __restrict__ rec, float* __restrict__ img,
                  unsigned char* __restrict__ u8) {
   __shared__ unsigned s_key[kCap];
-  __shared__ Stage<T> st;
+  __shared__ Stage st;
   __shared__ int s_seg[kMaxChunks + 1];
   __shared__ int s_longest;
   const int tile = blockIdx.x;
@@ -637,26 +635,27 @@ __global__ void __launch_bounds__(T * T)
     if (threadIdx.x == 0) meta.long_tiles[atomicAdd(meta.n_long, 1)] = tile;
     return;
   }
-  TileSplat<T> s;
+  TileSplat s;
   s.init(tile, tiles_x);
   if (threadIdx.x == 0) s_longest = 0;
-  for (int c = threadIdx.x; c <= chunks; c += T * T) s_seg[c] = seg[c] - a;
-  for (int j = threadIdx.x; j < len; j += T * T) s_key[j] = list[a + j];
+  for (int c = threadIdx.x; c <= chunks; c += kTilePix) {
+    s_seg[c] = seg[c] - a;
+  }
+  for (int j = threadIdx.x; j < len; j += kTilePix) s_key[j] = list[a + j];
   __syncthreads();
-  for (int c = threadIdx.x; c < chunks; c += T * T) {
+  for (int c = threadIdx.x; c < chunks; c += kTilePix) {
     atomicMax(&s_longest, s_seg[c + 1] - s_seg[c]);
   }
   __syncthreads();
-  TileSplat<T>::sort_list(s_key, len, s_seg, chunks, s_longest);
+  TileSplat::sort_list(s_key, len, s_seg, chunks, s_longest);
   s.add(s_key, len, rec, st);
   s.store(width, height, img, u8);
 }
 
 // Exclusive prefix of s_v[0, kBuckets) in place, s_v[kBuckets] = the total;
-// T * T threads, each over a contiguous run.
-template <int T>
+// kTilePix threads, each over a contiguous run.
 __device__ void bucket_scan(int* s_v, int* s_part) {
-  constexpr int kN = T * T, per = kBuckets / kN;
+  constexpr int kN = kTilePix, per = kBuckets / kN;
   const int a = threadIdx.x * per;
   int sum = 0;
   for (int b = a; b < a + per; ++b) sum += s_v[b];
@@ -681,20 +680,19 @@ __device__ void bucket_scan(int* s_v, int* s_part) {
   __syncthreads();
 }
 
-template <int T>
-__global__ void __launch_bounds__(T * T)
+__global__ void __launch_bounds__(kTilePix)
     splat_long_kernel(int n, int width, int height, int tiles_x, int chunks,
                       Meta meta, const unsigned* __restrict__ list,
                       unsigned* __restrict__ tmp,
                       const float4* __restrict__ rec,
                       float* __restrict__ img,
                       unsigned char* __restrict__ u8) {
-  static_assert(kBuckets % (T * T) == 0, "buckets split over the block");
+  static_assert(kBuckets % kTilePix == 0, "buckets split over the block");
   __shared__ unsigned s_key[kCap];
-  __shared__ Stage<T> st;
+  __shared__ Stage st;
   __shared__ int s_off[kBuckets + 1];
   __shared__ int s_cur[kBuckets];
-  __shared__ int s_part[T * T];
+  __shared__ int s_part[kTilePix];
   __shared__ int s_end;
   const int ranges = ((n + kCap - 1) / kCap + kBuckets - 1) / kBuckets;
   const int n_long = *meta.n_long;
@@ -702,23 +700,25 @@ __global__ void __launch_bounds__(T * T)
     const int tile = meta.long_tiles[q];
     const int first = meta.first[tile * chunks];
     const int len = meta.first[(tile + 1) * chunks] - first;
-    TileSplat<T> s;
+    TileSplat s;
     s.init(tile, tiles_x);
     const unsigned* src = list + first;
     unsigned* part = tmp + first;
     for (int range = 0; range < ranges; ++range) {
       const unsigned b0 = static_cast<unsigned>(range) * kBuckets;
-      for (int b = threadIdx.x; b < kBuckets; b += T * T) s_off[b] = 0;
+      for (int b = threadIdx.x; b < kBuckets; b += kTilePix) s_off[b] = 0;
       __syncthreads();
-      for (int j = threadIdx.x; j < len; j += T * T) {
+      for (int j = threadIdx.x; j < len; j += kTilePix) {
         const unsigned b = (src[j] >> 4) / kCap - b0;
         if (b < kBuckets) atomicAdd(s_off + b, 1);
       }
       __syncthreads();
-      bucket_scan<T>(s_off, s_part);
-      for (int b = threadIdx.x; b < kBuckets; b += T * T) s_cur[b] = s_off[b];
+      bucket_scan(s_off, s_part);
+      for (int b = threadIdx.x; b < kBuckets; b += kTilePix) {
+        s_cur[b] = s_off[b];
+      }
       __syncthreads();
-      for (int j = threadIdx.x; j < len; j += T * T) {
+      for (int j = threadIdx.x; j < len; j += kTilePix) {
         const unsigned e = src[j];
         const unsigned b = (e >> 4) / kCap - b0;
         if (b < kBuckets) part[atomicAdd(s_cur + b, 1)] = e;
@@ -737,8 +737,10 @@ __global__ void __launch_bounds__(T * T)
         __syncthreads();
         const int g1 = s_end;
         const int a = s_off[g0], m = s_off[g1] - a;
-        for (int j = threadIdx.x; j < m; j += T * T) s_key[j] = part[a + j];
-        TileSplat<T>::sort(s_key, m);
+        for (int j = threadIdx.x; j < m; j += kTilePix) {
+          s_key[j] = part[a + j];
+        }
+        TileSplat::sort(s_key, m);
         s.add(s_key, m, rec, st);
         g0 = g1;
       }
@@ -752,14 +754,13 @@ int blocks_for(int64_t work, int cap) {
   return static_cast<int>(b < cap ? b : cap);
 }
 
-template <int T>
 int launch(const float* pos, const float* vel, int n, const Mats& mats,
            double half_near, double ps30, int mode, int width, int height,
            int chunks, float* img, unsigned char* u8, float* pts,
            double* key, float* rgb, float4* rec, void* meta_base,
            unsigned* list, unsigned* tmp, cudaStream_t stream) {
-  const int tiles_x = (width + T - 1) / T;
-  const int n_tiles = tiles_x * ((height + T - 1) / T);
+  const int tiles_x = (width + kTile - 1) / kTile;
+  const int n_tiles = tiles_x * ((height + kTile - 1) / kTile);
   const int m = counts_padded(n_tiles, chunks);
   const Meta meta = meta_of(meta_base, n_tiles, chunks);
   const int chunk_len = n > chunks ? (n + chunks - 1) / chunks : 1;
@@ -767,7 +768,7 @@ int launch(const float* pos, const float* vel, int n, const Mats& mats,
                                     stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
-    project_kernel<T><<<blocks_for(n, kMaxBlocks), kThreads, 0, stream>>>(
+    project_kernel<<<blocks_for(n, kMaxBlocks), kThreads, 0, stream>>>(
         pos, vel, n, mats, half_near, ps30, mode, width, height, tiles_x,
         chunks, chunk_len, pts, key, meta);
   }
@@ -775,14 +776,14 @@ int launch(const float* pos, const float* vel, int n, const Mats& mats,
   block_sum_kernel<<<blocks, kScanThreads, 0, stream>>>(m, meta);
   scan_kernel<<<blocks, kScanThreads, 0, stream>>>(m, meta);
   if (n > 0) {
-    fill_kernel<T><<<blocks_for(n, 1 << 30), kThreads, 0, stream>>>(
+    fill_kernel<<<blocks_for(n, 1 << 30), kThreads, 0, stream>>>(
         n, mode, width, height, tiles_x, chunks, chunk_len, pts, key, meta,
         rgb, rec, list);
   }
-  splat_kernel<T><<<n_tiles, T * T, 0, stream>>>(
+  splat_kernel<<<n_tiles, kTilePix, 0, stream>>>(
       width, height, tiles_x, chunks, meta, list, rec, img, u8);
   const int long_blocks = n_tiles < kLongBlocks ? n_tiles : kLongBlocks;
-  splat_long_kernel<T><<<long_blocks, T * T, 0, stream>>>(
+  splat_long_kernel<<<long_blocks, kTilePix, 0, stream>>>(
       n, width, height, tiles_x, chunks, meta, list, tmp, rec, img, u8);
   return static_cast<int>(cudaGetLastError());
 }
@@ -791,17 +792,13 @@ bool valid_chunks(int chunks) { return chunks >= 1 && chunks <= kMaxChunks; }
 
 }  // namespace
 
-// tile, chunks, n_tiles, field -> nbt_render_points' scratch sizes: the
-// most list entries a sprite makes (field 0: tiles its disc's box can
-// touch), the meta buffer's ints (field 1); -1 for a tile side the library
-// does not build (8 and 16), chunks outside [1, kMaxChunks], or another
-// field.
-extern "C" int nbt_render_scratch(int tile, int chunks, int n_tiles,
-                                  int field) {
-  if ((tile != 8 && tile != 16) || !valid_chunks(chunks) || n_tiles < 1) {
-    return -1;
-  }
-  if (field == 0) return max_side_tiles(tile) * max_side_tiles(tile);
+// chunks, n_tiles, field -> nbt_render_points' scratch sizes: the most
+// list entries a sprite makes (field 0: tiles its disc's box can touch),
+// the meta buffer's ints (field 1); -1 for chunks outside [1, kMaxChunks]
+// or another field.
+extern "C" int nbt_render_scratch(int chunks, int n_tiles, int field) {
+  if (!valid_chunks(chunks) || n_tiles < 1) return -1;
+  if (field == 0) return kSideTiles * kSideTiles;
   if (field == 1) {
     return 8 + 3 * counts_padded(n_tiles, chunks) + n_tiles +
            scan_blocks(n_tiles, chunks);
@@ -811,11 +808,10 @@ extern "C" int nbt_render_scratch(int tile, int chunks, int n_tiles,
 
 // pos, vel (VELOCITY mode only, else may be null): (n, 3) float32;
 // mats_host: 32 doubles on the host (P*V, then V, row-major); half_near:
-// the in-front threshold on clip w; ps30: point_size * 30; tile: the
-// screen tile's side (8 or 16); chunks: index ranges a tile's list is cut
-// in, each with its own counter (1 to kMaxChunks); img: (height, width, 3)
-// float32 out;
-// u8: its uint8 copy out, or null; pts: (3, n) float32 scratch (px, py,
+// the in-front threshold on clip w; ps30: point_size * 30; chunks: index
+// ranges a tile's list is cut in, each with its own counter (1 to
+// kMaxChunks); img: (height, width, 3) float32 out; u8: its uint8 copy
+// out, or null; pts: (3, n) float32 scratch (px, py,
 // size; 0 for a point not visible); key: (n,) double scratch; rgb: (n, 3)
 // float32 out, or null; rec: (n, 4) float32 scratch; meta, list, tmp:
 // int scratch of nbt_render_scratch's sizes (list and tmp n times field
@@ -823,7 +819,7 @@ extern "C" int nbt_render_scratch(int tile, int chunks, int n_tiles,
 extern "C" int nbt_render_points(const float* pos, const float* vel, int n,
                                  const double* mats_host, double half_near,
                                  double ps30, int mode, int width, int height,
-                                 int tile, int chunks, float* img,
+                                 int chunks, float* img,
                                  unsigned char* u8, float* pts, double* key,
                                  float* rgb, float* rec, void* meta,
                                  unsigned* list, unsigned* tmp,
@@ -831,7 +827,7 @@ extern "C" int nbt_render_points(const float* pos, const float* vel, int n,
   if (n < 0 || n > kMaxPoints || width < 1 || height < 1 ||
       width > kMaxSide || height > kMaxSide || mode < kDepth ||
       mode > kDensity || (mode == kVelocity && n > 0 && vel == nullptr) ||
-      nbt_render_scratch(tile, chunks, 1, 0) < 0) {
+      !valid_chunks(chunks)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Mats mats;
@@ -839,12 +835,7 @@ extern "C" int nbt_render_points(const float* pos, const float* vel, int n,
     mats.pv[j] = mats_host[j];
     mats.view[j] = mats_host[16 + j];
   }
-  auto* rec4 = reinterpret_cast<float4*>(rec);
-  return tile == 8
-             ? launch<8>(pos, vel, n, mats, half_near, ps30, mode, width,
-                         height, chunks, img, u8, pts, key, rgb, rec4, meta,
-                         list, tmp, stream)
-             : launch<16>(pos, vel, n, mats, half_near, ps30, mode, width,
-                          height, chunks, img, u8, pts, key, rgb, rec4, meta,
-                          list, tmp, stream);
+  return launch(pos, vel, n, mats, half_near, ps30, mode, width, height,
+                chunks, img, u8, pts, key, rgb,
+                reinterpret_cast<float4*>(rec), meta, list, tmp, stream);
 }

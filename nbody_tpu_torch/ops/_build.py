@@ -80,9 +80,9 @@ SIGNATURES = {
     # vals_out, stream
     "nbt_bitonic_sort": (_P, _P, _I, _I, _P, _I, _P, _P, _P, _P),
     # pos, vel, n, mats (host), half_near, ps30, mode, width, height,
-    # tile, chunks, img, u8, pts, key, rgb, rec, meta, list, tmp, stream
-    "nbt_render_points": (_P, _P, _I, _P, _D, _D, _I, _I, _I, _I, _I, _P,
-                          _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    # chunks, img, u8, pts, key, rgb, rec, meta, list, tmp, stream
+    "nbt_render_points": (_P, _P, _I, _P, _D, _D, _I, _I, _I, _I, _P, _P,
+                          _P, _P, _P, _P, _P, _P, _P, _P),
 }
 
 # Entry points that launch nothing: name -> (argument types, result type).
@@ -101,10 +101,10 @@ QUERIES = {
     "nbt_segment_sum_buffer_floats": ((_I, _I, _I), ctypes.c_longlong),
     # -> rows per chunk of nbt_segment_sum
     "nbt_segment_sum_chunk_rows": ((), _I),
-    # tile, chunks, n_tiles, field -> nbt_render_points' scratch: list
-    # entries a sprite makes at most (field 0), meta ints (1); -1 for a
-    # tile side not built, chunks outside 1-64, or another field
-    "nbt_render_scratch": ((_I, _I, _I, _I), _I),
+    # chunks, n_tiles, field -> nbt_render_points' scratch: list entries
+    # a sprite makes at most (field 0), meta ints (1); -1 for chunks
+    # outside 1-64 or another field
+    "nbt_render_scratch": ((_I, _I, _I), _I),
 }
 
 _lock = threading.Lock()

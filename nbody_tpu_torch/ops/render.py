@@ -55,7 +55,7 @@ MIN_DEPTH = 0.1
 MIN_SIZE, MAX_SIZE = 0.5, 16.0
 MAX_RADIUS = 8     # round(MAX_SIZE / 2)
 MAX_SIDE = 16384   # the kernel's largest image side (int16 sprite centres)
-TILE = 8           # R1's screen tile side, pixels (8 or 16)
+TILE = 8           # R1's screen tile side, pixels (render.cu's kTile)
 MAX_CHUNKS = 64    # index-range chunks a tile's list is cut in, at most
 
 
@@ -231,23 +231,21 @@ def render_points_plain(pos, vel, camera, *, width: int, height: int,
 render_points_plain.calls = 0
 
 
-def tile_counts(px, py, size, *, width: int, height: int,
-                tile: int = None) -> torch.Tensor:
-    """R1's list length of each ``tile``-pixel screen tile, (tiles_y,
+def tile_counts(px, py, size, *, width: int, height: int) -> torch.Tensor:
+    """R1's list length of each ``TILE``-pixel screen tile, (tiles_y,
     tiles_x) int64, for sprites (px, py, size; size 0 = not visible): a
     visible sprite enters each tile that its disc's bounding box, clipped
     to the image, touches. The sum is the list entries of a call."""
-    tile = TILE if tile is None else tile
-    tx_n, ty_n = -(-width // tile), -(-height // tile)
+    tx_n, ty_n = -(-width // TILE), -(-height // TILE)
     vis = size > 0
     cx, cy = _round_half_away(px[vis]), _round_half_away(py[vis])
     r = _round_half_away(size[vis] * 0.5).clamp(min=1)
     x0, x1 = (cx - r).clamp(min=0), (cx + r).clamp(max=width - 1)
     y0, y1 = (cy - r).clamp(min=0), (cy + r).clamp(max=height - 1)
     hit = (x0 <= x1) & (y0 <= y1)
-    x0, x1, y0, y1 = (a[hit] // tile for a in (x0, x1, y0, y1))
+    x0, x1, y0, y1 = (a[hit] // TILE for a in (x0, x1, y0, y1))
     counts = torch.zeros(ty_n * tx_n, dtype=torch.int64, device=px.device)
-    side = (2 * MAX_RADIUS - 1) // tile + 2  # tiles a box spans, at most
+    side = (2 * MAX_RADIUS - 1) // TILE + 2  # tiles a box spans, at most
     for dy in range(side):
         for dx in range(side):
             ok = (y0 + dy <= y1) & (x0 + dx <= x1)
@@ -304,13 +302,16 @@ def render_points(pos, vel, camera, *, width: int, height: int,
     # the key range and the tiles' counts, first entries and fill cursors
     meta = torch.empty(_scratch(chunks, n_tiles, 1), dtype=torch.int32,
                        device=dev)
+    # the tiles' lists, and the long-list kernel's partition of them: sized
+    # from n alone (no count read back, so a call can be graph-captured),
+    # n·9 int32 each; the second is touched only by a list past 2048
     lists = torch.empty((2, n * _scratch(chunks, 1, 0)), dtype=torch.int32,
                         device=dev)
     _build.launch(
         "nbt_render_points", dev, pos.data_ptr(),
         vel.data_ptr() if mode == ColorMode.VELOCITY else None, n,
         mats.ctypes.data, camera.near * 0.5, point_size * SIZE_SCALE,
-        int(mode), width, height, TILE, chunks, img.data_ptr(),
+        int(mode), width, height, chunks, img.data_ptr(),
         _build.ptr(u8), pts.data_ptr(), key.data_ptr(), _build.ptr(rgb),
         rec.data_ptr(), meta.data_ptr(), lists[0].data_ptr(),
         lists[1].data_ptr(),
@@ -331,15 +332,15 @@ def list_chunks(n_tiles: int) -> int:
 
 
 def _scratch(chunks: int, n_tiles: int, field: int) -> int:
-    """The library's scratch size (``nbt_render_scratch``) at today's
-    ``TILE``: list entries a sprite makes at most (field 0) or the meta
-    buffer's ints (field 1), cached."""
-    at = (TILE, chunks, n_tiles, field)
+    """The library's scratch size (``nbt_render_scratch``): list entries
+    a sprite makes at most (field 0) or the meta buffer's ints (field 1),
+    cached."""
+    at = (chunks, n_tiles, field)
     if at not in _scratch.cache:
         got = _build.library().nbt_render_scratch(*at)
         if got < 0:
-            raise ValueError(f"render_points: tile {TILE}, {chunks} chunks "
-                             f"not built")
+            raise ValueError(f"render_points: {chunks} chunks, {n_tiles} "
+                             f"tiles")
         _scratch.cache[at] = got
     return _scratch.cache[at]
 

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time kernel R1 (the point splat, csrc/render.cu) at the 1M shapes of
-``chip_smoke.py``'s r1 on one CUDA card, today's tile side and index
-chunks against the other tile side and against one chunk a tile, per
-kernel; optionally time an earlier render.cu beside today's.
+``chip_smoke.py``'s r1 on one CUDA card, today's index chunks against one
+chunk a tile, per kernel; optionally time an earlier render.cu beside
+today's.
 
     PYTHONPATH=. python3 scripts/profile_render_torch.py \
         [--baseline OLD_RENDER_CU]
@@ -12,13 +12,12 @@ tiles`` configuration) at 1280x720 with the uint8 copy, the app's call
 form, at the app's camera and the close one, in each colour mode. At
 each:
 
-  * the tiles' list entries and longest list at 8x8 and 16x16 tiles
-    (``ops.render.tile_counts``);
-  * R1 at today's ``ops.render.TILE`` and ``MAX_CHUNKS`` against the
-    other tile side (8 or 16) and against one index chunk a tile (one
-    counter a tile, each list sorted whole): the images bit-equal, then their device times (CUDA graph
-    replay, ``chip_smoke.graph_ms``) in the order A, B, B, A three times
-    over (``profile_tile_near_torch.ab``);
+  * the tiles' list entries and longest list (``ops.render.tile_counts``);
+  * R1 at today's ``ops.render.MAX_CHUNKS`` against one index chunk a
+    tile (one counter a tile, each list sorted whole): the images
+    bit-equal, then their device times (CUDA graph replay,
+    ``chip_smoke.graph_ms``) in the order A, B, B, A three times over
+    (``profile_tile_near_torch.ab``);
   * the device time of each of R1's kernels, from ``torch.profiler`` over
     10 calls.
 
@@ -113,7 +112,7 @@ def kernel_times(call):
         if t is None:
             t = ev.cuda_time_total
         if t > 0:
-            name = re.search(r"(\w+_kernel)(<\d+>)?|Memset", ev.key)
+            name = re.search(r"\w+_kernel|Memset", ev.key)
             name = name.group(0) if name else ev.key[:40]
             out[name] = round(out.get(name, 0.0) + t / 10 / 1e3, 4)
     return out
@@ -140,17 +139,17 @@ def main():
     base = load_baseline(args.baseline) if args.baseline else None
     scene = init_from_config(path_configs()["1M BH tiles"], device=dev)
     pos, vel = scene.pos, scene.vel
-    today = (R.TILE, R.MAX_CHUNKS)
+    today = R.MAX_CHUNKS
 
-    def at(tile, chunks, cam, mode):
+    def at(chunks, cam, mode):
         def call():
-            R.TILE, R.MAX_CHUNKS = tile, chunks
+            R.MAX_CHUNKS = chunks
             try:
                 return R.render_points(pos, vel, cam, width=WIDTH,
                                        height=HEIGHT, point_size=2.0,
                                        mode=mode, uint8=True)
             finally:
-                R.TILE, R.MAX_CHUNKS = today
+                R.MAX_CHUNKS = today
         return call
 
     for cam_name, cam_kw in (("app", APP_CAMERA), ("close", CLOSE_CAMERA)):
@@ -160,24 +159,18 @@ def main():
             sp = R.render_points(pos, vel, cam, width=WIDTH, height=HEIGHT,
                                  point_size=2.0, mode=mode,
                                  sprites=True).sprites
-            lists = {t: R.tile_counts(*sp[:3], width=WIDTH, height=HEIGHT,
-                                      tile=t) for t in (8, 16)}
-            print(f"{label}: {int((sp[2] > 0).sum())} visible; list "
-                  f"entries, longest list: " + ", ".join(
-                      f"{t}x{t} {int(c.sum())}, {int(c.max())}"
-                      for t, c in lists.items()), flush=True)
-            a = at(*today, cam, mode)
+            lists = R.tile_counts(*sp[:3], width=WIDTH, height=HEIGHT)
+            print(f"{label}: {int((sp[2] > 0).sum())} visible; "
+                  f"{R.TILE}x{R.TILE} tiles: {int(lists.sum())} list "
+                  f"entries, longest list {int(lists.max())}", flush=True)
+            a = at(today, cam, mode)
             want = a().image
-            for other in ((16 if today[0] == 8 else 8, today[1]),
-                          (today[0], 1)):
-                b = at(*other, cam, mode)
-                if not torch.equal(b().image, want):
-                    sys.exit(f"{label}: tile, chunks {other} differ from "
-                             f"{today}")
-                ab(label, f"tile, chunks {today}", a,
-                   f"tile, chunks {other}", b, smi)
-            print(f"{label}, tile, chunks {today}: device ms a call by "
-                  f"kernel {kernel_times(a)}", flush=True)
+            b = at(1, cam, mode)
+            if not torch.equal(b().image, want):
+                sys.exit(f"{label}: 1 chunk differs from {today}")
+            ab(label, f"{today} chunks", a, "1 chunk", b, smi)
+            print(f"{label}, {today} chunks: device ms a call by kernel "
+                  f"{kernel_times(a)}", flush=True)
             if base is not None:
                 old = baseline_call(base, pos, vel, cam, mode)
                 e = float((old - want).abs().max())
@@ -186,8 +179,7 @@ def main():
                 if not e <= 1e-5:
                     sys.exit(f"{label}: baseline and today differ")
                 ab(label, "baseline", lambda: baseline_call(
-                    base, pos, vel, cam, mode), f"tile, chunks {today}", a,
-                   smi)
+                    base, pos, vel, cam, mode), f"{today} chunks", a, smi)
 
 
 if __name__ == "__main__":

@@ -1203,14 +1203,16 @@ def _at_pixel(cam, px, py, radius, width=320, height=180):
     return _at_view(cam, ndc, 30.0 / np.asarray(radius, float))
 
 
-LAYOUTS = [(8, 64), (16, 64), (8, 1)]  # R1's (tile side, chunks at most)
+CHUNKS = [64, 1]  # R1's index chunks a tile at most (list_chunks' cap)
 
 
-@pytest.mark.parametrize("layout", LAYOUTS, ids=lambda t: "t%d-c%d" % t)
+@pytest.mark.parametrize("chunks", CHUNKS, ids=lambda c: "c%d" % c)
 @pytest.mark.parametrize("mode", [0, 1, 2], ids=["depth", "velocity",
                                                   "density"])
-def test_render_kernel_cases(dev, mode, layout, monkeypatch):
-    """At each tile side, and with one index chunk a tile: one point; each radius 1-8 at the centre; a
+def test_render_kernel_cases(dev, mode, chunks, monkeypatch):
+    """With 64 index chunks a tile, and with one (a tile's list sorted
+    whole, as ``list_chunks`` gives at large images): one point; each
+    radius 1-8 at the centre; a
     radius-8 sprite at each image corner (clipped by the edges); sprites
     centred on and beside tile edges; a ragged cloud of 1037 points with
     points behind the eye and off screen, at the app's camera and a close
@@ -1219,8 +1221,7 @@ def test_render_kernel_cases(dev, mode, layout, monkeypatch):
     from nbody_tpu_torch.render import Camera
     from nbody_tpu_torch.types import ColorMode
 
-    monkeypatch.setattr(render_ops, "TILE", layout[0])
-    monkeypatch.setattr(render_ops, "MAX_CHUNKS", layout[1])
+    monkeypatch.setattr(render_ops, "MAX_CHUNKS", chunks)
     mode = ColorMode(mode)
     cam = Camera(distance=45.0, azimuth=0.7, elevation=0.75)
     one = _at_view(cam, [[0.1, -0.2]], [40.0])
@@ -1273,8 +1274,8 @@ def test_render_kernel_sort_paths(dev, order):
     assert 1000 < int(counts.max()) <= 2048
 
 
-@pytest.mark.parametrize("layout", LAYOUTS, ids=lambda t: "t%d-c%d" % t)
-def test_render_kernel_long_lists(dev, layout, monkeypatch):
+@pytest.mark.parametrize("chunks", CHUNKS, ids=lambda c: "c%d" % c)
+def test_render_kernel_long_lists(dev, chunks, monkeypatch):
     """Tiles whose list is longer than shared memory holds (the second
     splat kernel): 6000 sprites stacked on a few pixels among 2²² + 6000
     points, most of them behind the eye, so that the stacked indices span
@@ -1284,9 +1285,7 @@ def test_render_kernel_long_lists(dev, layout, monkeypatch):
     from nbody_tpu_torch.render import Camera
     from nbody_tpu_torch.types import ColorMode
 
-    tile = layout[0]
-    monkeypatch.setattr(render_ops, "TILE", tile)
-    monkeypatch.setattr(render_ops, "MAX_CHUNKS", layout[1])
+    monkeypatch.setattr(render_ops, "MAX_CHUNKS", chunks)
     cam = Camera(distance=45.0, azimuth=0.7, elevation=0.75)
     rng = np.random.default_rng(12)
     m, n = 6000, (1 << 22) + 6000
@@ -1298,7 +1297,7 @@ def test_render_kernel_long_lists(dev, layout, monkeypatch):
     pos[at] = stack
     vel = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
     got = _r1_held(dev, pos, vel, cam, ColorMode.VELOCITY)
-    counts = tile_counts(*got.sprites[:3], width=320, height=180, tile=tile)
+    counts = tile_counts(*got.sprites[:3], width=320, height=180)
     assert int(counts.max()) > 2048
     assert int(at[-1]) >= 2048 * 2048 and int(at[0]) < 2048 * 2048
 

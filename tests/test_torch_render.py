@@ -20,6 +20,7 @@ import nbody_tpu.render.terminal as jterm
 import nbody_tpu.types as jtypes
 from nbody_tpu_torch import ParticleSystem
 from nbody_tpu_torch.ops.render import (
+    TILE,
     _round_half_away,
     _splat_ordered,
     fma32,
@@ -251,17 +252,18 @@ def test_ordered_splat_equals_native_rasterizer(case):
     assert (want > 0).sum() > 100
 
 
-@pytest.mark.parametrize("tile", [8, 16])
-def test_tile_counts_match_the_boxes(tile):
+@pytest.mark.parametrize("w, h", [(53, 37), (64, 40)])
+def test_tile_counts_match_the_boxes(w, h):
     """Each tile's list length: every visible sprite counted once in each
-    tile its clipped bounding box touches (a loop over the sprites)."""
+    tile its clipped bounding box touches (a loop over the sprites), with
+    the image ragged and a whole number of tiles."""
     rng = np.random.default_rng(9)
-    n, w, h = 400, 53, 37
+    n = 400
     px = torch.from_numpy(rng.uniform(-10, w + 10, n).astype(np.float32))
     py = torch.from_numpy(rng.uniform(-10, h + 10, n).astype(np.float32))
     size = torch.from_numpy(rng.uniform(0.5, 16, n).astype(np.float32))
     size[::7] = 0  # not visible
-    got = tile_counts(px, py, size, width=w, height=h, tile=tile)
+    got = tile_counts(px, py, size, width=w, height=h)
     want = np.zeros(got.shape, np.int64)
     for x, y, s in zip(px.tolist(), py.tolist(), size.tolist()):
         if s == 0:
@@ -272,7 +274,7 @@ def test_tile_counts_match_the_boxes(tile):
         x0, x1 = max(0, cx - r), min(w - 1, cx + r)
         y0, y1 = max(0, cy - r), min(h - 1, cy + r)
         if x0 <= x1 and y0 <= y1:
-            want[y0 // tile:y1 // tile + 1, x0 // tile:x1 // tile + 1] += 1
+            want[y0 // TILE:y1 // TILE + 1, x0 // TILE:x1 // TILE + 1] += 1
     np.testing.assert_array_equal(got.numpy(), want)
 
 
