@@ -162,7 +162,39 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
            ``TerminalView.compose`` on the card equals it on the host copy;
        r4. ``PointStream`` on the card: a request then two steps, and
            ``latest()`` is the state at request time bit for bit;
-           ``verify_data_integrity``.
+           ``verify_data_integrity``;
+  8. the sharded paths (``nbody_tpu_torch.parallel``, ``sharded_phase``)
+     on ``make_mesh(4, devices=[card] * 4)``: four virtual shards of the
+     one card, NOT a scaling number (the card does every position's work
+     in turn, 4x the replicated far field, and the collectives are
+     device-local copies). Each timed run is counted as the paths of 3
+     are, after one warm step:
+       s1. 100K direct through the ring (K1's ``targets=`` form, P² = 16
+           launches a force call, 4 on each position): a(0) within
+           2e-4·max|a| of single-device K1, then 10 steps;
+       s2. tree-slabs, the 1M Barnes-Hut headline scene (d 64, S 16,
+           near_k 16, ws 1): at step 0 the routing overflow 0 (from the
+           routing alone at the default capacity N/P), the tile overflow
+           equal to the single-device ``audit_short_range()``, the rows
+           within k within 1e-4·max|a| of the single-device tiles engine,
+           and the 0.05 accuracy gate against K1 (``bh_vs_direct``); then
+           10 steps (K3 6 × 4 and K4's slab form 4 a force call);
+       s4. ``sharded_energy`` on s2's state after its steps: K5's cross
+           form 16 times, KE and PE within 1e-6 relative of
+           ``kinetic_energy`` and K5's main form on the gathered state;
+       s3. hash-slabs, the 1M sparse hash scene (cube of side 100, cell
+           2.0, cutoff 2.0, grid 64, 64 a cell): overflow 0, 4096 sampled
+           rows within 1e-4·max|a| of the float64 brute force with phase
+           4's predicate, then 10 steps;
+       s5. K4's slab form at one position's slab of s2 and of s3 (the
+           inputs of the path's own call, ``capture_slabs``) and K5's
+           cross form at one (N/P) × (N/P) block pair of s4, each against
+           its twin, two calls bit-equal, timed (graph replay too), with
+           its bound;
+       s6. ``shard_devices=2`` on one card raises ``ValidationError``
+           naming both counts and ``cli.main([... "--devices", "2",
+           "--benchmark"])`` returns 2; with 2 or more cards, the 1M BH
+           benchmark through ``--devices min(4, count)`` instead.
 
 It stops at the first failed check with a non-zero exit. It needs one CUDA
 card and exits non-zero without one. The last two lines of its output are
@@ -2267,6 +2299,349 @@ def render_phase(res, scene, wrappers, plains, none, keep, smi, dev, levels):
     return readings
 
 
+# Phase 8: the sharded paths on a mesh of four virtual shards of the card
+SHARDS = 4
+SHARD_NOTE = ("4 virtual shards on one card: not a scaling number (the card "
+              "does each position's work in turn, 4x the replicated far "
+              "field, and the collectives are device-local copies)")
+
+
+def in_contract(pos, levels, k):
+    """Rows within the k-slot cap of their finest cell (rank by row order
+    in the cell, as both the single-device tiles engine and the slab
+    build place them) under the BH binning of ``pos``."""
+    import torch
+
+    from nbody_tpu_torch.ops.barnes_hut import bin_particles
+    from nbody_tpu_torch.ops.sorted_window import cell_ids, sorted_ranks
+
+    ids = cell_ids(bin_particles(pos, levels)[2], 1 << levels)
+    order = torch.argsort(ids, stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = sorted_ranks(ids[order]).to(order.dtype)
+    return rank < k
+
+
+def capture_slabs(call):
+    """The K4 slab-form inputs of every position in one ``call()``, as
+    [(tiles, counts, kwargs)]: ``tile_sweep_slab`` wrapped in a recorder
+    for the call."""
+    from nbody_tpu_torch.parallel import tree
+
+    seen, orig = [], tree.tile_sweep_slab
+
+    def record(tiles, counts, **kw):
+        seen.append((tiles, counts, kw))
+        return orig(tiles, counts, **kw)
+
+    tree.tile_sweep_slab = record
+    try:
+        call()
+    finally:
+        tree.tile_sweep_slab = orig
+    return seen
+
+
+def slab_check(res, label, tiles, counts, kw):
+    """K4's slab form against its twin at one position's slab (2e-5·max
+    |out|), two calls bit-equal, timed (one call and graph replay), the
+    bound from this slab's live slot pairs."""
+    import torch
+    import torch.nn.functional as F
+
+    from nbody_tpu_torch.ops.tile_near import (
+        tile_sweep_plane_plain,
+        tile_sweep_slab,
+    )
+
+    d, k, ws = kw["d"], kw["k"], kw["ws"]
+    x0, planes = kw["x0"], kw["planes"]
+    nx = tiles.shape[0]
+
+    def plain():
+        return tile_sweep_plane_plain(
+            tiles, k=k, d=d, ws=ws, eps=kw["eps"], cutoff2=kw["cutoff2"],
+            counts=counts, slab=(x0, planes))
+
+    got, want = tile_sweep_slab(tiles, counts, **kw), plain()
+    e = float((got - want).abs().max())
+    tol = 2e-5 * float(want.abs().max())
+    check(e <= tol, f"K4 slab {label}: max|diff| {e} > {tol}")
+    check(torch.equal(got, tile_sweep_slab(tiles, counts, **kw)),
+          f"K4 slab {label}: two calls differ")
+    w1 = 2 * ws + 1
+    live = torch.clamp(counts, max=k).reshape(1, 1, nx, d, d).double()
+    neigh = F.avg_pool3d(live, w1, stride=1, padding=ws,
+                         count_include_pad=True) * w1 ** 3
+    pairs = float((live * neigh)[:, :, x0:x0 + planes].sum())
+    rec = dict(
+        max_abs_err=e,
+        ms=time_ms(lambda: tile_sweep_slab(tiles, counts, **kw)),
+        device_ms=graph_ms(lambda: tile_sweep_slab(tiles, counts, **kw),
+                           reps=5),
+        plain_ms=time_ms(plain, reps=3, warm=1),
+        # live slot pairs of the targets' (2ws+1)³ balls; slab tiles and
+        # counts in, the target planes' slots out
+        **bound(PAIR_OPS * pairs,
+                4 * (nx * 4 * k * d * d + nx * d * d + planes * 3 * k * d * d)),
+        library_ms=None,
+    )
+    add_shape(res, "tile_sweep_slab", label, rec)
+    print(f"K4 slab {label} (slab {nx} planes, targets [{x0}, {x0 + planes})"
+          f", d={d}, k={k}, ws={ws}, cutoff2={kw['cutoff2']}): max|diff| "
+          f"{e:.3e} (tol 2e-5*max|out| = {tol:.3e}); two calls bit-equal; "
+          f"live slot pairs {pairs:.0f}; kernel {rec['ms']:.4f} ms (device "
+          f"{rec['device_ms']:.4f} ms), plain {rec['plain_ms']:.4f} ms, "
+          f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+
+
+def cross_check(res, label, a, b, G, eps):
+    """K5's cross form against its twin on blocks ``a`` × ``b`` (relative
+    1e-5, float64 sums in both), two calls bit-equal, timed (median of 3
+    calls and graph replay), the twin once."""
+    import torch
+
+    from nbody_tpu_torch.ops.direct import (
+        pairwise_potential_cross,
+        pairwise_potential_plain,
+    )
+
+    got = pairwise_potential_cross(*a, *b, G, eps)
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    want = pairwise_potential_plain(*a, G, eps, sources=b)
+    t1.record()
+    t1.synchronize()
+    rel = abs(float(got) - float(want)) / abs(float(want))
+    check(rel <= 1e-5, f"K5 cross {label}: rel diff {rel}")
+    check(torch.equal(got, pairwise_potential_cross(*a, *b, G, eps)),
+          f"K5 cross {label}: two calls differ")
+    nt, ns = a[0].shape[0], b[0].shape[0]
+    rec = dict(
+        max_abs_err=abs(float(got) - float(want)),
+        ms=time_ms(lambda: pairwise_potential_cross(*a, *b, G, eps), reps=3,
+                   warm=1),
+        device_ms=graph_ms(lambda: pairwise_potential_cross(*a, *b, G, eps),
+                           reps=2),
+        plain_ms=t0.elapsed_time(t1),
+        # nt·ns pair terms; both blocks in, one partial per 256 rows out
+        **bound(PAIR_OPS * nt * ns, 16 * (nt + ns) + 8 * -(-nt // 256)),
+        library_ms=None,
+    )
+    add_shape(res, "pairwise_potential_cross", label, rec)
+    print(f"K5 cross {label}: kernel {float(got):.9e}, plain "
+          f"{float(want):.9e}, rel diff {rel:.3e} (tol 1e-5); two calls "
+          f"bit-equal; kernel {rec['ms']:.4f} ms (median of 3; device "
+          f"{rec['device_ms']:.4f} ms), plain {rec['plain_ms']:.4f} ms (one "
+          f"call), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+
+
+def sharded_phase(res, cfgs, scene, sparse, wrappers, plains, none, keep,
+                  smi, dev, levels):
+    """Phase 8 (s1-s6): the sharded paths (``nbody_tpu_torch.parallel``) on
+    ``make_mesh(4, devices=[card] * 4)``, each timed run under
+    ``counted_run``. Returns the readings."""
+    import torch
+
+    from nbody_tpu_torch import ParticleSystem, SimulationConfig
+    from nbody_tpu_torch.cli import main as cli_main
+    from nbody_tpu_torch.errors import ValidationError
+    from nbody_tpu_torch.models.distributions import init_from_config
+    from nbody_tpu_torch.ops.direct import (
+        direct_forces_kernel,
+        pairwise_potential,
+    )
+    from nbody_tpu_torch.ops.barnes_hut import bh_engine_params, bin_particles
+    from nbody_tpu_torch.ops.forces import make_force_fn
+    from nbody_tpu_torch.ops.integrator import kinetic_energy
+    from nbody_tpu_torch.parallel import make_mesh, mesh as M, tree
+    from nbody_tpu_torch.parallel.step import (
+        make_sharded_force_fn,
+        sharded_energy,
+        sharded_initialize_forces,
+        sharded_multi_step,
+    )
+
+    mesh = make_mesh(SHARDS, devices=[dev] * SHARDS)
+    p2 = SHARDS * SHARDS
+    print(f"phase 8 mesh: {SHARDS} positions on {mesh.devices[0]} "
+          f"({SHARD_NOTE})")
+    readings = {}
+
+    def timed(label, cfg, force_fn, state0, steps, want):
+        multi = sharded_multi_step(force_fn, cfg.dt, steps)
+        sharded_multi_step(force_fn, cfg.dt, 1)(state0)  # warm
+        launches, out, _ = counted_run(
+            f"{label} [{SHARD_NOTE}]", steps, lambda: multi(state0),
+            {**none, **want}, wrappers, plains, smi)
+        keep(label, launches)
+        check_finite(label, out)
+        readings[label] = RATES[f"{label} [{SHARD_NOTE}]"]
+        return out
+
+    # s1: the ring, 100K direct
+    cfg = cfgs["100K direct"]
+    st = init_from_config(cfg, device=dev)
+    force = make_sharded_force_fn(cfg, mesh)
+    check(force.distribution == "ring", f"s1 distribution {force.distribution}")
+    sh = sharded_initialize_forces(M.shard_state(st, mesh), force)
+    want = direct_forces_kernel(st.pos, st.mass, cfg.G, cfg.softening)
+    err = float((sh.acc - want).abs().max())
+    scale = float(want.abs().max())
+    print(f"s1 ring (100K direct) a(0) vs single-device K1: max|diff| "
+          f"{err:.4e}, max|a| {scale:.4e} (tol 2e-4*max|a|)")
+    check(err <= 2e-4 * scale, f"s1 ring a(0) {err} > 2e-4*max|a|")
+    timed("s1 100K direct, ring", cfg, force, sh, 10,
+          {"direct_forces": 10 * p2})
+    del st, sh, want
+
+    # s2: tree-slabs, the 1M Barnes-Hut headline scene
+    cfg = cfgs["1M BH tiles"]
+    force = make_sharded_force_fn(cfg, mesh)
+    check(force.distribution == "tree-slabs",
+          f"s2 distribution {force.distribution}")
+    pos, mass = scene.pos, scene.mass
+    ps, ms = M.split(pos, mesh), M.split(mass, mesh)
+    k = bh_engine_params(cfg)["near_k"]  # the sharded factory's rule
+    kw = dict(levels=cfg.bh_max_level, near_k=k, return_overflow=True)
+    got = {}
+    slabs = capture_slabs(lambda: got.update(r=tree.sharded_barnes_hut_forces(
+        ps, ms, mesh, cfg.G, cfg.softening, cfg.barnes_hut_theta, **kw)))
+    acc_l, overflow = got["r"]
+    acc = M.gather(acc_l)
+    # the routing alone, at the default capacity N/P: the slab owner of
+    # each row from the global binning (pmin/pmax of the blocks' bounds
+    # are the global bounds)
+    s = (1 << cfg.bh_max_level) // SHARDS
+    dest = M.split(torch.div(bin_particles(pos, cfg.bh_max_level)[2][:, 0]
+                             .long(), s, rounding_mode="floor"), mesh)
+    route = sum(int(tree._route_to_slabs(ps[q], ms[q], dest[q], SHARDS,
+                                         ps[q].shape[0])[2])
+                for q in range(SHARDS))
+    ps1 = ParticleSystem()
+    ps1.initialize(cfg, device=dev)
+    audit = ps1.audit_short_range()
+    del ps1
+    tile_over = int(overflow) - route
+    print(f"s2 tree-slabs step 0: routing overflow {route} (capacity N/P = "
+          f"{N // SHARDS}), tile overflow {tile_over} rows past k = {k}, "
+          f"single-device audit_short_range() {audit}")
+    check(route == 0, f"s2 routing overflow {route}")
+    check(tile_over == audit["overflow"],
+          f"s2 tile overflow {tile_over} != audit {audit['overflow']}")
+    single = make_force_fn(cfg)(pos, mass)
+    ok = in_contract(pos, cfg.bh_max_level, k)
+    err = float((acc[ok] - single[ok]).abs().max())
+    scale = float(single[ok].abs().max())
+    print(f"s2 tree-slabs vs single-device tiles engine on the "
+          f"{int(ok.sum())} rows within k: max|diff| {err:.4e}, max|a| "
+          f"{scale:.4e} (tol 1e-4*max|a|)")
+    check(err <= 1e-4 * scale, f"s2 vs single device {err} > 1e-4*max|a|")
+    bh_vs_direct(pos, mass, acc, cfg, "s2 BH tree-slabs")
+    check(len(slabs) == SHARDS, f"s2 K4 slab calls {len(slabs)}")
+    slab_check(res, "s2 1M BH tree-slabs, position 1", *slabs[1])
+    del single, acc, acc_l, slabs
+    sh = sharded_initialize_forces(M.shard_state(scene, mesh), force)
+    sh = timed("s2 1M BH tree-slabs", cfg, force, sh, 10,
+               {"far_taps": 10 * levels * SHARDS,
+                "tile_sweep_slab": 10 * SHARDS})
+
+    # s4: energy on s2's state after its timed steps (at step 0 every
+    # velocity is 0)
+    cfg_e = cfgs["1M BH tiles"]
+    launches, (ke, pe), _ = counted_run(
+        "s4 1M sharded_energy (one call; steps/s = calls/s)", 1,
+        lambda: sharded_energy(sh, mesh, cfg_e.G, cfg_e.softening),
+        {**none, "pairwise_potential_cross": p2}, wrappers, plains, smi)
+    keep("s4 1M sharded_energy", launches)
+    st = M.gather_state(sh)
+    ke_1 = float(kinetic_energy(st))
+    pe_1 = float(pairwise_potential(st.pos, st.mass, cfg_e.G,
+                                    cfg_e.softening))
+    rk = abs(float(ke) - ke_1) / abs(ke_1)
+    rp = abs(float(pe) - pe_1) / abs(pe_1)
+    print(f"s4 sharded_energy: KE {float(ke):.9e} vs {ke_1:.9e} (rel "
+          f"{rk:.3e}), PE {float(pe):.9e} vs K5's main form {pe_1:.9e} (rel "
+          f"{rp:.3e}); tol 1e-6")
+    check(rk <= 1e-6 and rp <= 1e-6, f"s4 energies rel {rk}, {rp}")
+    b = [(x.pos, x.mass) for x in sh.shards]
+    cross_check(res, "s4 1M, one block pair (N/P x N/P)", b[0], b[1],
+                cfg_e.G, cfg_e.softening)
+    del sh, st, b
+
+    # s3: hash-slabs, the 1M sparse hash scene, k = 64
+    cfg = cfgs["1M sparse hash"]
+    check((cfg.hash_max_grid_dim, cfg.hash_max_per_cell,
+           cfg.spatial_hash_cutoff, cfg.spatial_hash_cell_size)
+          == (64, 64, 2.0, 2.0), "s3 config")
+    force = make_sharded_force_fn(cfg, mesh)
+    check(force.distribution == "hash-slabs",
+          f"s3 distribution {force.distribution}")
+    pos, mass = sparse.pos, sparse.mass
+    ps, ms = M.split(pos, mesh), M.split(mass, mesh)
+    got = {}
+    cut, cs = cfg.spatial_hash_cutoff, cfg.spatial_hash_cell_size
+    slabs = capture_slabs(lambda: got.update(r=tree.sharded_spatial_hash_forces(
+        ps, ms, mesh, cfg.G, cfg.softening, cutoff=cut, cell_size=cs,
+        cap=cfg.hash_max_grid_dim, max_per_cell=cfg.hash_max_per_cell,
+        return_overflow=True)))
+    acc_l, overflow = got["r"]
+    check(int(overflow) == 0, f"s3 overflow {int(overflow)}")
+    acc = M.gather(acc_l)
+    lo, hi = pos.min(0).values, pos.max(0).values
+    dims = torch.clamp(torch.ceil((hi - lo) / cs).to(torch.int32), 1,
+                       cfg.hash_max_grid_dim)
+    coords = torch.minimum(torch.clamp(torch.floor((pos - lo) / cs).to(
+        torch.int32), min=0), dims - 1)
+    err, scale, med, held = ground_truth_hash(pos, mass, acc, coords, cut,
+                                              cfg.softening, cfg.G)
+    print(f"s3 hash-slabs step 0: overflow {int(overflow)}; vs f64 brute "
+          f"force (27 cells, "
+          f"raw r² ≤ {cut * cut:g}; {held} sampled rows, all {N} sources): "
+          f"max|diff| "
+          f"{err:.4e}, max|a| {scale:.4e}, median rel err {med:.3e} (tol "
+          f"1e-4*max|a|)")
+    check(err <= 1e-4 * scale, f"s3 ground truth {err} > 1e-4*max|a|")
+    slab_check(res, "s3 1M sparse hash-slabs, position 1", *slabs[1])
+    del acc, acc_l, slabs
+    sh = sharded_initialize_forces(M.shard_state(sparse, mesh), force)
+    timed("s3 1M sparse hash-slabs", cfg, force, sh, 10,
+          {"tile_sweep_slab": 10 * SHARDS})
+    del sh
+
+    # s6: the facade and the CLI
+    count = torch.cuda.device_count()
+    if count == 1:
+        try:
+            ParticleSystem().initialize(
+                SimulationConfig(particle_count=4096, shard_devices=2),
+                device=dev)
+            fail("s6: shard_devices=2 on one card did not raise")
+        except ValidationError as e:
+            print(f"s6 facade shard_devices=2 on 1 card: ValidationError "
+                  f"({e})")
+            check("2 devices but only 1" in str(e), f"s6 message: {e}")
+        err_buf = io.StringIO()
+        with contextlib.redirect_stderr(err_buf):
+            rc, _ = captured(lambda: cli_main(
+                ["--particles", "4096", "--devices", "2", "--benchmark"]))
+        print(f"s6 cli --devices 2 --benchmark on 1 card: rc {rc}, stderr "
+              f"{err_buf.getvalue().strip()[:160]!r}")
+        check(rc == 2 and "devices" in err_buf.getvalue().lower(),
+              f"s6 cli rc {rc}")
+    else:
+        p = min(4, count)
+        rc, text = captured(lambda: cli_main(
+            ["--particles", str(N), "--method", "barnes-hut", "--devices",
+             str(p), "--benchmark", "--benchmark-steps", "10"]))
+        check(rc == 0, f"s6 cli --devices {p}: rc {rc}")
+        rec = json.loads(text[text.index("{"):])["benchmark_runs"][0]
+        readings[f"s6 CLI 1M BH --devices {p}"] = \
+            rec["metrics"]["steps_per_sec"]
+        print(f"s6 cli --devices {p}: {json.dumps(rec)} ({smi})")
+    return readings
+
+
 def main() -> None:
     import torch
 
@@ -2283,6 +2658,7 @@ def main() -> None:
         direct_forces,
         direct_forces_kernel,
         pairwise_potential,
+        pairwise_potential_cross,
         pairwise_potential_plain,
     )
     from nbody_tpu_torch.ops.far_taps import far_taps, far_taps_plain
@@ -2314,6 +2690,7 @@ def main() -> None:
     from nbody_tpu_torch.ops.tile_near import (
         tile_sweep_plane,
         tile_sweep_plane_plain,
+        tile_sweep_slab,
     )
     from nbody_tpu_torch.ops.window_sweep import (
         window_starts,
@@ -2388,6 +2765,8 @@ def main() -> None:
         "table_drift": T.table_drift,
         "table_kick": T.table_kick,
         "render_points": render_points,
+        "tile_sweep_slab": tile_sweep_slab,
+        "pairwise_potential_cross": pairwise_potential_cross,
     }
     plains = [direct_forces, tile_scatter_plain, tile_place_plain,
               far_taps_plain, tile_sweep_plane_plain, window_sweep_plain,
@@ -2507,6 +2886,12 @@ def main() -> None:
     readings = render_phase(res, scene, wrappers, plains, none, keep, smi,
                             dev, levels)
     print(f"render readings: {json.dumps(readings)} ({smi})")
+
+    # Phase 8 (s): the sharded paths on four virtual shards of the card
+    readings = sharded_phase(res, cfgs, scene, sparse, wrappers, plains,
+                             none, keep, smi, dev, levels)
+    print(f"sharded readings (steps/s; {SHARD_NOTE}): "
+          f"{json.dumps(readings)} ({smi})")
     print(f"launches by path: {by_path}")
 
     sources = {
@@ -2538,13 +2923,25 @@ def main() -> None:
                           "native/rasterizer.cpp:23 + "
                           "nbody_tpu/render/renderer.py:77 (host code, no "
                           "TPU kernel)"),
+        # the sharded paths' forms; the JAX package runs both in XLA
+        "tile_sweep_slab": ("nbody_tpu_torch/csrc/tile_near.cu",
+                            "nbody_tpu/ops/pallas_tile_near.py:473 (K4; its "
+                            "slab form replaces the XLA slab sweep "
+                            "nbody_tpu/parallel/tree.py:145)"),
+        "pairwise_potential_cross": (
+            "nbody_tpu_torch/csrc/pair_potential.cu",
+            "nbody_tpu/ops/direct.py:257 (K5; its cross form replaces the "
+            "XLA ring energy nbody_tpu/parallel/step.py:201)"),
     }
+    names = {"tile_sweep_slab": "K4 slab",
+             "pairwise_potential_cross": "K5 cross"}
     for name in sources:
         check(bool(by_path[name]), f"{name} never launched on a timed path")
     # launches: the sum over the timed paths; launches_by_path: each
     # path's own count, read just after that path's run
     kernels = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+        {"name": names.get(name, name), "route": "cuda", "source": src,
+         "replaces": rep,
          "launches": sum(by_path[name].values()),
          "launches_by_path": by_path[name], **res[name]}
         for name, (src, rep) in sources.items()

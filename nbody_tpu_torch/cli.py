@@ -373,7 +373,8 @@ Distribution parameters (scoped to --init; defaults per distribution):
   --min-bounds X,Y,Z     Uniform box lower corner
   --max-bounds X,Y,Z     Uniform box upper corner
   --total-mass VALUE     Plummer total mass
-  --devices N            Shard particles over N devices (mesh)
+  --devices N            Shard particles over N CUDA cards (a mesh in
+                         one process)
   --resort-every N       Re-derive the cell sort every N fused steps
                          (1 = every step; >1 amortizes the sort, stale
                          boundary rows are audited)

@@ -21,6 +21,15 @@
 // (one double add per 256 pairs), so the long one-signed sum does not drift
 // in float32. No sequential grid, so no Kahan carry: the block reduces its
 // 256 row sums with warp shuffles and writes one double.
+//
+// Cross form (nbt_pair_potential_cross; the ring energy of
+// nbody_tpu/parallel/step.py, sharded_energy, which the JAX package leaves
+// to XLA): targets (tpos, tmass) against a separate source set (spos,
+// smass), the same per-block float64 partials of
+//   sum_{i in block} m_i * sum_j m_j / sqrt(r_ij^2 + eps^2), raw r^2 != 0.
+// A pair of the two sets at one point (raw r^2 == 0) is excluded as the self
+// pair is. The main form is the cross form of a set against itself: the same
+// kernel, the same arithmetic.
 
 #include <cuda_runtime.h>
 
@@ -29,18 +38,20 @@ namespace {
 constexpr int kBlock = 256;
 
 __global__ void __launch_bounds__(kBlock)
-pair_potential_kernel(const float* __restrict__ pos,
+pair_potential_kernel(const float* __restrict__ tpos,
+                      const float* __restrict__ tmass, int nt,
+                      const float* __restrict__ pos,
                       const float* __restrict__ mass, int n, float eps2,
                       double* __restrict__ partial) {
   __shared__ float4 tile[kBlock];
   __shared__ double warp_sum[kBlock / 32];
   const int i = blockIdx.x * kBlock + threadIdx.x;
   float xi = 0.f, yi = 0.f, zi = 0.f, mi = 0.f;
-  if (i < n) {
-    xi = pos[3 * i];
-    yi = pos[3 * i + 1];
-    zi = pos[3 * i + 2];
-    mi = mass[i];
+  if (i < nt) {
+    xi = tpos[3 * i];
+    yi = tpos[3 * i + 1];
+    zi = tpos[3 * i + 2];
+    mi = tmass[i];
   }
   double row = 0.0;
   for (int base = 0; base < n; base += kBlock) {
@@ -65,7 +76,7 @@ pair_potential_kernel(const float* __restrict__ pos,
     row += static_cast<double>(part);
     __syncthreads();
   }
-  double v = static_cast<double>(mi) * row;  // rows past n have mi = 0
+  double v = static_cast<double>(mi) * row;  // rows past nt have mi = 0
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -80,13 +91,24 @@ pair_potential_kernel(const float* __restrict__ pos,
 
 }  // namespace
 
-extern "C" int nbt_pair_potential(const float* pos, const float* mass, int n,
-                                  float eps2, double* partial, void* stream) {
-  if (n > 0) {
-    const int blocks = (n + kBlock - 1) / kBlock;
+// Partials of targets (tpos, tmass, nt) against sources (spos, smass, ns):
+// ceil(nt / 256) doubles.
+extern "C" int nbt_pair_potential_cross(const float* tpos, const float* tmass,
+                                        int nt, const float* spos,
+                                        const float* smass, int ns,
+                                        float eps2, double* partial,
+                                        void* stream) {
+  if (nt > 0) {
+    const int blocks = (nt + kBlock - 1) / kBlock;
     pair_potential_kernel<<<blocks, kBlock, 0,
                             static_cast<cudaStream_t>(stream)>>>(
-        pos, mass, n, eps2, partial);
+        tpos, tmass, nt, spos, smass, ns, eps2, partial);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int nbt_pair_potential(const float* pos, const float* mass, int n,
+                                  float eps2, double* partial, void* stream) {
+  return nbt_pair_potential_cross(pos, mass, n, pos, mass, n, eps2, partial,
+                                  stream);
 }

@@ -21,6 +21,14 @@
 // up) and dead sources are skipped. Without counts every slot is live
 // (filler slots have mass 0 and add nothing).
 //
+// Slab form (nbt_tile_near_slab; the near sweep of nbody_tpu/parallel/
+// tree.py, _slab_sweep, which the JAX package leaves to XLA): the tiles hold
+// nx x-planes of a slab, (nx, 4, k, d^2), counts (nx d^2) is required and n_far
+// is 0; the targets are planes [x0, x0 + planes) and out is (planes, 3, k,
+// d^2). Source cells past the slab's x-extent [0, nx) or the grid's y, z
+// extent [0, d) hold none. The cube form is the slab form with nx = planes =
+// d and x0 = 0: the same kernel, the same arithmetic.
+//
 // What bounds it on the H100: FP32 issue over the live pairs (~20
 // instructions a pair, r^2 rounded step by step), not memory: every live
 // slot is read by the ~9 bricks whose halo holds it, 16 bytes each, mostly
@@ -115,9 +123,9 @@ __device__ __forceinline__ int target_cell(const int* tpre, int nz, int i) {
   return lo;
 }
 
-__device__ __forceinline__ int live_slots(const float* counts, int d, int k,
-                                          int xs, int ys, int zs) {
-  if (xs < 0 || xs >= d || ys < 0 || ys >= d || zs < 0 || zs >= d) return 0;
+__device__ __forceinline__ int live_slots(const float* counts, int nx, int d,
+                                          int k, int xs, int ys, int zs) {
+  if (xs < 0 || xs >= nx || ys < 0 || ys >= d || zs < 0 || zs >= d) return 0;
   if (!counts) return k;
   const size_t c = (static_cast<size_t>(xs) * d + ys) * d + zs;
   return min(static_cast<int>(counts[c]), k);
@@ -130,8 +138,8 @@ tile_near_kernel(const float* __restrict__ tiles,
                  const float* __restrict__ counts,
                  const float* __restrict__ lo,
                  const float* __restrict__ cellw, float* __restrict__ out,
-                 int d, int k, int ws, int bz, int rows_cap, int group_cols,
-                 float eps2, float cutoff2) {
+                 int nx, int x0, int d, int k, int ws, int bz, int rows_cap,
+                 int group_cols, float eps2, float cutoff2) {
   extern __shared__ float4 s_rows[];          // rows_cap staged rows
   float4* s_acc = s_rows + rows_cap;          // bz * k target sums
   float4* s_tgt = s_acc + bz * k;             // bz * k (x, y, z, cell)
@@ -140,8 +148,9 @@ tile_near_kernel(const float* __restrict__ tiles,
   __shared__ int s_warp[kWarps];
 
   const int tid = threadIdx.x;
-  const int x = blockIdx.x / d;
-  const int y = blockIdx.x - x * d;
+  const int xt = blockIdx.x / d;  // the target plane, of out
+  const int x = x0 + xt;          // the same plane, of tiles
+  const int y = blockIdx.x - xt * d;
   const int z0 = blockIdx.y * bz;
   const int nz = min(bz, d - z0);
   const int d2 = d * d;
@@ -149,7 +158,8 @@ tile_near_kernel(const float* __restrict__ tiles,
   const int yz0 = y * d + z0;
 
   // 1. the brick's live targets, numbered cell by cell
-  const int live = tid < nz ? live_slots(counts, d, k, x, y, z0 + tid) : 0;
+  const int live =
+      tid < nz ? live_slots(counts, nx, d, k, x, y, z0 + tid) : 0;
   int n_tgt;
   const int first = block_scan(live, s_warp, &n_tgt);
   if (tid < nz) s_tpre[tid] = first;
@@ -207,7 +217,7 @@ tile_near_kernel(const float* __restrict__ tiles,
         const int cg = f / hz, h = f - cg * hz;
         const int c = c0 + cg;
         const int ox = c / w1;
-        const int v = live_slots(counts, d, k, x + ox - ws,
+        const int v = live_slots(counts, nx, d, k, x + ox - ws,
                                  y + (c - ox * w1) - ws, z0 - ws + h);
         s_tab[f] = v;
         mine += v;
@@ -283,7 +293,7 @@ tile_near_kernel(const float* __restrict__ tiles,
   }
   __syncthreads();
   // 5. every slot of the brick, live sums and dead zeros, z fastest
-  float* ob = out + static_cast<size_t>(x) * 3 * chs + yz0;
+  float* ob = out + static_cast<size_t>(xt) * 3 * chs + yz0;
   for (int it = tid; it < k * nz; it += kThreads) {
     const int s = it / nz, zz = it - s * nz;
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -339,11 +349,14 @@ extern "C" int nbt_tile_near_plan(int d, int k, int ws, int field) {
   }
 }
 
-extern "C" int nbt_tile_near(const float* tiles, const float* far, int n_far,
-                             const float* counts, const float* lo,
-                             const float* cellw, float* out, int d, int k,
-                             int ws, float eps2, float cutoff2, int use_cutoff,
-                             void* stream) {
+namespace {
+
+// Launch over target planes [x0, x0 + planes) of nx-plane tiles (the cube
+// form: nx = planes = d, x0 = 0).
+int launch_near(const float* tiles, const float* far, int n_far,
+                const float* counts, const float* lo, const float* cellw,
+                float* out, int nx, int x0, int planes, int d, int k, int ws,
+                float eps2, float cutoff2, int use_cutoff, void* stream) {
   if (d < 1 || k < 1 || ws < 0) return static_cast<int>(cudaErrorInvalidValue);
   ws = min(ws, d - 1);  // cells farther than d - 1 lie outside the grid
   const Plan plan = make_plan(d, k, ws);
@@ -370,10 +383,35 @@ extern "C" int nbt_tile_near(const float* tiles, const float* far, int n_far,
     }
     opted_in[device] = true;
   }
-  const dim3 grid(d * d, (d + plan.bz - 1) / plan.bz);
+  const dim3 grid(planes * d, (d + plan.bz - 1) / plan.bz);
   kernels[2 * (use_cutoff != 0) + soft]<<<grid, kThreads, plan.smem,
                                           static_cast<cudaStream_t>(stream)>>>(
-      tiles, far, n_far, counts, lo, cellw, out, d, k, ws, plan.bz,
+      tiles, far, n_far, counts, lo, cellw, out, nx, x0, d, k, ws, plan.bz,
       plan.rows_cap, plan.group_cols, eps2, cutoff2);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int nbt_tile_near(const float* tiles, const float* far, int n_far,
+                             const float* counts, const float* lo,
+                             const float* cellw, float* out, int d, int k,
+                             int ws, float eps2, float cutoff2, int use_cutoff,
+                             void* stream) {
+  return launch_near(tiles, far, n_far, counts, lo, cellw, out, d, 0, d, d, k,
+                     ws, eps2, cutoff2, use_cutoff, stream);
+}
+
+// The slab form: targets in planes [x0, x0 + planes) of nx-plane tiles,
+// counts required, no far seed.
+extern "C" int nbt_tile_near_slab(const float* tiles, const float* counts,
+                                  float* out, int nx, int x0, int planes,
+                                  int d, int k, int ws, float eps2,
+                                  float cutoff2, int use_cutoff,
+                                  void* stream) {
+  if (!counts || planes < 1 || x0 < 0 || x0 + planes > nx) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_near(tiles, nullptr, 0, counts, nullptr, nullptr, out, nx, x0,
+                     planes, d, k, ws, eps2, cutoff2, use_cutoff, stream);
 }

@@ -67,12 +67,18 @@ SIGNATURES = {
     # cutoff2, use_cutoff, stream
     "nbt_tile_near": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I,
                       _P),
+    # tiles, counts, out, nx, x0, planes, d, k, ws, eps2, cutoff2,
+    # use_cutoff, stream
+    "nbt_tile_near_slab": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I,
+                           _P),
     # psort, csort, cell_start, n, d, offsets, n_off, z_hw, window, eps2,
     # cutoff2, use_cutoff, acc, overflow, block, stream
     "nbt_window_sweep": (_P, _P, _P, _I, _I, _P, _I, _I, _I, _F, _F, _I, _P,
                          _P, _I, _P),
     # pos, mass, n, eps2, partial, stream
     "nbt_pair_potential": (_P, _P, _I, _F, _P, _P),
+    # tpos, tmass, nt, spos, smass, ns, eps2, partial, stream
+    "nbt_pair_potential_cross": (_P, _P, _I, _P, _P, _I, _F, _P, _P),
     # vals, C, n, dest, num_dest, buffer (out, then partials),
     # capacity (floats), stream
     "nbt_segment_sum": (_P, _I, _I, _P, _I, _P, ctypes.c_longlong, _P),

@@ -10,8 +10,10 @@ PyTorch counterpart of ``nbody_tpu/ops/direct.py``:
     ``csrc/direct.cu`` (kernel K1, replacing ``direct_forces_pallas``);
   * ``pairwise_potential`` — the all-pairs potential energy, wrapper of
     ``csrc/pair_potential.cu`` (kernel K5, replacing
-    ``pairwise_potential_pallas``), and ``pairwise_potential_plain``, its
-    plain twin.
+    ``pairwise_potential_pallas``), ``pairwise_potential_cross``, its
+    cross form (targets against a separate source set: the ring energy of
+    ``parallel/step.py``), and ``pairwise_potential_plain``, the plain twin
+    of both.
 
 Physics: a_i = G · Σ_j m_j · (x_j − x_i) / (|x_j − x_i|² + ε²)^{3/2}, with
 self/coincident pairs contributing exactly zero.
@@ -116,23 +118,28 @@ direct_forces_kernel.launches = 0
 PE_BLOCK_TERMS = 1 << 28
 
 
-def pairwise_potential_plain(pos, mass, G=1.0, softening=0.1):
+def pairwise_potential_plain(pos, mass, G=1.0, softening=0.1, *,
+                             sources=None):
     """Plain twin of kernel K5: PE = −½G Σ_{i≠j} m_i·m_j/√(r² + ε²), pairs
     with raw r² == 0 excluded, over row blocks of ``PE_BLOCK_TERMS`` pair
-    terms, each block's terms summed in float64. Returns a float32 scalar
-    tensor."""
+    terms, each block's terms summed in float64. ``sources=(pos_s,
+    mass_s)``: the cross form, −½G Σ_i Σ_j m_i·m_j/√(r_ij² + ε²) of the
+    rows of ``pos`` against those sources, raw r² == 0 excluded. Returns a
+    float32 scalar tensor."""
     pairwise_potential_plain.calls += 1
-    n = pos.shape[0]
-    b = max(1, min(n, PE_BLOCK_TERMS // max(n, 1)))
+    spos, smass = (pos, mass) if sources is None else sources
+    n, ns = pos.shape[0], spos.shape[0]
+    b = max(1, min(n, PE_BLOCK_TERMS // max(ns, 1)))
     eps2 = float(softening) ** 2
     x, y, z = pos[:, 0], pos[:, 1], pos[:, 2]
+    sx, sy, sz = spos[:, 0], spos[:, 1], spos[:, 2]
     total = torch.zeros((), dtype=torch.float64, device=pos.device)
     for i in range(0, n, b):
-        dx = x[None, :] - x[i:i + b, None]
-        dy = y[None, :] - y[i:i + b, None]
-        dz = z[None, :] - z[i:i + b, None]
+        dx = sx[None, :] - x[i:i + b, None]
+        dy = sy[None, :] - y[i:i + b, None]
+        dz = sz[None, :] - z[i:i + b, None]
         r2 = dx * dx + dy * dy + dz * dz
-        e = (mass[i:i + b, None] * mass[None, :]) * torch.rsqrt(r2 + eps2)
+        e = (mass[i:i + b, None] * smass[None, :]) * torch.rsqrt(r2 + eps2)
         total = total + torch.where(r2 == 0.0, 0.0, e).sum(
             dtype=torch.float64)
     return (-0.5 * G * total).to(torch.float32)
@@ -161,3 +168,32 @@ def pairwise_potential(pos, mass, G=1.0, softening=0.1):
 
 
 pairwise_potential.launches = 0
+
+
+def pairwise_potential_cross(pos, mass, src_pos, src_mass, G=1.0,
+                             softening=0.1):
+    """Kernel K5's cross form (``csrc/pair_potential.cu``,
+    ``nbt_pair_potential_cross``): −½G Σ_i Σ_j m_i·m_j/√(r_ij² + ε²) of the
+    targets ``pos``/``mass`` against the sources ``src_pos``/``src_mass``,
+    pairs at one point (raw r² == 0) excluded, with the main form's float64
+    block partials. Returns a float32 scalar tensor. CPU tensors take the
+    plain twin; CUDA tensors launch the kernel or raise."""
+    if pos.device.type == "cpu":
+        return pairwise_potential_plain(pos, mass, G, softening,
+                                        sources=(src_pos, src_mass))
+    _build.require_cuda(pos, "pairwise_potential_cross")
+    dev = pos.device
+    n, ns = pos.shape[0], src_pos.shape[0]
+    _build.check(pos, "pos", (n, 3), dev)
+    _build.check(mass, "mass", (n,), dev)
+    _build.check(src_pos, "src_pos", (ns, 3), dev)
+    _build.check(src_mass, "src_mass", (ns,), dev)
+    partial = torch.empty((-(-n // 256),), dtype=torch.float64, device=dev)
+    _build.launch("nbt_pair_potential_cross", dev, pos.data_ptr(),
+                  mass.data_ptr(), n, src_pos.data_ptr(), src_mass.data_ptr(),
+                  ns, float(softening) ** 2, partial.data_ptr())
+    pairwise_potential_cross.launches += 1
+    return (-0.5 * G * partial.sum()).to(torch.float32)
+
+
+pairwise_potential_cross.launches = 0

@@ -13,8 +13,15 @@ is computed. The TPU kernel marks liveness by mass instead and writes
 zeros or filler values for dead slots; no version's dead slots are ever
 picked up, so comparisons across versions use live slots only.
 
-``tile_sweep_plane`` is the wrapper of ``csrc/tile_near.cu``;
-``tile_sweep_plane_plain`` is its plain twin.
+The SLAB form (``tile_sweep_slab``; the near sweep of the sharded paths,
+``parallel/tree.py``) takes the nx x-planes of a halo'd slab (nx, 4, k, d²)
+with their counts (nx·d²), sweeps the target planes [x0, x0 + planes)
+against every plane of the slab, with no cell past the slab's x-extent or
+the grid's y, z extent, and no far seed → (planes, 3, k, d²).
+
+``tile_sweep_plane`` and ``tile_sweep_slab`` are the wrappers of
+``csrc/tile_near.cu``; ``tile_sweep_plane_plain`` is the plain twin of
+both (``slab=(x0, planes)`` for the slab form).
 """
 
 from __future__ import annotations
@@ -46,26 +53,36 @@ def far_eval(far, dx, dy, dz):
     return fx, fy, fz
 
 
-def _live_mask(counts, d: int, k: int, device):
-    """(k, d³) bool: slot s of cell c is live iff s < counts[c]."""
+def _live_mask(counts, cells: int, k: int, device):
+    """(k, cells) bool: slot s of cell c is live iff s < counts[c]."""
     s = torch.arange(k, device=device)[:, None]
-    return s < counts.reshape(1, d * d * d)
+    return s < counts.reshape(1, cells)
 
 
 def tile_sweep_plane_plain(tiles_plane, *, k: int, d: int, ws: int,
                            eps: float, cutoff2: float | None = None,
-                           far_plane=None, lo=None, cell=None, counts=None):
-    """Plain twin of kernel K4 (dense, every slot pair of every offset)."""
+                           far_plane=None, lo=None, cell=None, counts=None,
+                           slab=None):
+    """Plain twin of kernel K4 (dense, every slot pair of every offset).
+    ``slab=(x0, planes)``: the slab form, ``tiles_plane`` (nx, 4, k, d²)
+    with ``counts`` (nx·d²), targets in planes [x0, x0 + planes), no far
+    seed → (planes, 3, k, d²)."""
     tile_sweep_plane_plain.calls += 1
-    pc = d * d * d
+    nx = tiles_plane.shape[0]
+    x0, planes = (0, d) if slab is None else slab
+    if slab is not None and (counts is None or far_plane is not None):
+        raise ValueError("the slab form takes counts and no far plane")
+    pc = planes * d * d
     dev = tiles_plane.device
-    # (d, 4, k, d²) → slot-leading (k, 4, d, d, d), zero-padded by ws
-    tiles_t = tiles_plane.reshape(d, 4, k, d, d).permute(2, 1, 0, 3, 4)
-    tgt = tiles_t.reshape(k, 4, pc)
+    # (nx, 4, k, d²) → slot-leading (k, 4, nx, d, d), zero-padded by ws
+    tiles_t = tiles_plane.reshape(nx, 4, k, d, d).permute(2, 1, 0, 3, 4)
+    tgt = tiles_t[:, :, x0:x0 + planes].reshape(k, 4, pc)
     pad = F.pad(tiles_t, [ws] * 6)
     if counts is not None:
-        live = _live_mask(counts, d, k, dev).to(tiles_plane.dtype)
-        live_pad = F.pad(live.reshape(k, d, d, d), [ws] * 6)
+        live_all = _live_mask(counts, nx * d * d, k, dev).to(
+            tiles_plane.dtype).reshape(k, nx, d, d)
+        live = live_all[:, x0:x0 + planes].reshape(k, pc)
+        live_pad = F.pad(live_all, [ws] * 6)
     eps2 = eps * eps
 
     if far_plane is not None:
@@ -82,14 +99,14 @@ def tile_sweep_plane_plain(tiles_plane, *, k: int, d: int, ws: int,
         acc = torch.zeros((k, 3, pc), dtype=tiles_plane.dtype, device=dev)
 
     w1 = 2 * ws + 1
-    for ox in range(w1):
+    for ox in range(x0, x0 + w1):
         for oy in range(w1):
             for oz in range(w1):
-                src = pad[:, :, ox:ox + d, oy:oy + d, oz:oz + d].reshape(
-                    k, 4, pc)
+                src = pad[:, :, ox:ox + planes, oy:oy + d,
+                          oz:oz + d].reshape(k, 4, pc)
                 sm = src[:, 3]
                 if counts is not None:
-                    sm = sm * live_pad[:, ox:ox + d, oy:oy + d,
+                    sm = sm * live_pad[:, ox:ox + planes, oy:oy + d,
                                        oz:oz + d].reshape(k, pc)
                 # every (target slot, source slot) pair at once:
                 # (k_t, k_s, pc)
@@ -107,8 +124,8 @@ def tile_sweep_plane_plain(tiles_plane, *, k: int, d: int, ws: int,
                     dim=1)
     if counts is not None:
         acc = acc * live[:, None, :]
-    # (k, 3, d³) → (d, 3, k, d²)
-    return acc.reshape(k, 3, d, d * d).permute(2, 1, 0, 3).contiguous()
+    # (k, 3, planes·d²) → (planes, 3, k, d²)
+    return acc.reshape(k, 3, planes, d * d).permute(2, 1, 0, 3).contiguous()
 
 
 tile_sweep_plane_plain.calls = 0
@@ -158,3 +175,39 @@ def tile_sweep_plane(tiles_plane, *, k: int, d: int, ws: int, eps: float,
 
 
 tile_sweep_plane.launches = 0
+
+
+def tile_sweep_slab(tiles, counts, *, k: int, d: int, ws: int, eps: float,
+                    x0: int, planes: int, cutoff2: float | None = None):
+    """Kernel K4's slab form (``csrc/tile_near.cu``, ``nbt_tile_near_slab``):
+    the sweep of target planes [x0, x0 + planes) of the halo'd slab
+    ``tiles`` (nx, 4, k, d²) against all its planes, ``counts`` (nx·d²)
+    marking the live slots, no far seed → (planes, 3, k, d²), unscaled by
+    G. CPU tensors take the plain twin; CUDA tensors launch the kernel or
+    raise."""
+    if tiles.device.type == "cpu":
+        return tile_sweep_plane_plain(
+            tiles, k=k, d=d, ws=ws, eps=eps, cutoff2=cutoff2, counts=counts,
+            slab=(x0, planes))
+    _build.require_cuda(tiles, "tile_sweep_slab")
+    dev = tiles.device
+    nx, d2 = tiles.shape[0], d * d
+    if not (0 <= x0 and 1 <= planes and x0 + planes <= nx):
+        raise ValueError(f"target planes [{x0}, {x0 + planes}) outside the "
+                         f"slab's {nx}")
+    if nx * 4 * k * d2 >= (1 << 31):
+        raise ValueError("tiles too large for int32 indexing")
+    _build.check(tiles, "tiles", (nx, 4, k, d2), dev)
+    _build.check(counts, "counts", (nx * d2,), dev)
+    out = torch.empty((planes, 3, k, d2), dtype=torch.float32, device=dev)
+    _build.launch(
+        "nbt_tile_near_slab", dev, tiles.data_ptr(), counts.data_ptr(),
+        out.data_ptr(), nx, x0, planes, d, k, ws, float(eps) ** 2,
+        0.0 if cutoff2 is None else float(cutoff2),
+        0 if cutoff2 is None else 1,
+    )
+    tile_sweep_slab.launches += 1
+    return out
+
+
+tile_sweep_slab.launches = 0

@@ -1,0 +1,44 @@
+"""Particle sharding over a device mesh.
+
+PyTorch counterpart of ``nbody_tpu/parallel/``: the particle axis splits
+over the positions of a one-process ``Mesh`` of torch devices (a repeated
+device holds virtual shards), and explicit collectives move data between
+them (``mesh.py``):
+
+  * ring-rotated j-blocks for the all-pairs force (``ring.py``, kernel K1
+    per hop);
+  * psum energy reductions, the potential on a ring of kernel K5's cross
+    form (``step.py``);
+  * the psum-combined pyramid for Barnes-Hut and slab-routed near fields
+    with chained-ppermute halos, swept by kernel K4's slab form
+    (``tree.py``);
+  * ``torch.distributed`` initialization helpers (``distributed.py``).
+"""
+
+from nbody_tpu_torch.parallel.mesh import (
+    make_mesh,
+    shard_state,
+    sharded_device_count,
+)
+from nbody_tpu_torch.parallel.ring import ring_direct_forces
+from nbody_tpu_torch.parallel.step import (
+    make_sharded_multi_step,
+    make_sharded_step,
+    sharded_energy,
+)
+from nbody_tpu_torch.parallel.tree import (
+    sharded_barnes_hut_forces,
+    sharded_spatial_hash_forces,
+)
+
+__all__ = [
+    "make_mesh",
+    "shard_state",
+    "sharded_device_count",
+    "ring_direct_forces",
+    "make_sharded_multi_step",
+    "make_sharded_step",
+    "sharded_energy",
+    "sharded_barnes_hut_forces",
+    "sharded_spatial_hash_forces",
+]

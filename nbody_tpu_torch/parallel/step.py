@@ -1,0 +1,206 @@
+"""Sharded simulation step and energy.
+
+PyTorch counterpart of ``nbody_tpu/parallel/step.py``: the Velocity Verlet
+step of a particle-sharded state (``ShardedState``, ``parallel/mesh.py``).
+Kick and drift run on each position's own rows; the force comes from the
+ring (direct), the slab-routed tree and hash paths (``parallel/tree.py``)
+when the grid splits over the mesh, or, as the fallback, the whole
+single-device program replicated on every position; energies reduce with
+``psum``, the potential by a ring of kernel K5's cross form.
+"""
+
+from __future__ import annotations
+
+import math
+import warnings
+from typing import Callable
+
+import torch
+
+from nbody_tpu_torch.ops.direct import pairwise_potential_cross
+from nbody_tpu_torch.parallel.mesh import (
+    Mesh,
+    ShardedState,
+    all_gather,
+    ppermute,
+    psum,
+)
+from nbody_tpu_torch.parallel.ring import ring_direct_forces
+from nbody_tpu_torch.state import ParticleState
+from nbody_tpu_torch.types import ForceMethod, SimulationConfig
+
+# force_fn(pos blocks, mass blocks) -> acc blocks, one per mesh position
+ShardedForceFn = Callable[[list, list], list]
+
+
+class ReplicatedFallbackWarning(RuntimeWarning):
+    """The sharded force fell back to REPLICATED per-position compute.
+
+    Results stay exact, but every position runs the full single-device
+    program — O(N·devices) redundant work, no scaling. Issued so a user
+    who configured a mesh learns that the designed distributed path
+    (parallel/tree.py) was not selected; fix by choosing a grid that
+    divides the mesh (BH: 2^bh_max_level % n_devices == 0; hash:
+    hash_max_grid_dim % n_devices == 0)."""
+
+
+def _tag(force_fn, distribution: str):
+    """Name the selected strategy on the closure (read by
+    ``ParticleSystem.diagnostics``)."""
+    force_fn.distribution = distribution
+    return force_fn
+
+
+def make_sharded_force_fn(config: SimulationConfig, mesh: Mesh,
+                          pos_hint=None) -> ShardedForceFn:
+    """``force_fn(pos blocks, mass blocks) -> acc blocks`` for the config,
+    tagged ``distribution``: ``"ring"`` (direct), ``"tree-slabs"`` (BH,
+    2^bh_max_level % P == 0), ``"hash-slabs"`` (hash, hash_max_grid_dim %
+    P == 0) or ``"replicated-fallback"``, which issues
+    ``ReplicatedFallbackWarning``. ``pos_hint`` feeds the fallback's
+    engine choice, as in the single-device factory."""
+    G, eps = config.G, config.softening
+    if config.force_method == ForceMethod.DIRECT_N2:
+
+        def force_fn(pos, mass):
+            return ring_direct_forces(pos, mass, mesh, G, eps)
+
+        return _tag(force_fn, "ring")
+
+    n_dev = mesh.size
+    if config.force_method == ForceMethod.BARNES_HUT:
+        d = 1 << config.bh_max_level
+        if d % n_dev == 0:
+            from nbody_tpu_torch.parallel.tree import sharded_barnes_hut_forces
+
+            occ = config.particle_count / float(d**3)
+            raw = occ + 5.0 * math.sqrt(occ + 1.0)
+            near_k = int(min(64, max(8, -(-raw // 8) * 8)))
+
+            def force_fn(pos, mass):
+                return sharded_barnes_hut_forces(
+                    pos, mass, mesh, G, eps, config.barnes_hut_theta,
+                    levels=config.bh_max_level, near_k=near_k)
+
+            return _tag(force_fn, "tree-slabs")
+    elif config.force_method == ForceMethod.SPATIAL_HASH:
+        if config.hash_max_grid_dim % n_dev == 0:
+            from nbody_tpu_torch.parallel.tree import (
+                sharded_spatial_hash_forces,
+            )
+
+            def force_fn(pos, mass):
+                return sharded_spatial_hash_forces(
+                    pos, mass, mesh, G, eps,
+                    cutoff=config.spatial_hash_cutoff,
+                    cell_size=config.spatial_hash_cell_size,
+                    cap=config.hash_max_grid_dim,
+                    max_per_cell=config.hash_max_per_cell)
+
+            return _tag(force_fn, "hash-slabs")
+
+    warnings.warn(
+        f"sharded {config.force_method.cli_name}: grid does not divide the "
+        f"{n_dev}-device mesh "
+        f"(BH d={1 << config.bh_max_level} / hash cap="
+        f"{config.hash_max_grid_dim}) — falling back to REPLICATED "
+        "per-device compute (exact, but O(N*devices) redundant work, no "
+        "scaling). Pick a grid that divides the mesh to get the designed "
+        "distributed path.",
+        ReplicatedFallbackWarning,
+        stacklevel=2,
+    )
+    from nbody_tpu_torch.ops.forces import make_force_fn
+
+    # the hint is read on the host by the engine choice
+    if isinstance(pos_hint, torch.Tensor):
+        pos_hint = pos_hint.detach().cpu().numpy()
+    inner = make_force_fn(config, pos_hint=pos_hint)
+
+    def force_fn(pos, mass):
+        full_pos, full_mass = all_gather(pos, mesh), all_gather(mass, mesh)
+        out, start = [], 0
+        for q in range(n_dev):
+            n_l = pos[q].shape[0]
+            out.append(inner(full_pos[q], full_mass[q])[start:start + n_l])
+            start += n_l
+        return out
+
+    return _tag(force_fn, "replicated-fallback")
+
+
+def sharded_verlet_step(state: ShardedState, force_fn: ShardedForceFn,
+                        dt) -> ShardedState:
+    """``ops.integrator.verlet_step`` on every position's rows, the force
+    through the sharded closure."""
+    sh = state.shards
+    pos = [s.pos + s.vel * dt + (0.5 * dt * dt) * s.acc for s in sh]
+    acc = force_fn(pos, [s.mass for s in sh])
+    return ShardedState([
+        ParticleState(pos=p, vel=s.vel + (0.5 * dt) * (s.acc + a), acc=a,
+                      mass=s.mass, time=s.time + dt)
+        for s, p, a in zip(sh, pos, acc)
+    ])
+
+
+def sharded_initialize_forces(state: ShardedState,
+                              force_fn: ShardedForceFn) -> ShardedState:
+    """a(t=0) of a sharded state."""
+    sh = state.shards
+    acc = force_fn([s.pos for s in sh], [s.mass for s in sh])
+    return ShardedState([
+        ParticleState(pos=s.pos, vel=s.vel, acc=a, mass=s.mass, time=s.time)
+        for s, a in zip(sh, acc)
+    ])
+
+
+def sharded_multi_step(force_fn: ShardedForceFn, dt: float, n_steps: int):
+    """``n_steps`` sharded Verlet steps with ``force_fn``."""
+
+    def multi(state: ShardedState) -> ShardedState:
+        for _ in range(n_steps):
+            state = sharded_verlet_step(state, force_fn, dt)
+        return state
+
+    return multi
+
+
+def make_sharded_step(config: SimulationConfig, mesh: Mesh, pos_hint=None):
+    """``step(ShardedState) -> ShardedState``: one Verlet step."""
+    force_fn = make_sharded_force_fn(config, mesh, pos_hint=pos_hint)
+
+    def step(state: ShardedState) -> ShardedState:
+        return sharded_verlet_step(state, force_fn, config.dt)
+
+    return step
+
+
+def make_sharded_multi_step(config: SimulationConfig, mesh: Mesh,
+                            n_steps: int, pos_hint=None):
+    """``n_steps`` sharded Verlet steps (the JAX package fuses them into
+    one program; here they queue on the devices without a host read)."""
+    force_fn = make_sharded_force_fn(config, mesh, pos_hint=pos_hint)
+    return sharded_multi_step(force_fn, config.dt, n_steps)
+
+
+def sharded_energy(state: ShardedState, mesh: Mesh, G: float = 1.0,
+                   softening: float = 0.1):
+    """(KE, PE) as float32 scalars on position 0's device. KE: each
+    position's ½Σ m|v|², then ``psum``. PE: a ring of kernel K5's cross
+    form, each position's rows against every position's (P² calls of
+    (N/P) × (N/P), raw r² == 0 excluded as in K5), summed in float64 and
+    then ``psum``'d; zero-mass padding carries no energy."""
+    sh = state.shards
+    ke = psum([0.5 * torch.sum(s.mass * torch.sum(s.vel * s.vel, dim=-1))
+               for s in sh], mesh)
+    pos, mass = [s.pos for s in sh], [s.mass for s in sh]
+    pe = [torch.zeros((), dtype=torch.float64, device=x.device) for x in pos]
+    pj, mj = list(pos), list(mass)
+    for hop in range(mesh.size):
+        for q in range(mesh.size):
+            pe[q] = pe[q] + pairwise_potential_cross(
+                pos[q], mass[q], pj[q], mj[q], G, softening).double()
+        if hop + 1 < mesh.size:
+            pj, mj = ppermute(pj, mesh, 1), ppermute(mj, mesh, 1)
+    pe = psum(pe, mesh)
+    return ke[0], pe[0].to(torch.float32)

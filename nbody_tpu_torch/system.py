@@ -14,9 +14,13 @@ on the card); ``audit_short_range`` for the short-range engines' capacity
 audits; ``diagnostics``. Every tensor lives on the device given to
 ``initialize``: the CUDA card unless the caller passes ``device="cpu"``.
 
-Not ported yet, and rejected with ``NotImplementedError`` rather than run
-some other path: sharding (``shard_devices > 1``). Instances are not
-thread-safe.
+With ``shard_devices`` P > 1 the state is padded with zero-mass rows to a
+multiple of P and sharded over a mesh of P positions
+(``parallel/``): P virtual shards of the CPU with ``device="cpu"``, else
+the first P visible CUDA cards (more than exist raises
+``ValidationError``). Steps, energies and a(t) then run the sharded
+programs; the padding never shows in positions, velocities, masses,
+``get_state`` or ``save_state``. Instances are not thread-safe.
 """
 
 from __future__ import annotations
@@ -57,6 +61,19 @@ from nbody_tpu_torch.ops.table_step import (
     make_table_multi_step,
     make_table_repair_multi_step,
 )
+from nbody_tpu_torch.parallel.mesh import (
+    gather_state,
+    make_mesh,
+    pad_to_devices,
+    shard_state,
+)
+from nbody_tpu_torch.parallel.step import (
+    make_sharded_force_fn,
+    sharded_energy,
+    sharded_initialize_forces,
+    sharded_multi_step,
+    sharded_verlet_step,
+)
 from nbody_tpu_torch.state import ParticleState, SimulationState
 from nbody_tpu_torch.types import ForceMethod, SimulationConfig
 from nbody_tpu_torch.utils.profiling import profile_phase
@@ -83,12 +100,13 @@ def _resort_knob(config: SimulationConfig) -> Optional[str]:
     return "cadence" if config.resort_every > 1 else None
 
 
-def _require_ported(config: SimulationConfig) -> None:
-    if config.shard_devices > 1:
-        raise NotImplementedError(
-            "shard_devices > 1: not ported to nbody_tpu_torch yet "
-            "(ROADMAP A10 multi-device)"
-        )
+def _make_mesh(config: SimulationConfig, device: torch.device):
+    """The mesh of ``config.shard_devices`` positions for the facade's
+    device: virtual shards of the CPU, or the visible CUDA cards."""
+    if device.type == "cpu":
+        return make_mesh(config.shard_devices,
+                         devices=[device] * config.shard_devices)
+    return make_mesh(config.shard_devices)
 
 
 def _resolve_device(device) -> torch.device:
@@ -116,6 +134,10 @@ class ParticleSystem:
         self._step = None
         self._paused = False
         self._initialized = False
+        # shard_devices > 1: the mesh, and the logical particle count (the
+        # sharded state carries zero-mass padding rows)
+        self._mesh = None
+        self._n_logical: Optional[int] = None
 
     # ---- lifecycle -------------------------------------------------------
 
@@ -124,7 +146,6 @@ class ParticleSystem:
         card; ``device="cpu"`` for the plain twins) and the force
         strategy, compute a(t=0)."""
         validate_config(config)
-        _require_ported(config)
         device = _resolve_device(device)
         validate_resource_requirements(config.particle_count, device)
         self._config = config
@@ -134,9 +155,33 @@ class ParticleSystem:
         self._initialized = True
 
     def _install_state(self, state: ParticleState) -> None:
-        """Build the force strategy for ``state`` and compute a(t)."""
+        """Shard ``state`` when ``shard_devices > 1``, build the force
+        strategy for it and compute a(t)."""
+        self._n_logical = state.n
+        self._mesh = None
+        if self._config.shard_devices > 1:
+            self._mesh = _make_mesh(self._config, self._device)
         self._rebuild_strategy(state.pos)
-        self._state = initialize_forces(state, self._force_fn)
+        if self._mesh is not None:
+            state = shard_state(pad_to_devices(state, self._mesh.size),
+                                self._mesh)
+        self._state = state
+        self._initialize_forces()
+
+    @property
+    def mesh(self):
+        """The device mesh when running sharded, else None."""
+        return self._mesh
+
+    @property
+    def is_sharded(self) -> bool:
+        return self._mesh is not None
+
+    def _logical_state(self) -> ParticleState:
+        """The state on one device without the sharding's padding rows."""
+        if self._mesh is None:
+            return self._state
+        return gather_state(self._state, self._n_logical)
 
     def _rebuild_strategy(self, pos: torch.Tensor) -> None:
         """Build everything the config selects, once per strategy: the
@@ -149,6 +194,12 @@ class ParticleSystem:
         hint = None
         if cfg.force_method == ForceMethod.SPATIAL_HASH:
             hint = pos.detach().cpu().numpy()
+        if self._mesh is not None:
+            self._force_fn = make_sharded_force_fn(cfg, self._mesh,
+                                                   pos_hint=hint)
+            self._sorted_force = self._table_params = None
+            self._step = self._make_step(cfg.dt)
+            return
         self._force_fn = make_force_fn(cfg, pos_hint=hint)
         self._sorted_force = make_sorted_force_fn(cfg, pos_hint=hint)
         self._table_params = None
@@ -158,7 +209,22 @@ class ParticleSystem:
                                         pos_hint=hint)
             if tp is not None and (tp.mode, knob) in TABLE_ROUTES:
                 self._table_params = tp
-        self._step = make_verlet_step(self._force_fn, cfg.dt)
+        self._step = self._make_step(cfg.dt)
+
+    def _make_step(self, dt: float):
+        """One Verlet step with the current force, sharded or not."""
+        if self._mesh is None:
+            return make_verlet_step(self._force_fn, dt)
+        force_fn = self._force_fn
+        return lambda state: sharded_verlet_step(state, force_fn, dt)
+
+    def _initialize_forces(self) -> None:
+        """a(t) of the current state with the current strategy."""
+        if self._mesh is not None:
+            self._state = sharded_initialize_forces(self._state,
+                                                    self._force_fn)
+        else:
+            self._state = initialize_forces(self._state, self._force_fn)
 
     def _require_init(self):
         if not self._initialized:
@@ -200,6 +266,8 @@ class ParticleSystem:
         fixed cadence when ``resort_every > 1``; else a sort every step
         (``resort_repair`` alone included)."""
         cfg, sf, tp = self._config, self._sorted_force, self._table_params
+        if self._mesh is not None:
+            return sharded_multi_step(self._force_fn, cfg.dt, n_steps)
         cadence = cfg.resort_every
         if tp is not None:
             if cfg.resort_repair:
@@ -248,8 +316,8 @@ class ParticleSystem:
         cfg = self._config.replace(force_method=method)
         validate_config(cfg)
         self._config = cfg
-        self._rebuild_strategy(self._state.pos)
-        self._state = initialize_forces(self._state, self._force_fn)
+        self._rebuild_strategy(self._logical_state().pos)
+        self._initialize_forces()
 
     def set_time_step(self, dt: float) -> None:
         """The multi-step drivers read ``dt`` from the config on every
@@ -258,7 +326,7 @@ class ParticleSystem:
         cfg = self._config.replace(dt=float(dt))
         validate_config(cfg)
         self._config = cfg
-        self._step = make_verlet_step(self._force_fn, cfg.dt)
+        self._step = self._make_step(cfg.dt)
 
     def _set_param(self, **kw) -> None:
         """Rebuild the strategy for the new parameters. a(t) is kept, as
@@ -268,7 +336,7 @@ class ParticleSystem:
         cfg = self._config.replace(**kw)
         validate_config(cfg)
         self._config = cfg
-        self._rebuild_strategy(self._state.pos)
+        self._rebuild_strategy(self._logical_state().pos)
 
     def set_gravitational_constant(self, G: float) -> None:
         validate_gravitational_constant(G)
@@ -302,12 +370,15 @@ class ParticleSystem:
 
     @property
     def particle_count(self) -> int:
+        """The logical particle count (without sharding padding)."""
         self._require_init()
-        return self._state.n
+        return self._n_logical
 
     @property
-    def state(self) -> ParticleState:
-        """Device-side state (read-only by convention)."""
+    def state(self):
+        """Device-side state (read-only by convention): a
+        ``ParticleState``, or when sharded a ``parallel.mesh.ShardedState``
+        with its padding rows."""
         self._require_init()
         return self._state
 
@@ -318,18 +389,18 @@ class ParticleSystem:
 
     def positions(self) -> np.ndarray:
         self._require_init()
-        return self._state.pos.detach().cpu().numpy()
+        return self._logical_state().pos.detach().cpu().numpy()
 
     def velocities(self) -> np.ndarray:
         self._require_init()
-        return self._state.vel.detach().cpu().numpy()
+        return self._logical_state().vel.detach().cpu().numpy()
 
     # ---- state snapshot --------------------------------------------------
 
     def get_state(self) -> SimulationState:
         self._require_init()
         return SimulationState.from_particle_state(
-            self._state,
+            self._logical_state(),
             dt=self._config.dt,
             G=self._config.G,
             softening=self._config.softening,
@@ -350,7 +421,6 @@ class ParticleSystem:
             force_method=snapshot.force_method,
         )
         validate_config(config)
-        _require_ported(config)
         if device is None:
             device = self._device
         self._device = _resolve_device(device)
@@ -370,18 +440,31 @@ class ParticleSystem:
 
     def compute_kinetic_energy(self) -> float:
         self._require_init()
+        if self._mesh is not None:
+            return self._sharded_energy()[0]
         return float(kinetic_energy(self._state))
 
     def compute_potential_energy(self) -> float:
         """Exact all-pairs PE: kernel K5 on the card, the plain blocked
-        loop on the CPU (``exact_potential_energy``)."""
+        loop on the CPU (``exact_potential_energy``); sharded, the ring of
+        K5's cross form (``parallel.step.sharded_energy``)."""
         self._require_init()
+        if self._mesh is not None:
+            return self._sharded_energy()[1]
         return float(exact_potential_energy(
             self._state.pos, self._state.mass, self._config.G,
             self._config.softening,
         ))
 
+    def _sharded_energy(self) -> tuple:
+        ke, pe = sharded_energy(self._state, self._mesh, self._config.G,
+                                self._config.softening)
+        return float(ke), float(pe)
+
     def compute_total_energy(self) -> float:
+        if self._mesh is not None:
+            ke, pe = self._sharded_energy()
+            return ke + pe
         return self.compute_kinetic_energy() + self.compute_potential_energy()
 
     def audit_short_range(self) -> dict:
@@ -394,15 +477,21 @@ class ParticleSystem:
         JAX package's ``audit_short_range``."""
         self._require_init()
         cfg = self._config
-        pos, mass = self._state.pos, self._state.mass
+        # sharded: the logical rows, gathered, with the single-device
+        # engines
+        state = self._logical_state()
+        pos, mass = state.pos, state.mass
         out = {"method": cfg.force_method.cli_name, "overflow": 0}
         if cfg.force_method == ForceMethod.SPATIAL_HASH:
             from nbody_tpu_torch.ops.spatial_hash import (
+                hash_engine_params,
                 spatial_hash_forces,
                 spatial_hash_forces_tiles,
             )
 
-            p = self._force_fn.engine_params
+            p = getattr(self._force_fn, "engine_params", None)
+            if p is None:
+                p = hash_engine_params(cfg, pos)
             common = dict(cutoff=cfg.spatial_hash_cutoff,
                           cell_size=cfg.spatial_hash_cell_size,
                           return_overflow=True)
@@ -452,20 +541,27 @@ class ParticleSystem:
         """Wait for outstanding device work (timing helper; the JAX
         facade's ``block_until_ready``)."""
         self._require_init()
-        if self._device.type == "cuda":
+        if self._mesh is not None:
+            for dev in set(self._mesh.devices):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+        elif self._device.type == "cuda":
             torch.cuda.synchronize(self._device)
 
     def diagnostics(self) -> dict:
         """Runtime diagnostics, keyed as the JAX facade's: ``backend`` is
-        the torch device type and ``devices`` the CUDA device count (1 on
-        the CPU)."""
+        the torch device type, ``devices`` the CUDA device count (1 on the
+        CPU) and ``force_distribution`` the sharded strategy
+        (``parallel.step.make_sharded_force_fn``) or "single-device"."""
         self._require_init()
         n = self.particle_count
         cuda = self._device.type == "cuda"
+        sharded = self._mesh is not None
         return {
             "particle_count": n,
-            "shard_devices": 1,
-            "force_distribution": "single-device",
+            "shard_devices": self._mesh.size if sharded else 1,
+            "force_distribution": (self._force_fn.distribution if sharded
+                                   else "single-device"),
             "force_method": self._config.force_method.cli_name,
             "simulation_time": float(self._state.time),
             "paused": self._paused,

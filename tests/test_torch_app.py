@@ -200,15 +200,29 @@ def test_ui_panel_handshake_matches_jax():
     assert out[0] == out[1]
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--devices", "2", "--benchmark"], "ROADMAP A10"),
-    (["--devices", "2", "--steps", "1"], "ROADMAP A10"),
-])
-def test_unported_flags_raise(argv, match):
+@pytest.mark.parametrize("argv", [
+    ["--devices", "2", "--benchmark", "--benchmark-steps", "4"],
+    ["--devices", "2", "--steps", "1"],
+], ids=["benchmark", "steps"])
+def test_devices_flag_runs_sharded(argv, capsys):
+    """``--devices 2`` runs the benchmark mode and the step loop on a mesh
+    of 2 virtual CPU shards: the record names the devices, the summary
+    is finite."""
     app = tapp.Application(tcli.parse_app_cli_options(
-        ["--particles", "32"] + argv), device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        app.run()
+        ["--particles", "32", "--method", "direct-n2"] + argv), device="cpu")
+    assert app.run() == 0
+    assert app.system.is_sharded and app.system.mesh.size == 2
+    assert app.system.diagnostics()["force_distribution"] == "ring"
+    out = capsys.readouterr().out
+    if "--benchmark" in argv:
+        rec = json.loads(out)["benchmark_runs"][0]
+        assert rec["params"]["devices"] == "2"
+        assert rec["particle_count"] == 32
+        assert rec["metrics"]["steps_per_sec"] > 0
+    else:
+        summary = json.loads(out.strip().splitlines()[-1])
+        assert summary["steps"] == 1
+        assert np.isfinite(summary["total_energy"])
 
 
 RENDER_ARGV = ["--particles", "2000", "--method", "direct-n2", "--render",

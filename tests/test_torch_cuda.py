@@ -1358,3 +1358,183 @@ def test_terminal_view_on_card_matches_host(dev):
     assert grid.is_cuda
     assert torch.equal(grid.cpu(), view.raster(pos))
     assert view.compose(pos.to(dev), "s") == view.compose(pos.numpy(), "s")
+
+
+# ---- the sharded paths: K4's slab form, K5's cross form ----------------------
+
+
+# id: (d, nx, x0, planes, k, ws, cutoff², live planes)
+_SLAB_CASES = {
+    # BH-like slab of a d 16 grid with its halo; the first halo plane is
+    # the grid's edge (no live slot), the last holds live rows
+    "edge": (16, 6, 1, 4, 16, 1, None, "edge"),
+    "ws2": (12, 7, 2, 3, 16, 2, None, "all"),
+    "k64-cutoff": (12, 6, 1, 4, 64, 1, 2.0, "all"),
+}
+
+
+def _slab_inputs(case, dev):
+    d, nx, x0, planes, k, ws, cutoff2, live = _SLAB_CASES[case]
+    rng = np.random.default_rng(sorted(_SLAB_CASES).index(case) + 40)
+    pos = rng.uniform(0.0, 6.0, (nx, 3, k, d * d))
+    mass = rng.uniform(0.0, 1.0, (nx, 1, k, d * d))
+    pos[:, :, 1] = pos[:, :, 0]                   # coincident slots
+    tiles = np.concatenate([pos, mass], 1).astype(np.float32)
+    counts = rng.integers(0, k + 3, (nx, d * d))
+    if live == "edge":
+        counts[0] = 0
+    kw = dict(k=k, d=d, ws=ws, eps=0.1, x0=x0, planes=planes,
+              cutoff2=cutoff2)
+    return (torch.from_numpy(tiles).to(dev),
+            torch.from_numpy(counts.reshape(-1).astype(np.float32)).to(dev),
+            kw)
+
+
+@pytest.mark.parametrize("case", sorted(_SLAB_CASES))
+def test_tile_near_slab_kernel(dev, case):
+    """K4's slab form vs its plain twin (atol 2e-5·max|out|), two calls
+    bit-equal, one launch counted: a slab whose edge plane holds no live
+    slot, ws 2 (targets 2 planes in from the slab's edge) and k 64 with
+    the cutoff, whose plan fits the kernel's shared memory."""
+    tiles, counts, kw = _slab_inputs(case, dev)
+    from nbody_tpu_torch.ops.tile_near import tile_sweep_slab
+
+    if kw["k"] == 64:
+        assert _k4_plan(kw["d"], 64, kw["ws"])[3] <= 200 * 1024
+    before = tile_sweep_slab.launches
+    got = tile_sweep_slab(tiles, counts, **kw)
+    assert tile_sweep_slab.launches == before + 1
+    assert got.shape == (kw["planes"], 3, kw["k"], kw["d"] ** 2)
+    assert bool(torch.isfinite(got).all())
+    plain = tile_sweep_plane_plain(
+        tiles, k=kw["k"], d=kw["d"], ws=kw["ws"], eps=kw["eps"],
+        cutoff2=kw["cutoff2"], counts=counts, slab=(kw["x0"], kw["planes"]))
+    _close(got, plain, 2e-5)
+    assert torch.equal(got, tile_sweep_slab(tiles, counts, **kw))
+
+
+def test_pair_potential_cross_kernel(dev):
+    """K5's cross form vs its twin (relative 1e-5) with coincident pairs
+    across the two sets, two calls bit-equal; a lone coincident pair gives
+    exactly 0, and the four blocks of a set sum to the main form."""
+    from nbody_tpu_torch.ops.direct import pairwise_potential_cross
+
+    p, m = _sphere(20000, 5.0, seed=9)
+    p[12000:12100] = p[:100]                     # coincident across sets
+    p, m = p.to(dev), m.to(dev)
+    a, b = (p[:10000], m[:10000]), (p[10000:], m[10000:])
+    before = pairwise_potential_cross.launches
+    got = pairwise_potential_cross(*a, *b, 1.0, 0.1)
+    assert pairwise_potential_cross.launches == before + 1
+    np.testing.assert_allclose(
+        float(got), float(pairwise_potential_plain(*a, 1.0, 0.1, sources=b)),
+        rtol=1e-5)
+    assert torch.equal(got, pairwise_potential_cross(*a, *b, 1.0, 0.1))
+    assert float(pairwise_potential_cross(p[:1], m[:1], p[12000:12001],
+                                          m[12000:12001])) == 0.0
+    total = sum(float(pairwise_potential_cross(*x, *y)) for x in (a, b)
+                for y in (a, b))
+    np.testing.assert_allclose(total, float(pairwise_potential(p, m)),
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("path", ["ring", "tree", "hash"])
+def test_sharded_paths_card_match_cpu(dev, path):
+    """The sharded forces on 4 virtual shards of the card (kernels K1, K3,
+    K4's slab form) vs the same on 4 virtual CPU shards (plain twins):
+    atol 2e-5·max|a|, no overflow."""
+    from nbody_tpu_torch.parallel import mesh as M
+    from nbody_tpu_torch.parallel import (
+        ring_direct_forces,
+        sharded_barnes_hut_forces,
+        sharded_spatial_hash_forces,
+    )
+
+    p, m = _sphere(8192, 6.0, seed=21)
+    out = []
+    for where in (dev, torch.device("cpu")):
+        mesh = M.make_mesh(4, devices=[where] * 4)
+        ps, ms = M.split(p, mesh), M.split(m, mesh)
+        if path == "ring":
+            acc, over = ring_direct_forces(ps, ms, mesh), 0
+        elif path == "tree":
+            acc, over = sharded_barnes_hut_forces(
+                ps, ms, mesh, levels=4, near_k=16, return_overflow=True)
+        else:
+            acc, over = sharded_spatial_hash_forces(
+                ps, ms, mesh, cutoff=1.5, cell_size=1.5, cap=16,
+                max_per_cell=64, return_overflow=True)
+        assert int(over) == 0
+        out.append(M.gather(acc).cpu())
+    _close(out[0], out[1], 2e-5)
+
+
+def test_facade_shard_devices_needs_cards(dev):
+    """On the card the mesh takes the visible cards: more shards than
+    cards raise ValidationError naming both counts."""
+    from nbody_tpu_torch import ParticleSystem
+    from nbody_tpu_torch.errors import ValidationError
+
+    count = torch.cuda.device_count()
+    ps = ParticleSystem()
+    with pytest.raises(ValidationError, match=f"{count + 1} devices but only "
+                                              f"{count}"):
+        ps.initialize(SimulationConfig(particle_count=1024,
+                                       shard_devices=count + 1), device=dev)
+
+
+def test_sharded_paths_across_cards(dev, capsys):
+    """With two or more cards (skipped on one): the mesh of the visible
+    cards (peer copies between positions) gives the forces and energies
+    of the same mesh's virtual shards on card 0 (atol 2e-5·max|a|,
+    relative 1e-6), the facade's ``shard_devices`` steps on it, and the
+    CLI's ``--devices`` benchmark exits 0."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip("needs two cards: one card holds only virtual shards")
+    from nbody_tpu_torch import ParticleSystem
+    from nbody_tpu_torch.cli import main as cli_main
+    from nbody_tpu_torch.parallel import mesh as M
+    from nbody_tpu_torch.parallel import (
+        ring_direct_forces,
+        sharded_barnes_hut_forces,
+        sharded_energy,
+        sharded_spatial_hash_forces,
+    )
+
+    p_n = min(4, count)
+    real = M.make_mesh(p_n)
+    assert len(set(real.devices)) == p_n
+    virtual = M.make_mesh(p_n, devices=[real.devices[0]] * p_n)
+    p, m = _sphere(65536, 6.0, seed=22)
+    v = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(65536, 3)).astype(np.float32))
+    out = []
+    for mesh in (real, virtual):
+        ps, ms = M.split(p, mesh), M.split(m, mesh)
+        st = M.shard_state(ParticleState(pos=p, vel=v, acc=torch.zeros_like(p),
+                                         mass=m, time=torch.zeros(())), mesh)
+        out.append([
+            M.gather(ring_direct_forces(ps, ms, mesh)).cpu(),
+            M.gather(sharded_barnes_hut_forces(ps, ms, mesh, levels=4,
+                                               near_k=16)).cpu(),
+            M.gather(sharded_spatial_hash_forces(
+                ps, ms, mesh, cutoff=1.5, cell_size=1.5, cap=16,
+                max_per_cell=64)).cpu(),
+            torch.stack(sharded_energy(st, mesh)).cpu(),
+        ])
+    for got, want in zip(out[0][:3], out[1][:3]):
+        _close(got, want, 2e-5)
+    np.testing.assert_allclose(out[0][3].numpy(), out[1][3].numpy(),
+                               rtol=1e-6)
+    ps_ = ParticleSystem()
+    ps_.initialize(SimulationConfig(particle_count=8192, shard_devices=p_n,
+                                    force_method=ForceMethod.BARNES_HUT,
+                                    bh_max_level=4), device=dev)
+    assert ps_.mesh.devices == real.devices
+    ps_.run_steps(2)
+    assert np.isfinite(ps_.positions()).all()
+    assert cli_main(["--particles", "8192", "--method", "barnes-hut",
+                     "--devices", str(p_n), "--benchmark",
+                     "--benchmark-steps", "2"]) == 0
+    assert f'"devices": "{p_n}"' in capsys.readouterr().out

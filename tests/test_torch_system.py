@@ -217,22 +217,25 @@ def test_cuda_device_raises_without_a_card():
 
 
 @pytest.mark.parametrize(
-    "change,raises",
+    "change,sharded",
     [(dict(shard_devices=2), True),
      (dict(init_distribution=InitDistribution.DISK), False)],
     ids=["shard", "disk"],
 )
-def test_unported_paths_raise_not_implemented(change, raises):
-    """Sharding is not ported yet and raises; the disk distribution, ported
-    since, builds its state on the CPU (a unit-thickness disk of radius
-    10, finite a(t=0))."""
+def test_shard_and_disk_initialize_on_cpu(change, sharded):
+    """``shard_devices=2`` on the CPU builds a mesh of 2 virtual shards
+    (finite a(t=0) on the 64 logical rows); the disk distribution builds
+    its state on the CPU (a unit-thickness disk of radius 10, finite
+    a(t=0))."""
     cfg = SimulationConfig(particle_count=64, **change)
     s = tnb.ParticleSystem()
-    if raises:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            s.initialize(cfg, device="cpu")
-        return
     s.initialize(cfg, device="cpu")
+    if sharded:
+        assert s.is_sharded and s.mesh.size == 2
+        assert s.particle_count == s.state.n == 64
+        assert torch.isfinite(s.state.acc).all()
+        assert s.diagnostics()["shard_devices"] == 2
+        return
     pos = s.positions()
     assert pos.shape == (64, 3) and np.abs(pos[:, 2]).max() <= 0.5
     assert np.hypot(pos[:, 0], pos[:, 1]).max() <= 10.0 * (1 + 1e-6)
