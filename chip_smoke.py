@@ -195,6 +195,36 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
            naming both counts and ``cli.main([... "--devices", "2",
            "--benchmark"])`` returns 2; with 2 or more cards, the 1M BH
            benchmark through ``--devices min(4, count)`` instead.
+  9. the mesh across processes (``rank_phase``): after the parent built
+     the kernels, 4 ranks on the one card (``python3 chip_smoke.py --rank
+     OUT gloo``, started by ``parallel.distributed.run_ranks`` with a
+     deadline; any rank's failure kills the others and fails the phase),
+     a gloo group on a free loopback port, each rank running
+     ``ParticleSystem`` with ``shard_devices=4`` on a mesh across them,
+     one position a rank — 4 ranks on one card: not a scaling number.
+     Each timed run's launches are counted and checked on every rank;
+     rank 0 prints steps/s, ms a step and each rank's launches; this
+     process then checks the ranks' outputs (in a temporary directory,
+     removed afterwards):
+       m1. 100K direct, ring: a(0) against phase 8's s1 (recorded, bit-
+           equal expected) and within 2e-4·max|a| of single-device K1,
+           then 10 steps;
+       m2. the 1M BH headline scene: at step 0 routing overflow 0, the
+           tile overflow equal to the single-device audit, the rows within
+           k within 1e-4·max|a| of the tiles engine, the 0.05 gate against
+           K1; then 5 steps;
+       m3. the 1M sparse hash, hash-slabs (grid 64, k 64): overflow 0 on
+           every rank, 4096 rows within 1e-4·max|a| of the float64 brute
+           force, then 5 steps;
+       m4. ``sharded_energy`` on m2's state after its steps: KE and PE
+           the same on every rank, within 1e-6 relative of
+           ``kinetic_energy`` and K5's main form;
+       m5. ``save_checkpoint`` of that state at step 5 by the ranks,
+           restored across them with their state as template, here without
+           a template and onto a 2-position one-process mesh, all bit-
+           equal.
+     With 4 or more cards the phase runs again on NCCL, one rank a card;
+     on one card it says that run is skipped.
 
 It stops at the first failed check with a non-zero exit. It needs one CUDA
 card and exits non-zero without one. The last two lines of its output are
@@ -2642,18 +2672,34 @@ def sharded_phase(res, cfgs, scene, sparse, wrappers, plains, none, keep,
     return readings
 
 
-def main() -> None:
+# Phase 9: the mesh across processes, 4 ranks on the one card
+RANKS = 4
+RANK_TIMEOUT = 480  # s: the ranks' join, their rendezvous and collectives
+RANK_FIELDS = ("pos", "vel", "acc", "mass", "time")
+M1 = "m1 100K direct, ring"
+M2 = "m2 1M BH tree-slabs"
+M3 = "m3 1M sparse hash-slabs"
+M4 = "m4 1M sharded_energy"
+CKPT_STEP = 5
+
+
+def rank_note(backend: str) -> str:
+    """The label of phase 9's numbers on ``backend`` on this machine."""
     import torch
 
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is False: this smoke run needs a card")
-    try:
-        import nbody_tpu_torch  # noqa: F401
-    except ImportError as e:
-        fail(f"cannot import nbody_tpu_torch ({e}): run from a checkout")
-    from nbody_tpu_torch.models.distributions import init_from_config
-    from nbody_tpu_torch.ops import _build
-    from nbody_tpu_torch.ops.barnes_hut import bh_engine_params
+    if backend == "nccl":
+        return f"{RANKS} cards, one rank a card, NCCL"
+    if torch.cuda.device_count() == 1:
+        return f"{RANKS} ranks on one card: not a scaling number"
+    return (f"{RANKS} gloo ranks, collectives through host memory: not a "
+            "scaling number")
+
+
+def kernel_wrappers():
+    """The kernels' wrappers by name (each counts its launches in
+    ``launches``) and the plain twins (each counts its calls in
+    ``calls``), which no timed path may run."""
+    from nbody_tpu_torch.ops import table_step as T
     from nbody_tpu_torch.ops.direct import (
         direct_forces,
         direct_forces_kernel,
@@ -2662,8 +2708,7 @@ def main() -> None:
         pairwise_potential_plain,
     )
     from nbody_tpu_torch.ops.far_taps import far_taps, far_taps_plain
-    from nbody_tpu_torch.ops import table_step as T
-    from nbody_tpu_torch.ops.forces import make_force_fn
+    from nbody_tpu_torch.ops.render import render_points, render_points_plain
     from nbody_tpu_torch.ops.scatter import (
         segment_sum,
         segment_sum_plain,
@@ -2676,6 +2721,403 @@ def main() -> None:
         bitonic_sort_pairs,
         bitonic_sort_pairs_plain,
     )
+    from nbody_tpu_torch.ops.tile_near import (
+        tile_sweep_plane,
+        tile_sweep_plane_plain,
+        tile_sweep_slab,
+    )
+    from nbody_tpu_torch.ops.window_sweep import (
+        window_sweep_kernel,
+        window_sweep_plain,
+    )
+
+    wrappers = {
+        "direct_forces": direct_forces_kernel,
+        "tile_scatter": tile_scatter,
+        "tile_place": tile_place,
+        "far_taps": far_taps,
+        "tile_sweep_plane": tile_sweep_plane,
+        "window_sweep": window_sweep_kernel,
+        "pairwise_potential": pairwise_potential,
+        "segment_sum": segment_sum,
+        "bitonic_sort": bitonic_sort_pairs,
+        "table_drift": T.table_drift,
+        "table_kick": T.table_kick,
+        "render_points": render_points,
+        "tile_sweep_slab": tile_sweep_slab,
+        "pairwise_potential_cross": pairwise_potential_cross,
+    }
+    plains = [direct_forces, tile_scatter_plain, tile_place_plain,
+              far_taps_plain, tile_sweep_plane_plain, window_sweep_plain,
+              pairwise_potential_plain, segment_sum_plain,
+              bitonic_sort_pairs_plain, T.table_drift_plain,
+              T.table_kick_plain, render_points_plain]
+    return wrappers, plains
+
+
+def rank_main(out_dir: str, backend: str) -> None:
+    """One rank of phase 9, ``python3 chip_smoke.py --rank OUT BACKEND``,
+    as ``run_ranks`` starts it (torchrun's environment): the card, the
+    group on ``backend``, the library the parent built (a rank that would
+    build fails), then ``rank_body`` on the card."""
+    import torch
+
+    from nbody_tpu_torch.ops import _build
+    from nbody_tpu_torch.parallel import distributed
+
+    if not torch.cuda.is_available():
+        fail("rank: torch.cuda.is_available() is False")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize_distributed(backend=backend, timeout=RANK_TIMEOUT)
+    rank = distributed.process_world()[0]
+    _build.library()
+    check(not _build.last_build["built"],
+          f"rank {rank} built the kernels: the parent must build them")
+    rank_body(out_dir, torch.device("cuda", torch.cuda.current_device()))
+
+
+def rank_body(out_dir: str, dev) -> None:
+    """m1-m5 through ``ParticleSystem`` with ``shard_devices=4`` on a mesh
+    across the ranks (one position a rank), each timed run's launches
+    counted and checked on every rank; writes ``OUT/rank<r>.json`` (the
+    rates, launches, overflows, energies) and, on rank 0, ``OUT/rank0.pt``
+    with the tensors the parent holds to its references."""
+    import torch
+    import torch.distributed as dist
+
+    from nbody_tpu_torch import ParticleSystem
+    from nbody_tpu_torch.ops.barnes_hut import bh_engine_params, bin_particles
+    from nbody_tpu_torch.parallel import distributed, mesh as M, tree
+    from nbody_tpu_torch.parallel.step import sharded_energy
+    from nbody_tpu_torch.utils import restore_checkpoint, save_checkpoint
+
+    rank = distributed.process_world()[0]
+    wrappers, plains = kernel_wrappers()
+    none = {name: 0 for name in wrappers}
+    cfgs = path_configs()
+    rec = {"rank": rank, "launches": {}, "rates": {}}
+    tensors = {}
+
+    def timed(label, steps, run, want):
+        for f in wrappers.values():
+            f.launches = 0
+        for f in plains:
+            f.calls = 0
+        distributed.barrier()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        distributed.barrier()
+        wall = time.perf_counter() - t0
+        launches = {name: f.launches for name, f in wrappers.items()}
+        check(launches == {**none, **want},
+              f"rank {rank} {label}: launch counts {launches} != {want}")
+        check(sum(f.calls for f in plains) == 0,
+              f"rank {rank} {label}: a plain twin ran on the path")
+        rec["launches"][label] = {k: c for k, c in launches.items() if c}
+        rec["rates"][label] = {"steps_per_s": steps / wall,
+                               "ms_per_step": 1e3 * wall / steps}
+
+    def system(cfg, distribution):
+        ps = ParticleSystem()
+        ps.initialize(cfg.replace(shard_devices=RANKS), device=dev)
+        check(ps.mesh.size == RANKS and list(ps.mesh.local) == [rank],
+              f"rank {rank}: mesh positions {list(ps.mesh.local)}")
+        got = ps.diagnostics()["force_distribution"]
+        check(got == distribution, f"rank {rank}: distribution {got}")
+        return ps
+
+    # m1: the ring
+    ps = system(cfgs["100K direct"], "ring")
+    acc0 = ps.state.acc
+    if rank == 0:
+        tensors["m1_acc0"] = acc0.cpu()
+    timed(M1, 10, lambda: ps.run_steps(10), {"direct_forces": 10 * RANKS})
+    del ps, acc0
+
+    # m2: tree-slabs; the step-0 overflows from the path's own call
+    cfg = cfgs["1M BH tiles"]
+    ps = system(cfg, "tree-slabs")
+    st, mesh = ps.state, ps.mesh
+    pos_l, mass_l = [x.pos for x in st.shards], [x.mass for x in st.shards]
+    eng = bh_engine_params(cfg)
+    _, overflow = tree.sharded_barnes_hut_forces(
+        pos_l, mass_l, mesh, cfg.G, cfg.softening, cfg.barnes_hut_theta,
+        levels=cfg.bh_max_level, near_k=eng["near_k"], return_overflow=True)
+    pos = st.pos
+    s = (1 << cfg.bh_max_level) // RANKS
+    dest = M.split(torch.div(bin_particles(pos, cfg.bh_max_level)[2][:, 0]
+                             .long(), s, rounding_mode="floor"), mesh)
+    route = sum(int(tree._route_to_slabs(p, m, d, RANKS, p.shape[0])[2])
+                for p, m, d in zip(pos_l, mass_l, dest))
+    rec["m2_overflow"] = int(overflow)
+    rec["m2_route"] = sum(M.all_gather_ints(route))
+    acc0 = st.acc
+    if rank == 0:
+        tensors["m2_pos0"], tensors["m2_acc0"] = pos.cpu(), acc0.cpu()
+    del st, pos_l, mass_l, pos, dest, acc0
+    timed(M2, 5, lambda: ps.run_steps(5),
+          {"far_taps": 5 * eng["levels"], "tile_sweep_slab": 5})
+
+    # m4: the energy of m2's state after its steps
+    got = {}
+    timed(M4, 1, lambda: got.update(e=sharded_energy(
+        ps.state, ps.mesh, cfg.G, cfg.softening)),
+          {"pairwise_potential_cross": RANKS})
+    rec["ke"], rec["pe"] = float(got["e"][0]), float(got["e"][1])
+
+    # m5: checkpoint m2's state, restore it across the ranks
+    ckpt = str(Path(out_dir) / "ckpt")
+    t0 = time.perf_counter()
+    save_checkpoint(ckpt, ps.state, step=CKPT_STEP)
+    rec["m5_save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = restore_checkpoint(ckpt, template=ps.state)
+    torch.cuda.synchronize()
+    rec["m5_restore_s"] = time.perf_counter() - t0
+    same = all(torch.equal(getattr(a, f), getattr(b, f))
+               for a, b in zip(back.shards, ps.state.shards)
+               for f in RANK_FIELDS)
+    check(same, f"rank {rank} m5: restored shards differ from the state")
+    final = M.gather_state(ps.state)
+    if rank == 0:
+        tensors["m2_state"] = {f: getattr(final, f).cpu()
+                               for f in RANK_FIELDS}
+    del ps, back, final
+    torch.cuda.empty_cache()
+
+    # m3: hash-slabs
+    cfg = cfgs["1M sparse hash"]
+    ps = system(cfg, "hash-slabs")
+    st, mesh = ps.state, ps.mesh
+    _, overflow = tree.sharded_spatial_hash_forces(
+        [x.pos for x in st.shards], [x.mass for x in st.shards], mesh,
+        cfg.G, cfg.softening, cutoff=cfg.spatial_hash_cutoff,
+        cell_size=cfg.spatial_hash_cell_size, cap=cfg.hash_max_grid_dim,
+        max_per_cell=cfg.hash_max_per_cell, return_overflow=True)
+    rec["m3_overflow"] = int(overflow)
+    pos, acc0 = st.pos, st.acc
+    if rank == 0:
+        tensors["m3_pos0"], tensors["m3_acc0"] = pos.cpu(), acc0.cpu()
+    del st, pos, acc0
+    timed(M3, 5, lambda: ps.run_steps(5), {"tile_sweep_slab": 5})
+    del ps
+
+    recs = [None] * RANKS
+    dist.all_gather_object(recs, rec)
+    if rank == 0:
+        for label, r in recs[0]["rates"].items():
+            note = rank_note(dist.get_backend())
+            print(f"{label} [{note}]: {r['steps_per_s']:.3f} steps/s, "
+                  f"{r['ms_per_step']:.4f} ms/step (rank 0)")
+            for other in recs:
+                print(f"  rank {other['rank']} launches: "
+                      f"{other['launches'][label]}")
+        torch.save(tensors, Path(out_dir) / "rank0.pt")
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(rec))
+    sys.stdout.flush()
+    distributed.barrier()
+    dist.destroy_process_group()
+
+
+def rank_run(out_dir: str, backend: str) -> None:
+    """Launch the RANKS ranks of phase 9 on ``backend`` (they load the
+    library this process built); fails when a rank fails or the deadline
+    passes."""
+    from nbody_tpu_torch.parallel.distributed import run_ranks
+
+    t0 = time.perf_counter()
+    try:
+        run_ranks([sys.executable, str(REPO / "chip_smoke.py"), "--rank",
+                   out_dir, backend], RANKS, timeout=RANK_TIMEOUT)
+    except RuntimeError as e:
+        fail(f"phase 9 ({backend}): {e}")
+    print(f"phase 9 ({backend}): {RANKS} ranks ran m1-m5 in "
+          f"{time.perf_counter() - t0:.1f} s (start-up included)")
+
+
+def rank_checks(out_dir, backend, cfgs, scene, sparse, keep, smi, dev):
+    """Phase 9's checks, in this process, of the ranks' outputs in
+    ``out_dir`` against the one-process and single-device references;
+    returns the readings (steps/s, rank 0)."""
+    import torch
+
+    from nbody_tpu_torch import ParticleSystem
+    from nbody_tpu_torch.models.distributions import init_from_config
+    from nbody_tpu_torch.ops.barnes_hut import bh_engine_params
+    from nbody_tpu_torch.ops.direct import (
+        direct_forces_kernel,
+        pairwise_potential,
+    )
+    from nbody_tpu_torch.ops.forces import make_force_fn
+    from nbody_tpu_torch.ops.integrator import kinetic_energy
+    from nbody_tpu_torch.parallel import make_mesh, mesh as M
+    from nbody_tpu_torch.parallel.step import (
+        make_sharded_force_fn,
+        sharded_initialize_forces,
+    )
+    from nbody_tpu_torch.state import ParticleState
+    from nbody_tpu_torch.utils import restore_checkpoint
+
+    out = Path(out_dir)
+    recs = [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(RANKS)]
+    ten = torch.load(out / "rank0.pt", weights_only=True)
+    tag = f"{backend}, {rank_note(backend)}"
+    readings = {}
+    for label in recs[0]["launches"]:
+        total = {}
+        for r in recs:
+            for name, c in r["launches"][label].items():
+                total[name] = total.get(name, 0) + c
+        keep(f"{label} [{backend}]", total)
+        if label != M4:
+            readings[f"{label} [{tag}]"] = recs[0]["rates"][label][
+                "steps_per_s"]
+
+    # m1 against phase 8's s1 (4 virtual shards, the same hop order) and
+    # against single-device K1
+    cfg = cfgs["100K direct"]
+    st = init_from_config(cfg, device=dev)
+    mesh = make_mesh(SHARDS, devices=[dev] * SHARDS)
+    s1 = sharded_initialize_forces(M.shard_state(st, mesh),
+                                   make_sharded_force_fn(cfg, mesh)).acc
+    got = ten["m1_acc0"].to(dev)
+    d = float((got - s1).abs().max())
+    print(f"m1 a(0) vs phase 8's s1 (4 virtual shards of the card): "
+          f"{'bit-equal' if torch.equal(got, s1) else 'NOT bit-equal'}, "
+          f"max|diff| {d:.4e}")
+    want = direct_forces_kernel(st.pos, st.mass, cfg.G, cfg.softening)
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    print(f"m1 a(0) vs single-device K1: max|diff| {err:.4e}, max|a| "
+          f"{scale:.4e} (tol 2e-4*max|a|)")
+    check(err <= 2e-4 * scale, f"m1 a(0) {err} > 2e-4*max|a|")
+    del st, s1, got, want
+
+    # m2 at step 0
+    cfg = cfgs["1M BH tiles"]
+    pos, mass = scene.pos, scene.mass
+    check(torch.equal(ten["m2_pos0"].to(dev), pos),
+          "m2: the ranks' scene differs from this process's")
+    route, over = recs[0]["m2_route"], recs[0]["m2_overflow"]
+    check(all(r["m2_route"] == route and r["m2_overflow"] == over
+              for r in recs), "m2: the ranks' overflow counts differ")
+    ps1 = ParticleSystem()
+    ps1.initialize(cfg, device=dev)
+    audit = ps1.audit_short_range()
+    del ps1
+    k = bh_engine_params(cfg)["near_k"]
+    print(f"m2 tree-slabs step 0: routing overflow {route} (capacity N/P = "
+          f"{N // RANKS}), tile overflow {over - route} rows past k = {k}, "
+          f"single-device audit_short_range() {audit}")
+    check(route == 0, f"m2 routing overflow {route}")
+    check(over - route == audit["overflow"],
+          f"m2 tile overflow {over - route} != audit {audit['overflow']}")
+    acc = ten["m2_acc0"].to(dev)
+    single = make_force_fn(cfg)(pos, mass)
+    ok = in_contract(pos, cfg.bh_max_level, k)
+    err = float((acc[ok] - single[ok]).abs().max())
+    scale = float(single[ok].abs().max())
+    print(f"m2 tree-slabs vs single-device tiles engine on the "
+          f"{int(ok.sum())} rows within k: max|diff| {err:.4e}, max|a| "
+          f"{scale:.4e} (tol 1e-4*max|a|)")
+    check(err <= 1e-4 * scale, f"m2 vs single device {err} > 1e-4*max|a|")
+    bh_vs_direct(pos, mass, acc, cfg, "m2 BH tree-slabs, 4 ranks")
+    del acc, single, ok
+
+    # m3 at step 0
+    cfg = cfgs["1M sparse hash"]
+    pos, mass = sparse.pos, sparse.mass
+    check(torch.equal(ten["m3_pos0"].to(dev), pos),
+          "m3: the ranks' scene differs from this process's")
+    over = [r["m3_overflow"] for r in recs]
+    cut, cs = cfg.spatial_hash_cutoff, cfg.spatial_hash_cell_size
+    lo, hi = pos.min(0).values, pos.max(0).values
+    dims = torch.clamp(torch.ceil((hi - lo) / cs).to(torch.int32), 1,
+                       cfg.hash_max_grid_dim)
+    coords = torch.minimum(torch.clamp(torch.floor((pos - lo) / cs).to(
+        torch.int32), min=0), dims - 1)
+    err, scale, med, held = ground_truth_hash(
+        pos, mass, ten["m3_acc0"].to(dev), coords, cut, cfg.softening, cfg.G)
+    print(f"m3 hash-slabs step 0: overflow by rank {over}; vs f64 brute "
+          f"force ({held} sampled rows, all {N} sources): max|diff| "
+          f"{err:.4e}, max|a| {scale:.4e}, median rel err {med:.3e} (tol "
+          f"1e-4*max|a|)")
+    check(over == [0] * RANKS, f"m3 overflow {over}")
+    check(err <= 1e-4 * scale, f"m3 ground truth {err} > 1e-4*max|a|")
+
+    # m5: the checkpoint here, without a template and on 2 positions; m4
+    # against the restored state
+    ckpt = str(out / "ckpt")
+    want = ten["m2_state"]
+    back = restore_checkpoint(ckpt)
+    for f in RANK_FIELDS:
+        check(torch.equal(getattr(back, f), want[f]),
+              f"m5: restored {f} differs from the gathered state")
+    st = ParticleState(**{f: want[f].to(dev) for f in RANK_FIELDS})
+    mesh2 = make_mesh(2, devices=[dev] * 2)
+    two = M.gather_state(restore_checkpoint(
+        ckpt, template=M.shard_state(st, mesh2)))
+    for f in RANK_FIELDS:
+        check(torch.equal(getattr(two, f), getattr(st, f)),
+              f"m5: {f} restored on 2 positions differs")
+    print(f"m5 checkpoint of m2's state at step {CKPT_STEP}: restored "
+          f"across the {RANKS} ranks (their state as template), here "
+          f"without a template and onto 2 one-process positions, all "
+          f"bit-equal; save {recs[0]['m5_save_s']:.3f} s, restore "
+          f"{recs[0]['m5_restore_s']:.3f} s on rank 0")
+    cfg = cfgs["1M BH tiles"]
+    ke, pe = recs[0]["ke"], recs[0]["pe"]
+    check(all((r["ke"], r["pe"]) == (ke, pe) for r in recs),
+          "m4: the ranks' energies differ")
+    ke_1 = float(kinetic_energy(st))
+    pe_1 = float(pairwise_potential(st.pos, st.mass, cfg.G, cfg.softening))
+    rk, rp = abs(ke - ke_1) / abs(ke_1), abs(pe - pe_1) / abs(pe_1)
+    print(f"m4 sharded_energy: KE {ke:.9e} vs {ke_1:.9e} (rel {rk:.3e}), PE "
+          f"{pe:.9e} vs K5's main form {pe_1:.9e} (rel {rp:.3e}); tol 1e-6")
+    check(rk <= 1e-6 and rp <= 1e-6, f"m4 energies rel {rk}, {rp}")
+    print(f"phase 9 readings (steps/s; {tag}): {json.dumps(readings)} "
+          f"({smi})")
+    return readings
+
+
+def rank_phase(cfgs, scene, sparse, keep, smi, dev):
+    """Phase 9 (m1-m5): the ranks on gloo, 4 on the one card; with 4 or
+    more cards also on NCCL, one rank a card."""
+    import torch
+
+    torch.cuda.empty_cache()
+    readings = {}
+    backends = ["gloo"]
+    if torch.cuda.device_count() >= RANKS:
+        backends.append("nccl")
+    else:
+        print(f"phase 9: the NCCL run (one rank per card) needs {RANKS} "
+              f"cards; this machine has {torch.cuda.device_count()}: "
+              "skipped")
+    for backend in backends:
+        with tempfile.TemporaryDirectory(
+                prefix=f"nbody_ranks_{backend}_") as out:
+            rank_run(out, backend)
+            readings.update(rank_checks(out, backend, cfgs, scene, sparse,
+                                        keep, smi, dev))
+    return readings
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke run needs a card")
+    try:
+        import nbody_tpu_torch  # noqa: F401
+    except ImportError as e:
+        fail(f"cannot import nbody_tpu_torch ({e}): run from a checkout")
+    from nbody_tpu_torch.models.distributions import init_from_config
+    from nbody_tpu_torch.ops import _build
+    from nbody_tpu_torch.ops.barnes_hut import bh_engine_params
+    from nbody_tpu_torch.ops.forces import make_force_fn
     from nbody_tpu_torch.ops.sorted_window import (
         build_sorted_grid,
         sorted_ranks,
@@ -2687,17 +3129,7 @@ def main() -> None:
         hash_engine_params,
         tiles_bin,
     )
-    from nbody_tpu_torch.ops.tile_near import (
-        tile_sweep_plane,
-        tile_sweep_plane_plain,
-        tile_sweep_slab,
-    )
-    from nbody_tpu_torch.ops.window_sweep import (
-        window_starts,
-        window_sweep_kernel,
-        window_sweep_plain,
-    )
-    from nbody_tpu_torch.ops.render import render_points, render_points_plain
+    from nbody_tpu_torch.ops.window_sweep import window_starts
 
     # Every matmul and convolution on the card in FP32.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2752,27 +3184,7 @@ def main() -> None:
                   f"({s['bound_by']}), library {s['library_ms']} ms")
 
     # Phase 3
-    wrappers = {
-        "direct_forces": direct_forces_kernel,
-        "tile_scatter": tile_scatter,
-        "tile_place": tile_place,
-        "far_taps": far_taps,
-        "tile_sweep_plane": tile_sweep_plane,
-        "window_sweep": window_sweep_kernel,
-        "pairwise_potential": pairwise_potential,
-        "segment_sum": segment_sum,
-        "bitonic_sort": bitonic_sort_pairs,
-        "table_drift": T.table_drift,
-        "table_kick": T.table_kick,
-        "render_points": render_points,
-        "tile_sweep_slab": tile_sweep_slab,
-        "pairwise_potential_cross": pairwise_potential_cross,
-    }
-    plains = [direct_forces, tile_scatter_plain, tile_place_plain,
-              far_taps_plain, tile_sweep_plane_plain, window_sweep_plain,
-              pairwise_potential_plain, segment_sum_plain,
-              bitonic_sort_pairs_plain, T.table_drift_plain,
-              T.table_kick_plain, render_points_plain]
+    wrappers, plains = kernel_wrappers()
     none = {name: 0 for name in wrappers}
     by_path = {name: {} for name in wrappers}
 
@@ -2892,6 +3304,9 @@ def main() -> None:
                              none, keep, smi, dev, levels)
     print(f"sharded readings (steps/s; {SHARD_NOTE}): "
           f"{json.dumps(readings)} ({smi})")
+
+    # Phase 9 (m): the mesh across processes, 4 ranks on the card
+    rank_phase(cfgs, scene, sparse, keep, smi, dev)
     print(f"launches by path: {by_path}")
 
     sources = {
@@ -2954,4 +3369,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank"]:
+        rank_main(*sys.argv[2:4])
+    else:
+        main()

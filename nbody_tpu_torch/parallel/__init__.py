@@ -1,8 +1,9 @@
 """Particle sharding over a device mesh.
 
 PyTorch counterpart of ``nbody_tpu/parallel/``: the particle axis splits
-over the positions of a one-process ``Mesh`` of torch devices (a repeated
-device holds virtual shards), and explicit collectives move data between
+over the positions of a ``Mesh`` of torch devices, in one process (a
+repeated device holds virtual shards) or, with a process group up, across
+processes (one rank per card), and explicit collectives move data between
 them (``mesh.py``):
 
   * ring-rotated j-blocks for the all-pairs force (``ring.py``, kernel K1
@@ -12,7 +13,8 @@ them (``mesh.py``):
   * the psum-combined pyramid for Barnes-Hut and slab-routed near fields
     with chained-ppermute halos, swept by kernel K4's slab form
     (``tree.py``);
-  * ``torch.distributed`` initialization helpers (``distributed.py``).
+  * ``torch.distributed`` initialization and a launcher of local ranks
+    (``distributed.py``).
 """
 
 from nbody_tpu_torch.parallel.mesh import (

@@ -6,7 +6,9 @@ Kick and drift run on each position's own rows; the force comes from the
 ring (direct), the slab-routed tree and hash paths (``parallel/tree.py``)
 when the grid splits over the mesh, or, as the fallback, the whole
 single-device program replicated on every position; energies reduce with
-``psum``, the potential by a ring of kernel K5's cross form.
+``psum``, the potential by a ring of kernel K5's cross form. Each process
+runs its own positions; on a mesh across processes every process calls
+these functions together and gets the same energies.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ from nbody_tpu_torch.parallel.ring import ring_direct_forces
 from nbody_tpu_torch.state import ParticleState
 from nbody_tpu_torch.types import ForceMethod, SimulationConfig
 
-# force_fn(pos blocks, mass blocks) -> acc blocks, one per mesh position
+# force_fn(pos blocks, mass blocks) -> acc blocks, one per position of this
+# process
 ShardedForceFn = Callable[[list, list], list]
 
 
@@ -119,11 +122,10 @@ def make_sharded_force_fn(config: SimulationConfig, mesh: Mesh,
 
     def force_fn(pos, mass):
         full_pos, full_mass = all_gather(pos, mesh), all_gather(mass, mesh)
-        out, start = [], 0
-        for q in range(n_dev):
-            n_l = pos[q].shape[0]
-            out.append(inner(full_pos[q], full_mass[q])[start:start + n_l])
-            start += n_l
+        out = []
+        for i, q in enumerate(mesh.local):
+            n_l = pos[i].shape[0]
+            out.append(inner(full_pos[i], full_mass[i])[q * n_l:(q + 1) * n_l])
         return out
 
     return _tag(force_fn, "replicated-fallback")
@@ -140,7 +142,7 @@ def sharded_verlet_step(state: ShardedState, force_fn: ShardedForceFn,
         ParticleState(pos=p, vel=s.vel + (0.5 * dt) * (s.acc + a), acc=a,
                       mass=s.mass, time=s.time + dt)
         for s, p, a in zip(sh, pos, acc)
-    ])
+    ], state.mesh)
 
 
 def sharded_initialize_forces(state: ShardedState,
@@ -151,7 +153,7 @@ def sharded_initialize_forces(state: ShardedState,
     return ShardedState([
         ParticleState(pos=s.pos, vel=s.vel, acc=a, mass=s.mass, time=s.time)
         for s, a in zip(sh, acc)
-    ])
+    ], state.mesh)
 
 
 def sharded_multi_step(force_fn: ShardedForceFn, dt: float, n_steps: int):
@@ -185,11 +187,12 @@ def make_sharded_multi_step(config: SimulationConfig, mesh: Mesh,
 
 def sharded_energy(state: ShardedState, mesh: Mesh, G: float = 1.0,
                    softening: float = 0.1):
-    """(KE, PE) as float32 scalars on position 0's device. KE: each
-    position's ½Σ m|v|², then ``psum``. PE: a ring of kernel K5's cross
-    form, each position's rows against every position's (P² calls of
-    (N/P) × (N/P), raw r² == 0 excluded as in K5), summed in float64 and
-    then ``psum``'d; zero-mass padding carries no energy."""
+    """(KE, PE) as float32 scalars on this process's first position's
+    device, the same on every process. KE: each position's ½Σ m|v|², then
+    ``psum``. PE: a ring of kernel K5's cross form, each position's rows
+    against every position's (P² calls of (N/P) × (N/P) over the mesh,
+    raw r² == 0 excluded as in K5), summed in float64 and then
+    ``psum``'d; zero-mass padding carries no energy."""
     sh = state.shards
     ke = psum([0.5 * torch.sum(s.mass * torch.sum(s.vel * s.vel, dim=-1))
                for s in sh], mesh)
@@ -197,9 +200,9 @@ def sharded_energy(state: ShardedState, mesh: Mesh, G: float = 1.0,
     pe = [torch.zeros((), dtype=torch.float64, device=x.device) for x in pos]
     pj, mj = list(pos), list(mass)
     for hop in range(mesh.size):
-        for q in range(mesh.size):
-            pe[q] = pe[q] + pairwise_potential_cross(
-                pos[q], mass[q], pj[q], mj[q], G, softening).double()
+        for i in range(len(pos)):
+            pe[i] = pe[i] + pairwise_potential_cross(
+                pos[i], mass[i], pj[i], mj[i], G, softening).double()
         if hop + 1 < mesh.size:
             pj, mj = ppermute(pj, mesh, 1), ppermute(mj, mesh, 1)
     pe = psum(pe, mesh)

@@ -23,8 +23,11 @@ communication patterns:
      ``all_to_all`` home, to the (position, slot) coordinates of the
      outbound trip.
 
-Functions take and return sharded tensors: lists of one block per mesh
-position (``parallel/mesh.py``).
+Functions take and return sharded tensors: lists of one block per
+position of this process (``parallel/mesh.py``). Each loop runs over this
+process's positions with q the GLOBAL position index, which picks the
+slab and the halo's edge planes; the replicated far field and the slab
+sweep run per local position on its device.
 """
 
 from __future__ import annotations
@@ -121,27 +124,27 @@ def _halo_slabs(tiles, counts, mesh: Mesh, s: int, ws: int):
     no live slot, so the sweep reads none of their rows."""
     p = mesh.size
     counts = [c.reshape(s, -1) for c in counts]
-    left = [[] for _ in range(p)]
-    right = [[] for _ in range(p)]
+    left = [[] for _ in tiles]
+    right = [[] for _ in tiles]
     cur_l, cur_r = (tiles, counts), (tiles, counts)
     rem = ws
     for j in range(1, -(-ws // s) + 1):
         cur_l = tuple(ppermute(x, mesh, 1) for x in cur_l)    # from q - j
         cur_r = tuple(ppermute(x, mesh, -1) for x in cur_r)   # from q + j
         take = min(s, rem)
-        for q in range(p):
-            lt, lc = cur_l[0][q][s - take:], cur_l[1][q][s - take:]
-            rt, rc = cur_r[0][q][:take], cur_r[1][q][:take]
+        for i, q in enumerate(mesh.local):
+            lt, lc = cur_l[0][i][s - take:], cur_l[1][i][s - take:]
+            rt, rc = cur_r[0][i][:take], cur_r[1][i][:take]
             if q < j:
                 lc = torch.zeros_like(lc)
             if q >= p - j:
                 rc = torch.zeros_like(rc)
-            left[q].insert(0, (lt, lc))
-            right[q].append((rt, rc))
+            left[i].insert(0, (lt, lc))
+            right[i].append((rt, rc))
         rem -= take
     out = []
-    for q in range(p):
-        parts = left[q] + [(tiles[q], counts[q])] + right[q]
+    for i in range(len(tiles)):
+        parts = left[i] + [(tiles[i], counts[i])] + right[i]
         out.append((torch.cat([t for t, _ in parts]),
                     torch.cat([c for _, c in parts]).reshape(-1)))
     return out
@@ -150,31 +153,32 @@ def _halo_slabs(tiles, counts, mesh: Mesh, s: int, ws: int):
 def _sharded_near_field(pos, mass, coords, lo, cell, mesh: Mesh, *, d: int,
                         ws: int, k: int, capacity: int, eps: float,
                         cutoff2, coords_fn):
-    """Slab-routed exact near field. ``coords_fn(q, pos) -> (M, 3)`` must
-    reproduce position q's cell assignment exactly (routed rows re-derive
-    their cell on the receiver). Returns (acc per position (n_l, 3)
-    unscaled by G, overflow: routing plus tile overflow, psum'd)."""
+    """Slab-routed exact near field. ``coords_fn(i, pos) -> (M, 3)`` must
+    reproduce the cell assignment of this process's i-th position exactly
+    (routed rows re-derive their cell on the receiver). Returns (acc per
+    position (n_l, 3) unscaled by G, overflow: routing plus tile overflow,
+    psum'd)."""
     p = mesh.size
     s = d // p
     routed = [
-        _route_to_slabs(pos[q], mass[q],
-                        torch.clamp(torch.div(coords[q][:, 0].long(), s,
+        _route_to_slabs(pos[i], mass[i],
+                        torch.clamp(torch.div(coords[i][:, 0].long(), s,
                                               rounding_mode="floor"),
                                     0, p - 1), p, capacity)
-        for q in range(p)
+        for i in range(len(pos))
     ]
     recv = [r.reshape(p * capacity, 5)
             for r in all_to_all([r[0] for r in routed], mesh)]
     builds = [
-        _build_slab_tiles(recv[q], coords_fn(q, recv[q][:, :3]),
-                          recv[q][:, 4] > 0.5, q, s, d, k, lo[q], cell[q])
-        for q in range(p)
+        _build_slab_tiles(recv[i], coords_fn(i, recv[i][:, :3]),
+                          recv[i][:, 4] > 0.5, q, s, d, k, lo[i], cell[i])
+        for i, q in enumerate(mesh.local)
     ]
     slabs = _halo_slabs([b[0] for b in builds], [b[1] for b in builds],
                         mesh, s, ws)
     acc_recv = []
-    for q, (tiles, counts) in enumerate(slabs):
-        _, _, lid_s, rank_s, order, _ = builds[q]
+    for i, (tiles, counts) in enumerate(slabs):
+        _, _, lid_s, rank_s, order, _ = builds[i]
         out = tile_sweep_slab(tiles, counts, k=k, d=d, ws=ws, eps=eps,
                               x0=ws, planes=s, cutoff2=cutoff2)
         # pickup per routed row (cell-sorted order) → receive order
@@ -185,8 +189,8 @@ def _sharded_near_field(pos, mass, coords, lo, cell, mesh: Mesh, *, d: int,
         picked = torch.where(ok[:, None], acc_t[idx], 0.0)
         acc_recv.append(unsort_rows(picked, order).reshape(p, capacity, 3))
     acc_back = all_to_all(acc_recv, mesh)
-    acc = [routed[q][1](acc_back[q]) for q in range(p)]
-    overflow = psum([routed[q][2] + builds[q][5] for q in range(p)], mesh)
+    acc = [r[1](a) for r, a in zip(routed, acc_back)]
+    overflow = psum([r[2] + b[5] for r, b in zip(routed, builds)], mesh)
     return acc, overflow[0]
 
 
@@ -217,30 +221,30 @@ def sharded_barnes_hut_forces(pos, mass, mesh: Mesh, G: float = 1.0,
     ws = theta_to_ws(theta, order=multipole_order)
     cap = capacity if capacity > 0 else pos[0].shape[0]
     lo_hi = _bounds(pos, mesh)
-    geo = [pyramid_geometry(lo_hi[0][q], lo_hi[1][q], levels)
-           for q in range(p)]
+    blocks = range(len(pos))
+    geo = [pyramid_geometry(lo_hi[0][i], lo_hi[1][i], levels) for i in blocks]
     lo, cell = [g[0] for g in geo], [g[1] for g in geo]
 
-    def coords_fn(q, x):
-        return torch.clamp(((x - lo[q]) / cell[q]).to(torch.int32), 0, d - 1)
+    def coords_fn(i, x):
+        return torch.clamp(((x - lo[i]) / cell[i]).to(torch.int32), 0, d - 1)
 
-    coords = [coords_fn(q, pos[q]) for q in range(p)]
+    coords = [coords_fn(i, pos[i]) for i in blocks]
     packed = psum([
-        scatter_finest_moments(pos[q], mass[q], coords[q], lo[q], cell[q], d,
+        scatter_finest_moments(pos[i], mass[i], coords[i], lo[i], cell[i], d,
                                multipole_order)
-        for q in range(p)
+        for i in blocks
     ], mesh)
     picks = []
-    for q in range(p):
+    for i in blocks:
         # replicated on every position, as in the JAX package
-        pyr = pyramid_from_packed(packed[q], lo[q], cell[q], levels,
+        pyr = pyramid_from_packed(packed[i], lo[i], cell[i], levels,
                                   multipole_order)
         far = [f for f in far_field_grid(pyr, ws, G, softening, levels)
                if f is not None]
         far = torch.cat(far, dim=-1).reshape(d ** 3, -1)
-        c = coords[q].long()
-        delta = pos[q] - (lo[q] + (coords[q].to(pos[q].dtype) + 0.5)
-                          * cell[q])
+        c = coords[i].long()
+        delta = pos[i] - (lo[i] + (coords[i].to(pos[i].dtype) + 0.5)
+                          * cell[i])
         picks.append(_far_pickup(far[(c[:, 0] * d + c[:, 1]) * d + c[:, 2]],
                                  delta))
     near, overflow = _sharded_near_field(
@@ -267,14 +271,14 @@ def sharded_spatial_hash_forces(pos, mass, mesh: Mesh, G: float = 1.0,
         raise ValueError(f"grid cap {cap} must split over {p} devices evenly")
     capacity_ = capacity if capacity > 0 else pos[0].shape[0]
     lo, hi = _bounds(pos, mesh)
-    dims = [torch.clamp(torch.ceil((hi[q] - lo[q]) / cell_size).to(
-        torch.int32), 1, cap) for q in range(p)]
+    dims = [torch.clamp(torch.ceil((b - a) / cell_size).to(torch.int32), 1,
+                        cap) for a, b in zip(lo, hi)]
 
-    def coords_fn(q, x):
-        c = torch.floor((x - lo[q]) / cell_size).to(torch.int32)
-        return torch.minimum(torch.clamp(c, min=0), dims[q] - 1)
+    def coords_fn(i, x):
+        c = torch.floor((x - lo[i]) / cell_size).to(torch.int32)
+        return torch.minimum(torch.clamp(c, min=0), dims[i] - 1)
 
-    coords = [coords_fn(q, pos[q]) for q in range(p)]
+    coords = [coords_fn(i, x) for i, x in enumerate(pos)]
     cell = [torch.tensor(cell_size, dtype=x.dtype, device=x.device)
             for x in pos]
     acc, overflow = _sharded_near_field(

@@ -21,6 +21,14 @@ the first P visible CUDA cards (more than exist raises
 ``ValidationError``). Steps, energies and a(t) then run the sharded
 programs; the padding never shows in positions, velocities, masses,
 ``get_state`` or ``save_state``. Instances are not thread-safe.
+
+With a process group up (``parallel.initialize_distributed``, one rank
+per card), the mesh spans the processes: every rank runs the same calls
+on the same config, builds the same state from the seed and keeps its own
+positions' rows. State reads (``positions``, ``velocities``,
+``get_state``, the energies, ``audit_short_range``, ``diagnostics``) are
+then collectives that return the same values on every rank, and
+``save_state`` writes the file on rank 0 only.
 """
 
 from __future__ import annotations
@@ -60,6 +68,11 @@ from nbody_tpu_torch.ops.table_step import (
     make_table_adaptive_multi_step,
     make_table_multi_step,
     make_table_repair_multi_step,
+)
+from nbody_tpu_torch.parallel.distributed import (
+    barrier,
+    global_device_info,
+    process_world,
 )
 from nbody_tpu_torch.parallel.mesh import (
     gather_state,
@@ -102,7 +115,8 @@ def _resort_knob(config: SimulationConfig) -> Optional[str]:
 
 def _make_mesh(config: SimulationConfig, device: torch.device):
     """The mesh of ``config.shard_devices`` positions for the facade's
-    device: virtual shards of the CPU, or the visible CUDA cards."""
+    device: virtual shards of the CPU, or the visible CUDA cards; with a
+    process group up, positions spread evenly over the processes."""
     if device.type == "cpu":
         return make_mesh(config.shard_devices,
                          devices=[device] * config.shard_devices)
@@ -429,8 +443,16 @@ class ParticleSystem:
         self._initialized = True
 
     def save_state(self, filename: str) -> None:
-        """Write the state as a ``.nbody`` file (no accelerations)."""
-        Serializer.save(filename, self.get_state())
+        """Write the state as a ``.nbody`` file (no accelerations). On a
+        mesh across processes rank 0 writes it and every rank returns once
+        it is written."""
+        snapshot = self.get_state()
+        if self._mesh is None or self._mesh.world == 1:
+            Serializer.save(filename, snapshot)
+            return
+        if self._mesh.rank == 0:
+            Serializer.save(filename, snapshot)
+        barrier()
 
     def load_state(self, filename: str, device=None) -> None:
         """``set_state`` from a ``.nbody`` file: a(t) is recomputed."""
@@ -550,9 +572,11 @@ class ParticleSystem:
 
     def diagnostics(self) -> dict:
         """Runtime diagnostics, keyed as the JAX facade's: ``backend`` is
-        the torch device type, ``devices`` the CUDA device count (1 on the
-        CPU) and ``force_distribution`` the sharded strategy
-        (``parallel.step.make_sharded_force_fn``) or "single-device"."""
+        the torch device type, ``devices`` the CUDA cards of every process
+        (``global_device_info``; a collective with a process group up),
+        on the CPU the processes, and ``force_distribution`` the sharded
+        strategy (``parallel.step.make_sharded_force_fn``) or
+        "single-device"."""
         self._require_init()
         n = self.particle_count
         cuda = self._device.type == "cuda"
@@ -570,5 +594,6 @@ class ParticleSystem:
             "softening": self._config.softening,
             "state_bytes": n * STATE_BYTES_PER_PARTICLE,
             "backend": self._device.type,
-            "devices": torch.cuda.device_count() if cuda else 1,
+            "devices": (global_device_info()["global_devices"] if cuda
+                        else process_world()[1]),
         }

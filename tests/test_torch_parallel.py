@@ -392,7 +392,8 @@ class TestDistributed:
 
         calls = {}
 
-        def fake_init(backend, init_method, world_size, rank):
+        def fake_init(backend, init_method, world_size, rank, timeout=None,
+                      device_id=None):
             calls.update(backend=backend, init=init_method, world=world_size,
                          rank=rank)
 
