@@ -34,8 +34,10 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
      window sweep) at the 1M dense hash (cap 64, W 2048, B 256, cutoff
      2.0) and the 1M Barnes-Hut window engine (d = 32, W 2048, B 256,
      ws = 1), K5 (the all-pairs potential) on the drift gate's own 1M
-     input (the twin run once) and at N = 131072 on the scene's first
-     rows (kernel: median of 3 after 1 warm-up), K6 (the segment sum) at
+     input (the twin run once), at N = 131072 on the scene's first rows
+     and on the 16384 rows the app's sampled estimate draws (kernel:
+     median of 3 after 1 warm-up; two calls bit-equal, device time by
+     graph replay; bound over the N(N−1)/2 pairs the function needs), K6 (the segment sum) at
      the monopole path's (1M, 4) → (4, 262144), K8 (the bitonic sort) on
      the sort benchmark's 1M keys below 2^18 (numpy seed 0), on the 1M
      Barnes-Hut scene's finest cell ids (d = 64) and at n = 1000, 2^11 + 1
@@ -179,8 +181,9 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
            within k within 1e-4·max|a| of the single-device tiles engine,
            and the 0.05 accuracy gate against K1 (``bh_vs_direct``); then
            10 steps (K3 6 × 4 and K4's slab form 4 a force call);
-       s4. ``sharded_energy`` on s2's state after its steps: K5's cross
-           form 16 times, KE and PE within 1e-6 relative of
+       s4. ``sharded_energy`` on s2's state after its steps: K5's main
+           form 4 times and its cross form 6 (each block pair once), KE
+           and PE within 1e-6 relative of
            ``kinetic_energy`` and K5's main form on the gathered state;
        s3. hash-slabs, the 1M sparse hash scene (cube of side 100, cell
            2.0, cutoff 2.0, grid 64, 64 a cell): overflow 0, 4096 sampled
@@ -216,8 +219,10 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
        m3. the 1M sparse hash, hash-slabs (grid 64, k 64): overflow 0 on
            every rank, 4096 rows within 1e-4·max|a| of the float64 brute
            force, then 5 steps;
-       m4. ``sharded_energy`` on m2's state after its steps: KE and PE
-           the same on every rank, within 1e-6 relative of
+       m4. ``sharded_energy`` on m2's state after its steps (K5's main
+           form once a rank, its cross form twice on ranks 0 and 1 and
+           once on 2 and 3): KE and PE the same on every rank, within 1e-6
+           relative of
            ``kinetic_energy`` and K5's main form;
        m5. ``save_checkpoint`` of that state at step 5 by the ranks,
            restored across them with their state as template, here without
@@ -249,6 +254,8 @@ FP32_OPS = 67e12   # H100 SXM FP32 outside the tensor cores, op/s
 TF32_OPS = 495e12  # H100 SXM TF32 on the tensor cores, dense, op/s
 HBM_BYTES = 3.35e12  # H100 SXM HBM3, byte/s
 PAIR_OPS = 20      # FP32 operations of one softened pair test
+# H100 SXM rsqrt rate of the MUFU: 16 a clock an SM, 132 SMs at 1.98 GHz
+MUFU_RSQRT = 132 * 16 * 1.98e9
 
 
 def fail(msg: str) -> None:
@@ -964,9 +971,12 @@ def kernel_checks(res, pos, mass, cfg):
 def k5_held(res, label, p, m, G, eps, plain_reps):
     """K5 (the all-pairs potential) against its plain twin on (p, m) at
     relative 1e-5 (rsqrtf and torch.rsqrt differ by ulps on each term, the
-    sums are float64 in both), recorded as K5's shape ``label``: kernel
-    time the median of 3 calls after 1 warm-up, the twin's the median of
-    ``plain_reps`` calls (one call when 0)."""
+    sums are float64 in both), two calls bit-equal, recorded as K5's shape
+    ``label``: kernel time the median of 3 calls after 1 warm-up, device
+    time by graph replay, the twin's the median of ``plain_reps`` calls
+    (one call when 0). The bound counts the N(N−1)/2 pairs the function
+    needs; the N² figure of the kernel that took every pair twice, and the
+    MUFU's rsqrt ceiling for those pairs, are kept beside it."""
     import torch
 
     from nbody_tpu_torch.ops.direct import (
@@ -975,7 +985,10 @@ def k5_held(res, label, p, m, G, eps, plain_reps):
     )
 
     n = p.shape[0]
-    got = float(pairwise_potential(p, m, G, eps))
+    out = pairwise_potential(p, m, G, eps)
+    got = float(out)
+    check(torch.equal(out, pairwise_potential(p, m, G, eps)),
+          f"K5 pairwise_potential {label}: two calls differ")
     if plain_reps:
         want = float(pairwise_potential_plain(p, m, G, eps))
         plain_ms = time_ms(lambda: pairwise_potential_plain(p, m, G, eps),
@@ -984,34 +997,46 @@ def k5_held(res, label, p, m, G, eps, plain_reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        out = pairwise_potential_plain(p, m, G, eps)
+        twin = pairwise_potential_plain(p, m, G, eps)
         b.record()
         b.synchronize()
-        want, plain_ms = float(out), a.elapsed_time(b)
+        want, plain_ms = float(twin), a.elapsed_time(b)
     rel = abs(got - want) / abs(want)
     check(rel <= 1e-5, f"K5 pairwise_potential {label}: rel diff {rel}")
+    pairs = n * (n - 1) / 2
+    # pos + mass in, one partial a block out (at most one a tile pair)
+    nbytes = 16 * n + 8 * -(-n // 256)
     rec = dict(
         max_abs_err=abs(got - want),
         ms=time_ms(lambda: pairwise_potential(p, m, G, eps), reps=3,
                    warm=1),
+        device_ms=graph_ms(lambda: pairwise_potential(p, m, G, eps),
+                           reps=1 if n > 500_000 else 10),
         plain_ms=plain_ms,
-        # n² pair terms; pos + mass in, one partial per 256 rows out
-        **bound(PAIR_OPS * n * n, 16 * n + 8 * (n // 256)),
+        **bound(PAIR_OPS * pairs, nbytes),
+        bound_n2_ms=bound(PAIR_OPS * n * n, nbytes)["bound_ms"],
+        mufu_ms=pairs / MUFU_RSQRT * 1e3,
         library_ms=None,
     )
     add_shape(res, "pairwise_potential", label, rec)
     print(f"K5 pairwise_potential {label}: kernel {got:.9e}, plain "
-          f"{want:.9e}, rel diff {rel:.3e} (tol 1e-5); kernel "
-          f"{rec['ms']:.4f} ms (median of 3), plain {plain_ms:.4f} ms "
+          f"{want:.9e}, rel diff {rel:.3e} (tol 1e-5); two calls bit-equal; "
+          f"kernel {rec['ms']:.4f} ms (median of 3; device "
+          f"{rec['device_ms']:.4f} ms), plain {plain_ms:.4f} ms "
           f"({'median of %d' % plain_reps if plain_reps else 'one call'}"
-          f"), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+          f"), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; N(N-1)/2 "
+          f"= {pairs:.0f} pairs; the N² figure {rec['bound_n2_ms']:.4f} ms), "
+          f"MUFU rsqrt ceiling {rec['mufu_ms']:.4f} ms")
     return got
 
 
 def k5_check(res, pos, mass, cfg):
     """K5 (``k5_held``) on the drift gate's own step-0 input (the Hénon
-    sphere at N = 1M; the twin run once, ~1 min), then at N = 131072 on
-    the BH scene's first rows."""
+    sphere at N = 1M; the twin run once, ~1 min), at N = 131072 on the BH
+    scene's first rows, and at the app's sampled estimate: the 16384 rows
+    ``sampled_potential_energy`` draws from the BH scene."""
+    import torch
+
     from nbody_tpu_torch.drift import drift_config, henon_sphere
 
     n = pos.shape[0]
@@ -1023,6 +1048,11 @@ def k5_check(res, pos, mass, cfg):
     n1 = 131072
     k5_held(res, f"N = {n1}", pos[:n1].contiguous(), mass[:n1].contiguous(),
             cfg.G, cfg.softening, 3)
+    gen = torch.Generator(device=pos.device)
+    gen.manual_seed(0)  # sampled_potential_energy's default draw
+    idx = torch.randperm(n, generator=gen, device=pos.device)[:16384]
+    k5_held(res, "N = 16384 (sampled estimate)", pos[idx], mass[idx],
+            cfg.G, cfg.softening, 7)
 
 
 def k6_check(res, pos, mass, cfg):
@@ -2456,6 +2486,7 @@ def cross_check(res, label, a, b, G, eps):
         plain_ms=t0.elapsed_time(t1),
         # nt·ns pair terms; both blocks in, one partial per 256 rows out
         **bound(PAIR_OPS * nt * ns, 16 * (nt + ns) + 8 * -(-nt // 256)),
+        mufu_ms=nt * ns / MUFU_RSQRT * 1e3,
         library_ms=None,
     )
     add_shape(res, "pairwise_potential_cross", label, rec)
@@ -2463,7 +2494,8 @@ def cross_check(res, label, a, b, G, eps):
           f"{float(want):.9e}, rel diff {rel:.3e} (tol 1e-5); two calls "
           f"bit-equal; kernel {rec['ms']:.4f} ms (median of 3; device "
           f"{rec['device_ms']:.4f} ms), plain {rec['plain_ms']:.4f} ms (one "
-          f"call), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+          f"call), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+          f"MUFU rsqrt ceiling {rec['mufu_ms']:.4f} ms")
 
 
 def sharded_phase(res, cfgs, scene, sparse, wrappers, plains, none, keep,
@@ -2582,7 +2614,9 @@ def sharded_phase(res, cfgs, scene, sparse, wrappers, plains, none, keep,
     launches, (ke, pe), _ = counted_run(
         "s4 1M sharded_energy (one call; steps/s = calls/s)", 1,
         lambda: sharded_energy(sh, mesh, cfg_e.G, cfg_e.softening),
-        {**none, "pairwise_potential_cross": p2}, wrappers, plains, smi)
+        {**none, "pairwise_potential": SHARDS,
+         "pairwise_potential_cross": SHARDS * (SHARDS - 1) // 2},
+        wrappers, plains, smi)
     keep("s4 1M sharded_energy", launches)
     st = M.gather_state(sh)
     ke_1 = float(kinetic_energy(st))
@@ -2862,9 +2896,13 @@ def rank_body(out_dir: str, dev) -> None:
 
     # m4: the energy of m2's state after its steps
     got = {}
+    # K5's main form on the rank's own block, its cross form at hops
+    # 1..P/2 (hop P/2 only on positions below P/2)
+    cross = sum(1 for h in range(1, RANKS // 2 + 1)
+                if not (2 * h == RANKS and rank >= h))
     timed(M4, 1, lambda: got.update(e=sharded_energy(
         ps.state, ps.mesh, cfg.G, cfg.softening)),
-          {"pairwise_potential_cross": RANKS})
+          {"pairwise_potential": 1, "pairwise_potential_cross": cross})
     rec["ke"], rec["pe"] = float(got["e"][0]), float(got["e"][1])
 
     # m5: checkpoint m2's state, restore it across the ranks

@@ -75,10 +75,12 @@ SIGNATURES = {
     # cutoff2, use_cutoff, acc, overflow, block, stream
     "nbt_window_sweep": (_P, _P, _P, _I, _I, _P, _I, _I, _I, _F, _F, _I, _P,
                          _P, _I, _P),
-    # pos, mass, n, eps2, partial, stream
-    "nbt_pair_potential": (_P, _P, _I, _F, _P, _P),
-    # tpos, tmass, nt, spos, smass, ns, eps2, partial, stream
-    "nbt_pair_potential_cross": (_P, _P, _I, _P, _P, _I, _F, _P, _P),
+    # pos, mass, n, eps2, partial, partials (nbt_pair_potential_partials),
+    # stream
+    "nbt_pair_potential": (_P, _P, _I, _F, _P, ctypes.c_longlong, _P),
+    # tpos, tmass, nt, spos, smass, ns, eps2, partial, partials, stream
+    "nbt_pair_potential_cross": (_P, _P, _I, _P, _P, _I, _F, _P,
+                                 ctypes.c_longlong, _P),
     # vals, C, n, dest, num_dest, buffer (out, then partials),
     # capacity (floats), stream
     "nbt_segment_sum": (_P, _I, _I, _P, _I, _P, ctypes.c_longlong, _P),
@@ -107,6 +109,9 @@ QUERIES = {
     "nbt_segment_sum_buffer_floats": ((_I, _I, _I), ctypes.c_longlong),
     # -> rows per chunk of nbt_segment_sum
     "nbt_segment_sum_chunk_rows": ((), _I),
+    # device, nt, ns, cross -> float64 partials of a nbt_pair_potential
+    # (cross 0) or nbt_pair_potential_cross call (-1 on a CUDA error)
+    "nbt_pair_potential_partials": ((_I, _I, _I, _I), ctypes.c_longlong),
     # chunks, n_tiles, field -> nbt_render_points' scratch: list entries
     # a sprite makes at most (field 0), meta ints (1); -1 for chunks
     # outside 1-64 or another field

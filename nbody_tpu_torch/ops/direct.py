@@ -11,9 +11,10 @@ PyTorch counterpart of ``nbody_tpu/ops/direct.py``:
   * ``pairwise_potential`` — the all-pairs potential energy, wrapper of
     ``csrc/pair_potential.cu`` (kernel K5, replacing
     ``pairwise_potential_pallas``), ``pairwise_potential_cross``, its
-    cross form (targets against a separate source set: the ring energy of
-    ``parallel/step.py``), and ``pairwise_potential_plain``, the plain twin
-    of both.
+    cross form (targets against a separate source set: the energy of
+    ``parallel/step.py``), ``pairwise_potential_plain``, the plain twin
+    of both, and ``pair_tile_schedule``, a plain mirror of K5's walk over
+    tile pairs.
 
 Physics: a_i = G · Σ_j m_j · (x_j − x_i) / (|x_j − x_i|² + ε²)^{3/2}, with
 self/coincident pairs contributing exactly zero.
@@ -22,6 +23,7 @@ self/coincident pairs contributing exactly zero.
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
@@ -148,11 +150,90 @@ def pairwise_potential_plain(pos, mass, G=1.0, softening=0.1, *,
 pairwise_potential_plain.calls = 0
 
 
+# Rows of a K5 tile, on both axes (``kTile`` of ``csrc/pair_potential.cu``),
+# for the mirror of its walk below.
+PE_TILE = 256
+
+
+def _row_start(i: int, nt: int) -> int:
+    """Tile pairs of the upper triangle of ``nt`` tiles before tile row
+    ``i`` (the kernel's ``row_start``)."""
+    return i * nt - i * (i - 1) // 2
+
+
+def _tile_row(k: int, nt: int) -> int:
+    """The tile row of flat index ``k`` of the main form's row-major walk
+    of the upper triangle of ``nt`` tiles: the root of
+    ``_row_start(I) = k`` in double, corrected by whole rows (the kernel's
+    ``tile_row``)."""
+    b = 2.0 * nt + 1.0
+    i = int(math.floor((b - math.sqrt(b * b - 8.0 * k)) * 0.5))
+    i = max(0, min(i, nt - 1))
+    while i > 0 and _row_start(i, nt) > k:
+        i -= 1
+    while i + 1 < nt and _row_start(i + 1, nt) <= k:
+        i += 1
+    return i
+
+
+def pair_tile_schedule(n: int, tile: int = PE_TILE, run: int = 1, *,
+                       ns: int | None = None) -> list:
+    """Kernel K5's walk, block by block: a list with, for each block, the
+    ``(I, J, diagonal)`` tile pairs it takes, in order. The main form
+    (``ns`` None) walks the upper triangle (I ≤ J) of the tiles of ``n``
+    rows row-major, a diagonal pair taking only j > i; the cross form all
+    ``n``-row target tiles against ``ns``-row source tiles. Block b takes
+    ``run`` consecutive pairs from b·run on. A plain mirror of the index
+    arithmetic of ``csrc/pair_potential.cu``, for the CPU tests."""
+    nt = -(-n // tile)
+    nts = nt if ns is None else -(-ns // tile)
+    total = nt * (nt + 1) // 2 if ns is None else nt * nts
+    blocks = []
+    for k0 in range(0, total, run):
+        if ns is None:
+            i = _tile_row(k0, nt)
+            j = i + (k0 - _row_start(i, nt))
+        else:
+            i, j = divmod(k0, nts)
+        walk = []
+        for _ in range(min(run, total - k0)):
+            walk.append((i, j, ns is None and i == j))
+            j += 1
+            if j == nts:
+                i += 1
+                j = i if ns is None else 0
+        blocks.append(walk)
+    return blocks
+
+
+def _pe_launch(name, pos, mass, src, softening) -> torch.Tensor:
+    """Launch K5's entry point ``name`` (the cross form when ``src`` holds
+    the sources' (pos, mass)); returns the float64 sum of its block
+    partials, as many as the kernel's own plan makes."""
+    dev = pos.device
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    nt = pos.shape[0]
+    ns = nt if src is None else src[0].shape[0]
+    count = _build.library().nbt_pair_potential_partials(
+        index, nt, ns, int(src is not None))
+    if count < 0:
+        raise RuntimeError("nbt_pair_potential_partials: CUDA error")
+    partial = torch.empty((count,), dtype=torch.float64, device=dev)
+    args = (pos.data_ptr(), mass.data_ptr(), nt)
+    if src is not None:
+        args += (src[0].data_ptr(), src[1].data_ptr(), ns)
+    _build.launch(name, dev, *args, float(softening) ** 2, partial.data_ptr(),
+                  count)
+    return partial.sum()
+
+
 def pairwise_potential(pos, mass, G=1.0, softening=0.1):
-    """Kernel K5 (``csrc/pair_potential.cu``): the all-pairs potential, one
-    thread per row, float64 partial per block of 256 rows, the partials
-    summed in float64 here. Returns a float32 scalar tensor. CPU tensors
-    take the plain twin; CUDA tensors launch the kernel or raise."""
+    """Kernel K5 (``csrc/pair_potential.cu``): the all-pairs potential,
+    each unordered pair once over the upper triangle of 256-row tile pairs
+    (``pair_tile_schedule``), cut into equal runs that fill the card, four
+    targets a thread; float64 partials, one a block, summed here and scaled
+    by −G. Returns a float32 scalar tensor. CPU tensors take the plain
+    twin; CUDA tensors launch the kernel or raise."""
     if pos.device.type == "cpu":
         return pairwise_potential_plain(pos, mass, G, softening)
     _build.require_cuda(pos, "pairwise_potential")
@@ -160,11 +241,11 @@ def pairwise_potential(pos, mass, G=1.0, softening=0.1):
     n = pos.shape[0]
     _build.check(pos, "pos", (n, 3), dev)
     _build.check(mass, "mass", (n,), dev)
-    partial = torch.empty((-(-n // 256),), dtype=torch.float64, device=dev)
-    _build.launch("nbt_pair_potential", dev, pos.data_ptr(), mass.data_ptr(),
-                  n, float(softening) ** 2, partial.data_ptr())
+    if n == 0:
+        return torch.zeros((), dtype=torch.float32, device=dev)
+    total = _pe_launch("nbt_pair_potential", pos, mass, None, softening)
     pairwise_potential.launches += 1
-    return (-0.5 * G * partial.sum()).to(torch.float32)
+    return (-G * total).to(torch.float32)
 
 
 pairwise_potential.launches = 0
@@ -175,9 +256,10 @@ def pairwise_potential_cross(pos, mass, src_pos, src_mass, G=1.0,
     """Kernel K5's cross form (``csrc/pair_potential.cu``,
     ``nbt_pair_potential_cross``): −½G Σ_i Σ_j m_i·m_j/√(r_ij² + ε²) of the
     targets ``pos``/``mass`` against the sources ``src_pos``/``src_mass``,
-    pairs at one point (raw r² == 0) excluded, with the main form's float64
-    block partials. Returns a float32 scalar tensor. CPU tensors take the
-    plain twin; CUDA tensors launch the kernel or raise."""
+    pairs at one point (raw r² == 0) excluded: every target tile against
+    every source tile, in the main form's equal runs, float64 partials.
+    Returns a float32 scalar tensor. CPU tensors take the plain twin; CUDA
+    tensors launch the kernel or raise."""
     if pos.device.type == "cpu":
         return pairwise_potential_plain(pos, mass, G, softening,
                                         sources=(src_pos, src_mass))
@@ -188,12 +270,12 @@ def pairwise_potential_cross(pos, mass, src_pos, src_mass, G=1.0,
     _build.check(mass, "mass", (n,), dev)
     _build.check(src_pos, "src_pos", (ns, 3), dev)
     _build.check(src_mass, "src_mass", (ns,), dev)
-    partial = torch.empty((-(-n // 256),), dtype=torch.float64, device=dev)
-    _build.launch("nbt_pair_potential_cross", dev, pos.data_ptr(),
-                  mass.data_ptr(), n, src_pos.data_ptr(), src_mass.data_ptr(),
-                  ns, float(softening) ** 2, partial.data_ptr())
+    if n == 0 or ns == 0:
+        return torch.zeros((), dtype=torch.float32, device=dev)
+    total = _pe_launch("nbt_pair_potential_cross", pos, mass,
+                       (src_pos, src_mass), softening)
     pairwise_potential_cross.launches += 1
-    return (-0.5 * G * partial.sum()).to(torch.float32)
+    return (-0.5 * G * total).to(torch.float32)
 
 
 pairwise_potential_cross.launches = 0

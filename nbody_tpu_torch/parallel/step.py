@@ -6,7 +6,8 @@ Kick and drift run on each position's own rows; the force comes from the
 ring (direct), the slab-routed tree and hash paths (``parallel/tree.py``)
 when the grid splits over the mesh, or, as the fallback, the whole
 single-device program replicated on every position; energies reduce with
-``psum``, the potential by a ring of kernel K5's cross form. Each process
+``psum``, the potential by kernel K5's main form on each block and its
+cross form on each pair of blocks once, over a ring. Each process
 runs its own positions; on a mesh across processes every process calls
 these functions together and gets the same energies.
 """
@@ -19,7 +20,10 @@ from typing import Callable
 
 import torch
 
-from nbody_tpu_torch.ops.direct import pairwise_potential_cross
+from nbody_tpu_torch.ops.direct import (
+    pairwise_potential,
+    pairwise_potential_cross,
+)
 from nbody_tpu_torch.parallel.mesh import (
     Mesh,
     ShardedState,
@@ -189,21 +193,29 @@ def sharded_energy(state: ShardedState, mesh: Mesh, G: float = 1.0,
                    softening: float = 0.1):
     """(KE, PE) as float32 scalars on this process's first position's
     device, the same on every process. KE: each position's ½Σ m|v|², then
-    ``psum``. PE: a ring of kernel K5's cross form, each position's rows
-    against every position's (P² calls of (N/P) × (N/P) over the mesh,
-    raw r² == 0 excluded as in K5), summed in float64 and then
-    ``psum``'d; zero-mass padding carries no energy."""
+    ``psum``. PE = Σ_p main(A_p) + 2·Σ_{p<q} cross(A_p, A_q) over the
+    blocks A_p, on P(P+1)/2 launches of kernel K5 instead of P²: hop 0
+    runs K5's main form on each position's own block; after hop h's
+    ``ppermute`` (every position takes part) each position runs the cross
+    form against the block h positions back, weight 2, for h < P/2; for
+    even P the hop h = P/2 pairs p with p + P/2, so only positions
+    p < P/2 run it. Raw r² == 0 is excluded as in K5; each position sums
+    in float64, then ``psum`` in position order; zero-mass padding carries
+    no energy."""
     sh = state.shards
     ke = psum([0.5 * torch.sum(s.mass * torch.sum(s.vel * s.vel, dim=-1))
                for s in sh], mesh)
     pos, mass = [s.pos for s in sh], [s.mass for s in sh]
-    pe = [torch.zeros((), dtype=torch.float64, device=x.device) for x in pos]
+    pe = [pairwise_potential(x, m, G, softening).double()
+          for x, m in zip(pos, mass)]
     pj, mj = list(pos), list(mass)
-    for hop in range(mesh.size):
-        for i in range(len(pos)):
-            pe[i] = pe[i] + pairwise_potential_cross(
+    size = mesh.size
+    for hop in range(1, size // 2 + 1):
+        pj, mj = ppermute(pj, mesh, 1), ppermute(mj, mesh, 1)
+        for i, q in enumerate(mesh.local):
+            if 2 * hop == size and q >= hop:
+                continue  # (q, q − P/2) is (q − P/2, q), taken there
+            pe[i] = pe[i] + 2.0 * pairwise_potential_cross(
                 pos[i], mass[i], pj[i], mj[i], G, softening).double()
-        if hop + 1 < mesh.size:
-            pj, mj = ppermute(pj, mesh, 1), ppermute(mj, mesh, 1)
     pe = psum(pe, mesh)
     return ke[0], pe[0].to(torch.float32)

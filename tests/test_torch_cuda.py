@@ -24,8 +24,10 @@ from nbody_tpu_torch.ops.barnes_hut import (
 )
 from nbody_tpu_torch.ops import _build
 from nbody_tpu_torch.ops.direct import (
+    PE_TILE,
     direct_forces,
     direct_forces_kernel,
+    pair_tile_schedule,
     pairwise_potential,
     pairwise_potential_plain,
 )
@@ -527,19 +529,82 @@ def test_barnes_hut_window_card_matches_cpu(dev):
     _close(got, barnes_hut_forces(p, m, **kw), 2e-5)
 
 
-def test_pair_potential_kernel(dev):
-    """K5 vs plain at N = 20000 with a coincident pair and a zero-mass
-    row: relative 1e-5 (rsqrtf and torch.rsqrt differ by ulps per term;
-    the sums are float64 in both)."""
-    p, m = _sphere(20000, 5.0, seed=7)
+@pytest.mark.parametrize("n", [1, 2, 255, 257, 16384, 20000])
+def test_pair_potential_kernel(dev, n):
+    """K5 vs plain with a coincident pair and a zero-mass row (from N = 3)
+    at ε = 0.1 and ε = 0 (the ftz and the rsqrtf loop): relative 1e-5
+    (rsqrtf and torch.rsqrt differ by ulps per term; the sums are float64
+    in both); two calls bit-equal; N = 1 to 257 cross the 256-row tile,
+    16384 is the app's sampled estimate. A lone coincident pair gives 0."""
+    p, m = _sphere(max(n, 3), 5.0, seed=7)
+    p, m = p[:n].contiguous(), m[:n].contiguous()
+    if n >= 3:
+        p[1] = p[0]
+        m[2] = 0.0
+    p, m = p.to(dev), m.to(dev)
+    for eps in (0.1, 0.0):
+        before = pairwise_potential.launches
+        got = pairwise_potential(p, m, 1.0, eps)
+        assert pairwise_potential.launches == before + 1
+        np.testing.assert_allclose(
+            float(got), float(pairwise_potential_plain(p, m, 1.0, eps)),
+            rtol=1e-5)
+        assert torch.equal(got, pairwise_potential(p, m, 1.0, eps))
+    assert float(pairwise_potential(p[:1].expand(2, 3).contiguous(),
+                                    m[:1].expand(2).contiguous())) == 0.0
+
+
+def test_pair_potential_subnormal_pair(dev):
+    """At ε = 0 a pair 1e-20 apart has a denormal r² (1e-40): it is not
+    coincident, so K5 counts its term m_i·m_j/√r² (~1e20), finite, as the
+    plain twin does (relative 1e-5). The ftz loop, which takes ε² ≥
+    1e-12 only, would flush r² + ε² to 0 here and give an infinite sum."""
+    p, m = _sphere(300, 5.0, seed=7)
+    p[0] = 0.0
+    p[1] = torch.tensor([1e-20, 0.0, 0.0])
+    p, m = p.to(dev), m.to(dev)
+    got = pairwise_potential(p, m, 1.0, 0.0)
+    want = pairwise_potential_plain(p, m, 1.0, 0.0)
+    assert torch.isfinite(got) and float(got) < -1e18
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+
+
+def test_pair_potential_loops_agree_bit_for_bit(dev):
+    """K5's two pair loops give the same bits on normal inputs. Scaling
+    positions and ε by 2^-20 scales every r², r² + ε² and 1/√ by an exact
+    power of two, so the ε² < 1e-12 input (the rsqrtf loop) must give
+    exactly 2^20 times the ε = 0.1 input's potential (the ftz loop), for
+    the main and the cross form."""
+    from nbody_tpu_torch.ops.direct import pairwise_potential_cross
+
+    p, m = _sphere(3000, 5.0, seed=7)
     p[1] = p[0]
     m[2] = 0.0
     p, m = p.to(dev), m.to(dev)
-    before = pairwise_potential.launches
-    got = float(pairwise_potential(p, m, 1.0, 0.1))
-    assert pairwise_potential.launches == before + 1
-    np.testing.assert_allclose(
-        got, float(pairwise_potential_plain(p, m, 1.0, 0.1)), rtol=1e-5)
+    s = 2.0 ** -20
+    ps = p * s
+    lean = pairwise_potential(p, m, 1.0, 0.1)
+    exact = pairwise_potential(ps, m, 1.0, 0.1 * s)
+    assert torch.equal(exact, lean * 2.0 ** 20)
+    a, b = (p[:1000], m[:1000]), (p[1000:], m[1000:])
+    lean = pairwise_potential_cross(*a, *b, 1.0, 0.1)
+    exact = pairwise_potential_cross(ps[:1000], m[:1000], ps[1000:],
+                                     m[1000:], 1.0, 0.1 * s)
+    assert torch.equal(exact, lean * 2.0 ** 20)
+
+
+@pytest.mark.parametrize("n,ns", [(1, None), (PE_TILE + 1, None),
+                                  (3 * PE_TILE + 5, None),
+                                  (3 * PE_TILE + 5, PE_TILE + 1)])
+def test_pair_potential_partials_follow_the_mirror(dev, n, ns):
+    """With fewer tile pairs than one wave of blocks, K5's plan gives each
+    block one tile pair: as many partials as ``pair_tile_schedule`` has
+    blocks at run 1, so the mirror's tile is the kernel's."""
+    want = len(pair_tile_schedule(n, PE_TILE, 1, ns=ns))
+    got = _build.library().nbt_pair_potential_partials(
+        torch.cuda.current_device(), n, n if ns is None else ns,
+        int(ns is not None))
+    assert got == want
 
 
 def test_segment_sum_kernel(dev):

@@ -167,6 +167,31 @@ def test_energy_matches_jax(scene, jmesh, tmesh):
     np.testing.assert_allclose(float(pe), float(pe_j), rtol=1e-5)
 
 
+@pytest.mark.parametrize("p", [2, 3, 4, 8])
+def test_energy_on_block_pairs_matches_jax(p):
+    """``sharded_energy`` at P = 2, 3, 4, 8 (264 rows; a coincident pair
+    across two blocks, a zero-mass row): KE and PE match JAX's ring (all
+    P² block pairs) and the twin at relative 1e-5, from P(P+1)/2 calls of
+    K5 (its plain twin here): P of the main form, the rest cross."""
+    pos, vel, mass = _ball(264, 3.0, seed=p)
+    pos[5] = pos[200]
+    mass[17] = 0.0
+    scene = (pos, vel, mass)
+    jm = jpar.make_mesh(p)
+    ke_j, pe_j = jpar.sharded_energy(jpar.shard_state(_jstate(scene), jm),
+                                     jm, 1.0, 0.1)
+    tm = tpar.make_mesh(p, devices=["cpu"] * p)
+    st = _tstate(scene, tm)
+    calls = pairwise_potential_plain.calls
+    ke, pe = tpar.sharded_energy(st, tm, 1.0, 0.1)
+    assert pairwise_potential_plain.calls - calls == p * (p + 1) // 2
+    twin = float(pairwise_potential_plain(torch.from_numpy(pos),
+                                          torch.from_numpy(mass)))
+    np.testing.assert_allclose(float(ke), float(ke_j), rtol=1e-5)
+    np.testing.assert_allclose(float(pe), float(pe_j), rtol=1e-5)
+    np.testing.assert_allclose(float(pe), twin, rtol=1e-5)
+
+
 def test_multi_step_matches_jax(scene, jmesh, tmesh):
     """Three ring-force Verlet steps from a(t=0) on both meshes: pos and
     vel within atol 1e-5."""
