@@ -230,6 +230,22 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
            equal.
      With 4 or more cards the phase runs again on NCCL, one rank a card;
      on one card it says that run is skipped.
+ 10. the 4M flagship (``flagship_phase``) through the functions of
+     ``scripts/flagship_4m_torch.py``, each part counted:
+       f1. bh-4m: 4M spherical scene, d 64, near_k 40, sorted stepping (a
+           warm run and the best of 3 runs of 15 steps), the audit's
+           overflow, BH against K1 on 4096 sampled rows (median < 0.05);
+       f2-f4. at its initial state K2 at k 40 (``k2_check``), K3 at every
+           level (``k3_checks``), K4 at k 40 with the far seed (bricks of 3
+           cells; ``k4_check``) and K1 at the gate's 4096 × 4M
+           (``k1_check``) against their twins;
+       f5. galaxy-4m: 7 R1 frames (960×540, every 4th row) around 6
+           chunks of 5 sorted steps, written as PNGs in a temporary
+           directory; the last frame rendered twice (checksums equal),
+           equal to its PNG and bit-equal to R1's ordered twin, timed;
+       f7. ``sorted_verlet_step`` with ``route_extra`` False and True for
+           10 steps of 1M BH tiles and of the 1M sparse hash, both bit-
+           equal to ``make_sorted_multi_step`` from the same state.
 
 It stops at the first failed check with a non-zero exit. It needs one CUDA
 card and exits non-zero without one. The last two lines of its output are
@@ -753,9 +769,14 @@ def k4_inputs(pos, mass, cfg, sp_pos, sp_mass):
 
 
 def k4_checks(res, pos, mass, cfg, sp_pos, sp_mass):
-    """K4 against its plain twin at its three 1M shapes (``k4_inputs``;
-    2e-5·max|out|), two calls bit-equal, timed (one call, and its device
-    time by graph replay)."""
+    """K4 against its plain twin at its three 1M shapes (``k4_inputs``)."""
+    for label, tk, kw in k4_inputs(pos, mass, cfg, sp_pos, sp_mass):
+        k4_check(res, label, tk, kw)
+
+
+def k4_check(res, label, tk, kw):
+    """K4 against its plain twin at one shape (2e-5·max|out|), two calls
+    bit-equal, timed (one call, and its device time by graph replay)."""
     import torch
     import torch.nn.functional as F
 
@@ -765,50 +786,51 @@ def k4_checks(res, pos, mass, cfg, sp_pos, sp_mass):
         tile_sweep_plane_plain,
     )
 
-    for label, tk, kw in k4_inputs(pos, mass, cfg, sp_pos, sp_mass):
-        d, k, ws, counts = kw["d"], kw["k"], kw["ws"], kw["counts"]
-        ok_ = tile_sweep_plane(tk, **kw)
-        op_ = tile_sweep_plane_plain(tk, **kw)
-        e = float((ok_ - op_).abs().max())
-        tol = 2e-5 * float(op_.abs().max())
-        check(e <= tol, f"K4 tile_sweep_plane {label}: max|diff| {e} > {tol}")
-        check(torch.equal(ok_, tile_sweep_plane(tk, **kw)),
-              f"K4 tile_sweep_plane {label}: two calls differ")
-        w1 = 2 * ws + 1
-        slots = torch.clamp(counts, max=k).reshape(1, 1, d, d, d).double()
-        neigh = F.avg_pool3d(slots, w1, stride=1, padding=ws,
-                             count_include_pad=True) * w1 ** 3
-        pairs = float((slots * neigh).sum())
-        far_plane = kw.get("far_plane")
-        n_far = 0 if far_plane is None else far_plane.shape[1]
-        rec = dict(
-            max_abs_err=e,
-            ms=time_ms(lambda: tile_sweep_plane(tk, **kw)),
-            device_ms=graph_ms(lambda: tile_sweep_plane(tk, **kw), reps=5),
-            plain_ms=time_ms(lambda: tile_sweep_plane_plain(tk, **kw),
-                             reps=5, warm=1),
-            # live slot pairs of the (2ws+1)³ ball + ~80 ops of far
-            # expansion per live slot when seeded; tiles, far plane,
-            # counts in, slots out
-            **bound(PAIR_OPS * pairs
-                    + (80 * float(slots.sum()) if n_far else 0),
-                    4 * (d * 4 * k * d * d + d * n_far * d * d + d ** 3
-                         + d * 3 * k * d * d)),
-            library_ms=None,
-        )
-        add_shape(res, "tile_sweep_plane", label, rec)
-        plan = [_build.library().nbt_tile_near_plan(d, k, ws, f)
-                for f in range(3)]
-        print(f"K4 tile_sweep_plane {label} (d={d}, k={k}, ws={ws}, "
-              f"cutoff2={kw.get('cutoff2')}, far plane "
-              f"{'on' if n_far else 'off'}; bz, rows_cap, group_cols = "
-              f"{plan}): max|diff| {e:.3e} (tol "
-              f"2e-5*max|out| = {tol:.3e}; dead slots are 0 in both); two "
-              f"calls bit-equal; live slot pairs {pairs:.0f}; kernel "
-              f"{rec['ms']:.4f} ms (device {rec['device_ms']:.4f} ms, "
-              f"{pairs / rec['device_ms'] * 1e3:.4e} pairs/s), plain "
-              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-              f"({rec['bound_by']})")
+    d, k, ws, counts = kw["d"], kw["k"], kw["ws"], kw["counts"]
+    ok_ = tile_sweep_plane(tk, **kw)
+    op_ = tile_sweep_plane_plain(tk, **kw)
+    e = float((ok_ - op_).abs().max())
+    tol = 2e-5 * float(op_.abs().max())
+    del op_
+    check(e <= tol, f"K4 tile_sweep_plane {label}: max|diff| {e} > {tol}")
+    check(torch.equal(ok_, tile_sweep_plane(tk, **kw)),
+          f"K4 tile_sweep_plane {label}: two calls differ")
+    w1 = 2 * ws + 1
+    slots = torch.clamp(counts, max=k).reshape(1, 1, d, d, d).double()
+    neigh = F.avg_pool3d(slots, w1, stride=1, padding=ws,
+                         count_include_pad=True) * w1 ** 3
+    pairs = float((slots * neigh).sum())
+    far_plane = kw.get("far_plane")
+    n_far = 0 if far_plane is None else far_plane.shape[1]
+    rec = dict(
+        max_abs_err=e,
+        ms=time_ms(lambda: tile_sweep_plane(tk, **kw)),
+        device_ms=graph_ms(lambda: tile_sweep_plane(tk, **kw), reps=5),
+        plain_ms=time_ms(lambda: tile_sweep_plane_plain(tk, **kw),
+                         reps=5, warm=1),
+        # live slot pairs of the (2ws+1)³ ball + ~80 ops of far
+        # expansion per live slot when seeded; tiles, far plane,
+        # counts in, slots out
+        **bound(PAIR_OPS * pairs
+                + (80 * float(slots.sum()) if n_far else 0),
+                4 * (d * 4 * k * d * d + d * n_far * d * d + d ** 3
+                     + d * 3 * k * d * d)),
+        library_ms=None,
+    )
+    add_shape(res, "tile_sweep_plane", label, rec)
+    plan = [_build.library().nbt_tile_near_plan(d, k, ws, f)
+            for f in range(4)]
+    print(f"K4 tile_sweep_plane {label} (d={d}, k={k}, ws={ws}, "
+          f"cutoff2={kw.get('cutoff2')}, far plane "
+          f"{'on' if n_far else 'off'}; bz, rows_cap, group_cols, smem = "
+          f"{plan}): max|diff| {e:.3e} (tol "
+          f"2e-5*max|out| = {tol:.3e}; dead slots are 0 in both); two "
+          f"calls bit-equal; live slot pairs {pairs:.0f}; kernel "
+          f"{rec['ms']:.4f} ms (device {rec['device_ms']:.4f} ms, "
+          f"{pairs / rec['device_ms'] * 1e3:.4e} pairs/s), plain "
+          f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']})")
+    return plan
 
 
 def k1_inputs(pos, mass, cfg, dev):
@@ -841,59 +863,57 @@ def k1_inputs(pos, mass, cfg, dev):
 
 
 def k1_checks(res, pos, mass, cfg, dev):
-    """K1 against its plain twin at its four shapes (``k1_inputs``;
-    1e-5·max|a|), two calls bit-equal, timed (one call, and its device
-    time by graph replay)."""
+    """K1 against its plain twin at its four shapes (``k1_inputs``)."""
+    for label, p1, m1, tgt in k1_inputs(pos, mass, cfg, dev):
+        k1_check(res, label, p1, m1, tgt, cfg.G, cfg.softening)
+
+
+def k1_check(res, label, p1, m1, tgt, G, eps, block_size=256):
+    """K1 against its plain twin at one shape (1e-5·max|a|; the twin
+    blocked by ``block_size`` targets), two calls bit-equal, timed (one
+    call, and its device time by graph replay)."""
     import torch
 
     from nbody_tpu_torch.ops.direct import direct_forces, direct_forces_kernel
 
-    G, eps = cfg.G, cfg.softening
-    for label, p1, m1, tgt in k1_inputs(pos, mass, cfg, dev):
-        def kern():
-            return direct_forces_kernel(p1, m1, G, eps, targets=tgt)
+    def kern():
+        return direct_forces_kernel(p1, m1, G, eps, targets=tgt)
 
-        def plain():
-            return direct_forces(p1, m1, G, eps, targets=tgt)
+    def plain():
+        return direct_forces(p1, m1, G, eps, targets=tgt,
+                             block_size=block_size)
 
-        ok_, op_ = kern(), plain()
-        e = float((ok_ - op_).abs().max())
-        tol = 1e-5 * float(op_.abs().max())
-        check(e <= tol, f"K1 direct {label}: max|diff| {e} > {tol}")
-        check(torch.equal(ok_, kern()), f"K1 direct {label}: two calls "
-              "differ")
-        n, nt = p1.shape[0], ok_.shape[0]
-        rec = dict(
-            max_abs_err=e, ms=time_ms(kern), device_ms=graph_ms(kern, reps=3),
-            plain_ms=time_ms(plain, reps=3, warm=1),
-            # nt·n pairs; targets, sources (pos + mass) in, acc out
-            **bound(PAIR_OPS * nt * n, 12 * nt + 16 * n + 12 * nt),
-            library_ms=None,
-        )
-        add_shape(res, "direct_forces", label, rec)
-        print(f"K1 direct_forces {label}: max|diff| {e:.3e} (tol "
-              f"1e-5*max|a| = {tol:.3e}); two calls bit-equal; kernel "
-              f"{rec['ms']:.4f} ms (device {rec['device_ms']:.4f} ms, "
-              f"{nt * n / rec['device_ms'] * 1e3:.4e} pairs/s), plain "
-              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-              f"({rec['bound_by']})")
+    ok_, op_ = kern(), plain()
+    e = float((ok_ - op_).abs().max())
+    tol = 1e-5 * float(op_.abs().max())
+    check(e <= tol, f"K1 direct {label}: max|diff| {e} > {tol}")
+    check(torch.equal(ok_, kern()), f"K1 direct {label}: two calls differ")
+    n, nt = p1.shape[0], ok_.shape[0]
+    rec = dict(
+        max_abs_err=e, ms=time_ms(kern), device_ms=graph_ms(kern, reps=3),
+        plain_ms=time_ms(plain, reps=3, warm=1),
+        # nt·n pairs; targets, sources (pos + mass) in, acc out
+        **bound(PAIR_OPS * nt * n, 12 * nt + 16 * n + 12 * nt),
+        library_ms=None,
+    )
+    add_shape(res, "direct_forces", label, rec)
+    print(f"K1 direct_forces {label}: max|diff| {e:.3e} (tol "
+          f"1e-5*max|a| = {tol:.3e}); two calls bit-equal; kernel "
+          f"{rec['ms']:.4f} ms (device {rec['device_ms']:.4f} ms, "
+          f"{nt * n / rec['device_ms'] * 1e3:.4e} pairs/s), plain "
+          f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']})")
 
 
 def kernel_checks(res, pos, mass, cfg):
     """Phase 2: K2 and K3 against their plain twins at the BH tiles
     main-path shapes. Returns the step-0 overflow."""
-    import torch
-    import torch.nn.functional as F
-
     from nbody_tpu_torch.ops.barnes_hut import (
         bh_engine_params,
         bin_particles,
-        level_moments,
-        level_tap_matrices,
         pyramid_from_packed,
     )
     from nbody_tpu_torch.ops import table_step as T
-    from nbody_tpu_torch.ops.far_taps import far_taps, far_taps_plain
     from nbody_tpu_torch.ops.sorted_window import build_sorted_grid
 
     label = "1M BH tiles"
@@ -913,10 +933,27 @@ def kernel_checks(res, pos, mass, cfg):
                                       cfg.barnes_hut_theta, levels=levels,
                                       near_k=k))
 
-    # K3: far taps at every level of one step; p = 32 and 16 (the two
-    # finest) against the twin and conv3d, and K3 called twice there
     pyr = pyramid_from_packed(mk[:10].T.reshape(d, d, d, 10), lo, cell,
                               levels)
+    k3_checks(res, label, pyr, cell, ws=ws, eps=eps, levels=levels)
+
+    return overflow
+
+
+def k3_checks(res, label, pyr, cell, *, ws, eps, levels):
+    """K3 (far taps) at every level of one BH tiles step on the pyramid
+    ``pyr``: timed at each level; at p = 32 and 16 (the two finest)
+    against the twin and ``conv3d`` and called twice, recorded as K3's
+    shapes ``label p = ...``."""
+    import torch
+    import torch.nn.functional as F
+
+    from nbody_tpu_torch.ops.barnes_hut import (
+        level_moments,
+        level_tap_matrices,
+    )
+    from nbody_tpu_torch.ops.far_taps import far_taps, far_taps_plain
+
     k3_sum = 0.0
     for lvl in range(levels, 0, -1):
         pp = (1 << lvl) // 2
@@ -962,10 +999,8 @@ def kernel_checks(res, pos, mass, cfg):
               f"({rec['bound_by']}: {macs:.4e} multiply-adds as 3 TF32 "
               f"products at 495 TFLOP/s), FP32-pipe bound "
               f"{fp32['bound_ms']:.4f} ms")
-    print(f"K3 far_taps over the {levels} levels of one BH tiles step: "
+    print(f"K3 far_taps over the {levels} levels of one {label} step: "
           f"{k3_sum:.4f} ms (sum of per-level medians)")
-
-    return overflow
 
 
 def k5_held(res, label, p, m, G, eps, plain_reps):
@@ -1622,13 +1657,13 @@ def replay(sf, state0, flags, dt):
     flagged sort, the others frozen on the last sort's cells."""
     from nbody_tpu_torch.ops import integrator as I
 
-    r, (meta,) = I._sorted_step(I._rows_from(state0), sf.with_meta, dt)
+    r, (meta,) = I._sorted_step(I.sorted_state_from(state0), sf.with_meta, dt)
     for resort in flags:
         if resort:
             r, (meta,) = I._sorted_step(r, sf.with_meta, dt)
         else:
             r, _ = I._frozen_step(r, sf.frozen, meta, dt)
-    return I._state_from(r)
+    return I.to_particle_state(r)
 
 
 def repair_report(label, got, row, state0, trace, steps):
@@ -3143,6 +3178,214 @@ def rank_phase(cfgs, scene, sparse, keep, smi, dev):
     return readings
 
 
+FLAGSHIP_N = 4_000_000
+ROUTE_STEPS = 10
+ROUTE_PATHS = ("1M BH tiles", "1M sparse hash")
+
+
+def flagship_module():
+    """``scripts/flagship_4m_torch.py``, imported from the checkout."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "flagship_4m_torch", REPO / "scripts" / "flagship_4m_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def flagship_bh(res, F, wrappers, plains, none, keep, smi, dev, levels):
+    """f1-f4: the flagship's part 1 (bh-4m) through its own function,
+    counted; then at its initial state K2 at k 40, K3 at each level and K4
+    at k 40 against their twins, and K1 at the gate's 4096 targets × 4M
+    rows."""
+    import torch
+
+    from nbody_tpu_torch.ops.barnes_hut import (
+        bin_particles,
+        far_field_grid,
+        pyramid_from_packed,
+    )
+    from nbody_tpu_torch.ops.scatter import tile_scatter
+    from nbody_tpu_torch.ops.sorted_window import build_sorted_grid
+
+    n = FLAGSHIP_N
+    label = f"f1. 4M BH tiles, flagship bh-4m ({4 * F.BH_STEPS} steps)"
+    # a(0), the warm run, 3 timed runs and the gate's force
+    forces = 2 + 4 * F.BH_STEPS
+    launches, bh, _ = counted_run(
+        label, 4 * F.BH_STEPS, lambda: F.run_bh(n, dev),
+        {**none, "tile_scatter": forces, "far_taps": forces * levels,
+         "tile_sweep_plane": forces, "direct_forces": 1},
+        wrappers, plains, smi)
+    keep(label, launches)
+    p = bh["params"]
+    check((p["levels"], p["near_engine"], p["near_k"], p["ws"])
+          == (6, "tiles", 40, 1), f"bh-4m engine params {p}")
+    check_finite(label, bh["out"])
+    print(f"  f1 readings: {bh['sps']:.4f} steps/s (best of 3 runs of "
+          f"{F.BH_STEPS} from the initial state, {smi}); overflow "
+          f"{bh['overflow']} rows; median rel err {bh['error']['median']:.4e}"
+          f" (gate < {F.GATE}, held)")
+
+    cfg, state = bh["cfg"], bh["state0"]
+    d, k, ws = 1 << p["levels"], p["near_k"], p["ws"]
+    shape = "4M BH tiles, k 40 (flagship)"
+    lo, cell, coords = bin_particles(state.pos, p["levels"])
+    grid = build_sorted_grid(state.pos, state.mass, coords, d)
+    k2_check(res, shape, grid, lo, cell, d=d, k=k)
+    tk, mk = tile_scatter(grid.psort, grid.cell_start, lo, cell, d=d, k=k)
+    del grid
+    pyr = pyramid_from_packed(mk[:10].T.reshape(d, d, d, 10), lo, cell,
+                              p["levels"])
+    k3_checks(res, shape, pyr, cell, ws=ws, eps=cfg.softening,
+              levels=p["levels"])
+    far = torch.cat(far_field_grid(pyr, ws, 1.0, cfg.softening, p["levels"]),
+                    dim=-1).reshape(d, d * d, 19).permute(0, 2, 1)
+    plan = k4_check(res, shape, tk, dict(
+        k=k, d=d, ws=ws, eps=cfg.softening, lo=lo, cell=cell, counts=mk[10],
+        far_plane=far.contiguous()))
+    check(plan[0] == 128 // k * ws * ws, f"K4 plan at k {k}: {plan}")
+    del tk, mk, pyr, far
+    idx = torch.randperm(n, generator=F.generator(dev, 0), device=dev)
+    tgt = state.pos[idx[:F.SAMPLES]].contiguous()
+    k1_check(res, f"4096 x {n} (flagship gate)", state.pos, state.mass, tgt,
+             cfg.G, cfg.softening, block_size=64)
+    return bh["sps"]
+
+
+def flagship_galaxy(res, F, wrappers, plains, none, keep, smi, dev, levels):
+    """f5-f6: the flagship's part 2 (galaxy-4m) through its own function,
+    counted, its frames written to a temporary directory; then R1 at a
+    frame's shape: two renders of the last frame equal (checksums
+    printed), equal to its PNG as written, and bit-equal to the ordered
+    twin, timed."""
+    import torch
+
+    from nbody_tpu_torch.ops.render import render_points, render_points_plain
+
+    n, frames = FLAGSHIP_N, F.FRAMES
+    label = (f"f5. 4M galaxy collision, flagship galaxy-4m ({frames} frames "
+             f"of {F.STEPS_PER_FRAME} steps)")
+    forces = 2 + frames * F.STEPS_PER_FRAME  # a(0), the chunks, the reading
+    with tempfile.TemporaryDirectory() as out:
+        launches, gal, _ = counted_run(
+            label, frames * F.STEPS_PER_FRAME,
+            lambda: F.run_galaxy(n, frames, out, dev),
+            {**none, "tile_scatter": forces, "far_taps": forces * levels,
+             "tile_sweep_plane": forces, "direct_forces": 1,
+             "render_points": frames + 1},
+            wrappers, plains, smi)
+        keep(label, launches)
+        check_finite(label, gal["out"])
+        check(len(gal["paths"]) == frames + 1
+              and all(p.is_file() for p in gal["paths"]),
+              f"{label}: {len(gal['paths'])} frames written")
+        last = read_png(gal["paths"][-1])
+    renderer = gal["renderer"]
+    pos, vel = F.frame_points(gal["out"])
+    a, b = renderer.frame(pos, vel), renderer.frame(pos, vel)
+    sums = [int(x.to(torch.int64).sum()) for x in (a, b)]
+    check(torch.equal(a, b), f"R1 galaxy-4m frame: two renders differ "
+          f"(checksums {sums})")
+    check(bool((a.cpu().numpy() == last).all()),
+          "R1 galaxy-4m frame: the PNG written differs from the frame")
+    r1_ms = gal["r1_ms"]
+    print(f"  f5 readings: {gal['sps']:.4f} steps/s with the per-chunk host "
+          f"work ({smi}); R1 a frame {min(r1_ms):.4f}-{max(r1_ms):.4f} ms "
+          f"(median {sorted(r1_ms)[len(r1_ms) // 2]:.4f}); overflow "
+          f"{gal['overflow']} rows; BH median rel err "
+          f"{gal['error']['median']:.4e} (reading, not gated); last frame "
+          f"checksum {sums[0]} twice, equal to its PNG")
+    c = renderer.config
+    cam = renderer.camera
+    kw = dict(width=c.window_width, height=c.window_height,
+              point_size=c.point_size, mode=renderer.color_mapper.mode,
+              uint8=True)
+    got = render_points(pos, vel, cam, **kw)
+    want = render_points_plain(pos, vel, cam, accumulate="ordered", **kw)
+    check(torch.equal(got.image, want.image)
+          and torch.equal(got.image_u8, want.image_u8),
+          "R1 galaxy-4m frame: differs from the ordered twin")
+    m = pos.shape[0]
+
+    def call():
+        return render_points(pos, vel, cam, **kw)
+
+    rec = dict(
+        max_abs_err=0.0, ms=time_ms(call), device_ms=graph_ms(call),
+        plain_ms=time_ms(lambda: render_points_plain(
+            pos, vel, cam, accumulate="ordered", **kw), reps=3, warm=1),
+        **bound(0, 12 * m + c.window_width * c.window_height * 3 * 5),
+        library_ms=None,
+    )
+    add_shape(res, "render_points", f"galaxy-4m frame ({m} of {n} rows, "
+              f"{c.window_width}x{c.window_height})", rec)
+    print(f"R1 render_points galaxy-4m frame ({m} points): bit-equal to the "
+          f"ordered twin; kernel {rec['ms']:.4f} ms, device "
+          f"{rec['device_ms']:.4f} ms, twin {rec['plain_ms']:.4f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    return gal["sps"]
+
+
+def route_checks(F, cfgs, dev, smi):
+    """f7: ``sorted_verlet_step`` with the payload on its own gathers and
+    riding the engine's sort (``route_extra``), ``ROUTE_STEPS`` steps of
+    the 1M BH tiles and 1M sparse hash scenes from a(0): both bit-equal to
+    ``make_sorted_multi_step`` from the same state, each timed."""
+    import torch
+
+    from nbody_tpu_torch.models.distributions import init_from_config
+    from nbody_tpu_torch.ops import integrator as I
+    from nbody_tpu_torch.ops.forces import make_sorted_force_fn
+
+    for label in ROUTE_PATHS:
+        cfg = cfgs[label]
+        state = init_from_config(cfg, device=dev)
+        sf = make_sorted_force_fn(cfg, pos_hint=state.pos)
+        state = F.with_forces(state, sf)
+        want = I.make_sorted_multi_step(sf, cfg.dt, ROUTE_STEPS)(state)
+        secs = {}
+        for route in (False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s = I.sorted_state_from(state)
+            for _ in range(ROUTE_STEPS):
+                s = I.sorted_verlet_step(s, sf, cfg.dt, route_extra=route)
+            got = I.to_particle_state(s)
+            torch.cuda.synchronize()
+            secs[route] = time.perf_counter() - t0
+            for f in ("pos", "vel", "acc", "mass", "time"):
+                check(torch.equal(getattr(got, f), getattr(want, f)),
+                      f"f7 {label}: route_extra={route} {f} differs from "
+                      f"make_sorted_multi_step")
+        print(f"f7 {label}: sorted_verlet_step x {ROUTE_STEPS}, "
+              f"route_extra False and True, bit-equal to "
+              f"make_sorted_multi_step; {ROUTE_STEPS / secs[False]:.3f} and "
+              f"{ROUTE_STEPS / secs[True]:.3f} steps/s ({smi}; one run each, "
+              f"a reading)")
+
+
+def flagship_phase(res, cfgs, wrappers, plains, none, keep, smi, dev,
+                   levels):
+    """Phase 10 (f): the 4M flagship's two parts through
+    ``scripts/flagship_4m_torch.py``'s own functions, the kernels at its
+    shapes, and the sorted-state routes at 1M."""
+    import torch
+
+    F = flagship_module()
+    torch.cuda.empty_cache()
+    readings = {
+        "bh-4m": flagship_bh(res, F, wrappers, plains, none, keep, smi, dev,
+                             levels),
+        "galaxy-4m": flagship_galaxy(res, F, wrappers, plains, none, keep,
+                                     smi, dev, levels),
+    }
+    torch.cuda.empty_cache()
+    route_checks(F, cfgs, dev, smi)
+    return readings
+
+
 def main() -> None:
     import torch
 
@@ -3345,6 +3588,11 @@ def main() -> None:
 
     # Phase 9 (m): the mesh across processes, 4 ranks on the card
     rank_phase(cfgs, scene, sparse, keep, smi, dev)
+
+    # Phase 10 (f): the 4M flagship and the sorted-state routes
+    readings = flagship_phase(res, cfgs, wrappers, plains, none, keep, smi,
+                              dev, levels)
+    print(f"flagship readings (steps/s): {json.dumps(readings)} ({smi})")
     print(f"launches by path: {by_path}")
 
     sources = {

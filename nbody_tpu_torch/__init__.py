@@ -3,7 +3,7 @@ kernels for NVIDIA Hopper (H100).
 
 A port of ``nbody_tpu`` (JAX on TPU), which stays beside it as the
 reference. This package imports ``torch`` and never ``jax`` or
-``nbody_tpu``. Ported so far: the configuration and state types, the
+``nbody_tpu``. It ports all of it: the configuration and state types, the
 uniform, spherical, disk and Plummer initializers and the composite scenes
 (``models``), direct N², Barnes-Hut (tiles and window near engines;
 quadrupole, or monopole sources on request) and spatial-hash (window and
@@ -13,17 +13,25 @@ energy-drift measurement (``drift.run_drift``), the bitonic sort
 (``ops.sort``), the ``ParticleSystem`` facade with its live setters,
 ``.nbody`` and HDF5 state IO (``utils``), rendering on the card
 (``render``: camera, colours, the point renderer, the point stream, the
-terminal view), and the application entry point (``python -m
-nbody_tpu_torch.cli``, ``app.Application``). The CUDA
-kernels (``csrc/``) build on first use; see ``ops/_build.py``.
+terminal view), the application entry point (``python -m
+nbody_tpu_torch.cli``, ``app.Application``), sharding (``parallel``),
+checkpoints, sorted-state stepping (``ops.integrator.SortedState``) and
+Morton codes (``ops.morton``); the examples are in ``examples_torch/``.
+The CUDA kernels (``csrc/``) build on first use; see ``ops/_build.py``.
 """
 
 __version__ = "0.1.0"
 
 from nbody_tpu_torch.errors import (
+    NBodyError,
     ResourceError,
     SerializationError,
     ValidationError,
+    validate_config,
+    validate_particle_count,
+    validate_softening,
+    validate_theta,
+    validate_time_step,
 )
 from nbody_tpu_torch.state import (
     ParticleState,
@@ -32,22 +40,27 @@ from nbody_tpu_torch.state import (
 )
 from nbody_tpu_torch.system import ParticleSystem
 from nbody_tpu_torch.types import (
+    ColorMode,
     DiskDistParams,
     ForceMethod,
     InitDistribution,
     PlummerDistParams,
+    RenderConfig,
     SimulationConfig,
     SphericalDistParams,
     UniformDistParams,
 )
 
 __all__ = [
+    "ColorMode",
     "DiskDistParams",
     "ForceMethod",
     "InitDistribution",
+    "NBodyError",
     "ParticleState",
     "ParticleSystem",
     "PlummerDistParams",
+    "RenderConfig",
     "ResourceError",
     "SerializationError",
     "SimulationConfig",
@@ -56,4 +69,10 @@ __all__ = [
     "UniformDistParams",
     "ValidationError",
     "config_from_reference",
+    "validate_config",
+    "validate_particle_count",
+    "validate_softening",
+    "validate_theta",
+    "validate_time_step",
+    "__version__",
 ]

@@ -61,6 +61,7 @@ from nbody_tpu_torch.ops.sorted_window import (
     SortedGrid,
     build_sorted_grid,
     cell_ids,
+    sorted_outputs,
     unsort_rows,
     window_sweep,
     xy_ball,
@@ -734,7 +735,7 @@ def _require_frozen_contract(d: int, near_k: int, multipole_order: int):
 
 def _barnes_hut_forces(pos, mass, G, softening, theta, *, levels, near_k,
                        near_engine="tiles", window=2048, multipole_order=2,
-                       sorted_output=False, with_grid_meta=False):
+                       sorted_output=False, with_grid_meta=False, extra=None):
     ws = theta_to_ws(theta, order=multipole_order)
     if near_engine == "window":
         if sorted_output:
@@ -747,7 +748,8 @@ def _barnes_hut_forces(pos, mass, G, softening, theta, *, levels, near_k,
         _require_frozen_contract(d, near_k, multipole_order)
     with profile_phase("bh.sort", device=pos.device):
         lo, cell, coords = bin_particles(pos, levels)
-        grid = build_sorted_grid(pos, mass, coords, d, with_csort=monopole)
+        grid = build_sorted_grid(pos, mass, coords, d, with_csort=monopole,
+                                 extra=extra)
     kw = dict(d=d, levels=levels, ws=ws, near_k=near_k, G=G,
               softening=softening, sorted_output=sorted_output)
     if monopole:
@@ -759,9 +761,9 @@ def _barnes_hut_forces(pos, mass, G, softening, theta, *, levels, near_k,
         # meta) runs the same ops on the same inputs, bit for bit
         meta = FrozenGridMeta(ids=grid.ids, rank=tb.rank_sorted, lo=lo,
                               cell=cell, cell_start=grid.cell_start)
-        return acc, grid.psort, grid.order, meta
+        return sorted_outputs(acc, grid, extra, meta)
     if sorted_output:
-        return acc, grid.psort, grid.order
+        return sorted_outputs(acc, grid, extra)
     return acc
 
 
@@ -820,17 +822,18 @@ def barnes_hut_forces(pos, mass, G: float = 1.0, softening: float = 0.1,
 def barnes_hut_forces_sorted(pos, mass, G: float = 1.0,
                              softening: float = 0.1, theta: float = 0.5, *,
                              levels: int = 6, near_k: int = 16,
-                             multipole_order: int = 2,
+                             multipole_order: int = 2, extra=None,
                              with_grid_meta: bool = False):
     """The tiles engine's forces in its CELL-SORTED row order →
     ``(acc_sorted, psort, order)``: ``psort`` (N, 4) = [pos | mass][order],
     ``acc_sorted`` aligned with it (the sorted-stepping contract);
-    ``with_grid_meta=True`` appends the ``FrozenGridMeta`` that
-    ``barnes_hut_forces_frozen`` steps on."""
+    ``extra`` (N, E) rides the engine's own sort gather and
+    ``extra_sorted`` is appended; ``with_grid_meta=True`` appends (last)
+    the ``FrozenGridMeta`` that ``barnes_hut_forces_frozen`` steps on."""
     return _barnes_hut_forces(pos, mass, G, softening, theta, levels=levels,
                               near_k=near_k, multipole_order=multipole_order,
                               sorted_output=True,
-                              with_grid_meta=with_grid_meta)
+                              with_grid_meta=with_grid_meta, extra=extra)
 
 
 def make_barnes_hut_forces(config: SimulationConfig):
@@ -850,12 +853,13 @@ def make_barnes_hut_forces(config: SimulationConfig):
 
 
 def make_barnes_hut_forces_sorted(config: SimulationConfig):
-    """``sorted_force_fn(pos, mass) -> (acc_sorted, psort, order)``, or
-    None when the config selects the window engine (no sorted contract:
-    callers step in original order). As in the JAX package the closure
-    carries the frozen-grid contract of ``integrator.make_resort_multi_step``:
-    ``with_meta(pos, mass)`` (the sorted step plus its ``FrozenGridMeta``;
-    raises where ``tile_engine_fused`` does not hold), ``frozen(psort, meta,
+    """``sorted_force_fn(pos, mass, extra=None) -> (acc_sorted, psort,
+    order[, extra_sorted])``, or None when the config selects the window
+    engine (no sorted contract: callers step in original order). As in the
+    JAX package the closure carries the frozen-grid contract of
+    ``integrator.make_resort_multi_step``: ``with_meta(pos, mass)`` (the
+    sorted step plus its ``FrozenGridMeta``; raises where
+    ``tile_engine_fused`` does not hold), ``frozen(psort, meta,
     with_audit=False)`` and ``stale_count(psort, meta)``."""
     p = bh_engine_params(config)
     if p["near_engine"] != "tiles":
@@ -864,9 +868,14 @@ def make_barnes_hut_forces_sorted(config: SimulationConfig):
     kw = dict(levels=p["levels"], near_k=p["near_k"],
               multipole_order=p["multipole_order"])
 
-    def sorted_force_fn(pos, mass):
+    def sorted_force_fn(pos, mass, extra=None):
         return _barnes_hut_forces(pos, mass, G, eps, theta,
-                                  sorted_output=True, **kw)
+                                  sorted_output=True, extra=extra, **kw)
+
+    # the integrator's payload takes its own gather by default, as the JAX
+    # factory sets it (``make_sorted_multi_step(route_extra=True)`` sends it
+    # through the engine's sort instead)
+    sorted_force_fn.route_extra = False
 
     def with_meta(pos, mass):
         return _barnes_hut_forces(pos, mass, G, eps, theta,
@@ -882,3 +891,30 @@ def make_barnes_hut_forces_sorted(config: SimulationConfig):
     sorted_force_fn.stale_count = (
         lambda psort, meta: stale_count(psort, meta, 1 << p["levels"]))
     return sorted_force_fn
+
+
+# ---------------------------------------------------------------------------
+# Verification helpers (reference: verifyTreeStructure/verifyMassConservation,
+# force_barnes_hut.cu:505-519)
+# ---------------------------------------------------------------------------
+
+
+def verify_mass_conservation(pyr: Pyramid, total_mass: float,
+                             tol: float = 1e-3) -> bool:
+    """Every pyramid level sums to the total mass (within ``tol`` of
+    max(|total|, 1))."""
+    return all(
+        abs(float(m.sum()) - total_mass) <= tol * max(abs(total_mass), 1.0)
+        for m in pyr.masses)
+
+
+def verify_pyramid_structure(pyr: Pyramid) -> bool:
+    """Each parent's mass equals the sum of its 8 children at every level
+    (relative 1e-4, numpy's ``allclose`` default absolute 1e-8)."""
+    for parent, child in zip(pyr.masses[:-1], pyr.masses[1:]):
+        dm = parent.shape[0]
+        agg = child.reshape(dm, 2, dm, 2, dm, 2).sum(dim=(1, 3, 5))
+        if not np.allclose(parent.detach().cpu().numpy(),
+                           agg.detach().cpu().numpy(), rtol=1e-4):
+            return False
+    return True

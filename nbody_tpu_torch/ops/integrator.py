@@ -9,7 +9,8 @@ one force evaluation, queued on the device without host synchronization
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+import dataclasses
+from typing import Callable
 
 import torch
 
@@ -18,7 +19,8 @@ from nbody_tpu_torch.state import ParticleState
 
 # force_fn(pos (N,3), mass (N,)) -> acc (N,3)
 ForceFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
-# sorted_force_fn(pos, mass) -> (acc_sorted (N,3), psort (N,4), order (N,))
+# sorted_force_fn(pos, mass[, extra (N,E)]) -> (acc_sorted (N,3), psort
+# (N,4), order (N,)[, extra_sorted (N,E) — iff extra was given])
 SortedForceFn = Callable[..., tuple]
 
 
@@ -63,48 +65,84 @@ def initialize_forces(state: ParticleState, force_fn: ForceFn) -> ParticleState:
                          mass=state.mass, time=state.time)
 
 
-class _Rows(NamedTuple):
-    """The carry of cell-sorted stepping: rows in the engine's last sorted
-    order, ``tag`` the original row of each."""
+@dataclasses.dataclass(frozen=True)
+class SortedState:
+    """Integration state whose rows live in an arbitrary permutation of the
+    original particle order (the force engine's last cell-sorted order):
+    ``to_orig[i]`` (int32) is row i's original index. The carry of every
+    cell-sorted and frozen-grid stepper here; ``to_particle_state``
+    restores the original order."""
 
-    pos: torch.Tensor
-    vel: torch.Tensor
-    acc: torch.Tensor
-    mass: torch.Tensor
-    tag: torch.Tensor
-    time: torch.Tensor
-
-
-def _rows_from(state: ParticleState) -> _Rows:
-    tag = torch.arange(state.n, dtype=torch.int32, device=state.pos.device)
-    return _Rows(state.pos, state.vel, state.acc, state.mass, tag,
-                 state.time)
+    pos: torch.Tensor      # (N, 3)
+    vel: torch.Tensor      # (N, 3)
+    acc: torch.Tensor      # (N, 3)
+    mass: torch.Tensor     # (N,)
+    to_orig: torch.Tensor  # (N,) int32
+    time: torch.Tensor     # ()
 
 
-def _state_from(r: _Rows) -> ParticleState:
-    """Original row order, restored with one index store per field."""
+def sorted_state_from(state: ParticleState) -> SortedState:
+    """ParticleState → SortedState with the identity permutation
+    (``state.acc`` must already hold a(t), see ``initialize_forces``)."""
+    to_orig = torch.arange(state.n, dtype=torch.int32,
+                           device=state.pos.device)
+    return SortedState(pos=state.pos, vel=state.vel, acc=state.acc,
+                       mass=state.mass, to_orig=to_orig, time=state.time)
+
+
+def to_particle_state(s: SortedState) -> ParticleState:
+    """SortedState → ParticleState in ORIGINAL row order, restored with one
+    index store per field (``out[to_orig] = rows``; the JAX package
+    gathers by ``argsort(to_orig)``, since TPU scatters are slow)."""
 
     def unsort(rows):
         out = torch.empty_like(rows)
-        out[r.tag] = rows
+        out[s.to_orig] = rows
         return out
 
-    return ParticleState(pos=unsort(r.pos), vel=unsort(r.vel),
-                         acc=unsort(r.acc), mass=unsort(r.mass), time=r.time)
+    return ParticleState(pos=unsort(s.pos), vel=unsort(s.vel),
+                         acc=unsort(s.acc), mass=unsort(s.mass), time=s.time)
 
 
-def _sorted_step(r: _Rows, force, dt):
-    """One Verlet step through a sorting force ``force(pos, mass) ->
-    (acc_sorted, psort, order, *rest)``: the half-kicked velocity and the
-    tag follow the permutation by gather. Returns ``(rows, rest)``."""
-    pos_d = r.pos + r.vel * dt + (0.5 * dt * dt) * r.acc
-    vel_h = r.vel + (0.5 * dt) * r.acc
-    acc, psort, order, *rest = force(pos_d, r.mass)
-    return _Rows(psort[:, :3], vel_h[order] + (0.5 * dt) * acc, acc,
-                 psort[:, 3], r.tag[order], r.time + dt), rest
+# Row tags ride a float32 column exactly below 2²⁴ rows; above, the routed
+# payload takes the separate gather (as in the JAX package).
+_F32_EXACT_ROWS = 1 << 24
 
 
-def _frozen_step(r: _Rows, frozen, meta, dt, with_audit: bool = False):
+def _sorted_step(s: SortedState, force, dt, route_extra: bool = False):
+    """One Verlet step through a sorting force ``force(pos, mass[, extra])
+    -> (acc_sorted, psort, order[, extra_sorted], *rest)``. The half-kicked
+    velocity and the tag follow the permutation by their own gathers, or,
+    with ``route_extra`` (and fewer than 2²⁴ rows), ride the force's sort
+    gather as a 4-column ``extra`` [vel_h | tag as float32]: the same
+    values, so both routes give the same state bit for bit. Returns
+    ``(state, rest)``."""
+    pos_d = s.pos + s.vel * dt + (0.5 * dt * dt) * s.acc
+    vel_h = s.vel + (0.5 * dt) * s.acc
+    if route_extra and s.pos.shape[0] < _F32_EXACT_ROWS:
+        ext = torch.cat([vel_h, s.to_orig.to(vel_h.dtype)[:, None]], dim=-1)
+        acc, psort, order, pay, *rest = force(pos_d, s.mass, ext)
+        vel_s, to_orig = pay[:, :3], pay[:, 3].to(torch.int32)
+    else:
+        acc, psort, order, *rest = force(pos_d, s.mass)
+        vel_s, to_orig = vel_h[order], s.to_orig[order]
+    return SortedState(psort[:, :3], vel_s + (0.5 * dt) * acc, acc,
+                       psort[:, 3], to_orig, s.time + dt), rest
+
+
+def sorted_verlet_step(s: SortedState, sorted_force_fn: SortedForceFn, dt,
+                       route_extra: bool = False) -> SortedState:
+    """One Velocity Verlet step entirely in sorted space: the engine
+    returns its accelerations, rows and permutation in its cell-sorted
+    order, and the half-kicked velocity and the original-row tag follow
+    that permutation. ``route_extra=False``: by their own gathers;
+    ``True``: riding the engine's sort gather as ``extra`` (the closure
+    must take ``extra``). Same arithmetic per component as
+    ``verlet_step``; the two routes are bit-equal."""
+    return _sorted_step(s, sorted_force_fn, dt, route_extra)[0]
+
+
+def _frozen_step(r: SortedState, frozen, meta, dt, with_audit: bool = False):
     """One Verlet step on a frozen cell assignment: the rows stay in place
     (no permutation, no gather), with the sorted step's kick arithmetic.
     Returns ``(rows, n_stale)`` (None without the audit)."""
@@ -113,27 +151,32 @@ def _frozen_step(r: _Rows, frozen, meta, dt, with_audit: bool = False):
     psort = torch.cat([pos_d, r.mass[:, None]], dim=-1)
     out = frozen(psort, meta, with_audit=with_audit)
     acc, n_stale = out if with_audit else (out, None)
-    return _Rows(psort[:, :3], vel_h + (0.5 * dt) * acc, acc, r.mass, r.tag,
-                 r.time + dt), n_stale
+    return SortedState(psort[:, :3], vel_h + (0.5 * dt) * acc, acc, r.mass,
+                       r.to_orig, r.time + dt), n_stale
 
 
 def make_sorted_multi_step(sorted_force_fn: SortedForceFn, dt: float,
-                           n_steps: int):
-    """``n_steps`` Verlet steps in the force engine's cell-sorted row order.
+                           n_steps: int, route_extra: bool | None = None):
+    """``n_steps`` Verlet steps in the force engine's cell-sorted row order
+    (``sorted_verlet_step`` from ``sorted_state_from``).
 
     Each step the engine returns its accelerations, rows and permutation
     in sorted order; the half-kicked velocity and an int32 original-row
-    tag follow the permutation by gather, and the original order is
-    restored ONCE at readout with an index store (``out[tag] = rows``).
-    The same arithmetic as ``verlet_step`` per component. Returns
-    ``multi(state) -> state``, original row order in and out.
+    tag follow the permutation, and the original order is restored ONCE at
+    readout with an index store (``to_particle_state``). ``route_extra``
+    picks how they follow it (see ``sorted_verlet_step``); None defers to
+    the closure's own ``route_extra`` attribute (the engine factories set
+    False), defaulting to the separate gathers. Returns ``multi(state) ->
+    state``, original row order in and out.
     """
+    if route_extra is None:
+        route_extra = bool(getattr(sorted_force_fn, "route_extra", False))
 
     def multi(state: ParticleState) -> ParticleState:
-        r = _rows_from(state)
+        s = sorted_state_from(state)
         for _ in range(n_steps):
-            r, _ = _sorted_step(r, sorted_force_fn, dt)
-        return _state_from(r)
+            s = sorted_verlet_step(s, sorted_force_fn, dt, route_extra)
+        return to_particle_state(s)
 
     return multi
 
@@ -171,12 +214,12 @@ def make_resort_multi_step(sorted_force_fn: SortedForceFn, dt: float,
     with_meta, frozen = _frozen_contract(sorted_force_fn)
 
     def multi(state: ParticleState) -> ParticleState:
-        r = _rows_from(state)
+        r = sorted_state_from(state)
         for start in range(0, n_steps, resort_every):
             r, (meta,) = _sorted_step(r, with_meta, dt)
             for _ in range(min(resort_every, n_steps - start) - 1):
                 r, _ = _frozen_step(r, frozen, meta, dt)
-        return _state_from(r)
+        return to_particle_state(r)
 
     return multi
 
@@ -211,7 +254,7 @@ def make_adaptive_multi_step(sorted_force_fn: SortedForceFn, dt: float,
     def multi(state: ParticleState):
         n = state.n
         stale_cap = int(max_stale_frac * n)
-        r, (meta,) = _sorted_step(_rows_from(state), with_meta, dt)
+        r, (meta,) = _sorted_step(sorted_state_from(state), with_meta, dt)
         since, stale = 0, 0
         stales, resorted = [], []
         for _ in range(n_steps - 1):
@@ -225,7 +268,7 @@ def make_adaptive_multi_step(sorted_force_fn: SortedForceFn, dt: float,
                 since += 1
             stales.append(stale)
             resorted.append(resort)
-        out = _state_from(r)
+        out = to_particle_state(r)
         if not with_trace:
             return out
         dev = state.pos.device

@@ -1,12 +1,14 @@
 """Cell-sorted particle arrays and the sorted-window sweep engine.
 
 PyTorch counterpart of ``nbody_tpu/ops/sorted_window.py``: bin, stable
-argsort by linear cell id, one payload gather, the per-cell segment index
-and the per-row cell coordinates; and ``window_sweep``, the short-range
-engine shared by the spatial hash and the Barnes-Hut "window" near field
-(kernel K7, ``ops/window_sweep.py``). Cell ids stay int32 throughout (the
-JAX package's f32 id columns and bitcast routes exist for TPU reasons and
-are not ported).
+argsort by linear cell id, one payload gather (a caller's ``extra``
+columns ride it), the per-cell segment index and the per-row cell
+coordinates; and ``window_sweep``, the short-range engine shared by the
+spatial hash and the Barnes-Hut "window" near field (kernel K7,
+``ops/window_sweep.py``; a caller's ``pair_weight`` closure runs on its
+plain sweep). Cell ids stay int32 throughout (the JAX package's f32 id
+columns, bitcast routes and recomputed ids exist for TPU reasons and are
+not ported).
 
 The sweep: rows sorted by row-major cell id (x major, z fastest) make the
 sources of any contiguous z-run of cells contiguous, so a block of sorted
@@ -22,7 +24,10 @@ import dataclasses
 
 import torch
 
-from nbody_tpu_torch.ops.window_sweep import window_sweep_kernel
+from nbody_tpu_torch.ops.window_sweep import (
+    window_sweep_kernel,
+    window_sweep_plain,
+)
 
 
 @dataclasses.dataclass
@@ -34,17 +39,21 @@ class SortedGrid:
     psort:      (N, 4) x, y, z, mass in sorted order
     ids:        (N,) int32 linear cell ids in sorted order (non-decreasing)
     cell_start: (C + 1,) int32 first sorted index of each linear cell id
-                (empty cells point at the next occupied one; N at the end)
+                (empty cells point at the next occupied one; N at the end),
+                None when built with ``with_cell_start=False``
     csort:      (N, 3) int32 cell coordinates in sorted order, derived from
                 the ids with their own stride d (None when built with
                 ``with_csort=False``: only the window sweep reads them)
+    extra:      (N, E) the caller's payload rows in sorted order, carried
+                by the same gather as ``psort`` (None without ``extra``)
     """
 
     order: torch.Tensor
     psort: torch.Tensor
     ids: torch.Tensor
-    cell_start: torch.Tensor
+    cell_start: torch.Tensor | None
     csort: torch.Tensor | None = None
+    extra: torch.Tensor | None = None
 
 
 @dataclasses.dataclass
@@ -79,18 +88,33 @@ def cell_ids(coords: torch.Tensor, d: int) -> torch.Tensor:
 
 def build_sorted_grid(
     pos: torch.Tensor, mass: torch.Tensor, coords: torch.Tensor, d: int,
-    with_csort: bool = False,
+    with_csort: bool = False, with_cell_start: bool = True,
+    extra: torch.Tensor | None = None,
 ) -> SortedGrid:
-    """Stable sort by cell id and ONE (N, 4) payload gather. ``jnp.argsort``
-    is stable too, so ``order``, ids and ranks match the JAX package's
+    """Stable sort by cell id and ONE payload gather. ``jnp.argsort`` is
+    stable too, so ``order``, ids and ranks match the JAX package's
     ``build_sorted_grid`` exactly on the same ids. ``d`` is the ids'
     stride (the hash window engine bins into ``dims`` ≤ cap cells per axis
-    but strides its ids by the static cap)."""
+    but strides its ids by the static cap).
+
+    ``extra`` (N, E) rides the same gather as [pos | mass] (one (N, 4 + E)
+    row gather, split after it) and comes back as ``SortedGrid.extra``.
+    ``with_cell_start=False`` leaves the full (d³ + 1,) segment index
+    unbuilt (``cell_start`` None): the window sweep and kernel K2 read it,
+    so their engines keep the default."""
     ids = cell_ids(coords, d)
     order = torch.argsort(ids, stable=True)
-    psort = torch.cat([pos, mass[:, None]], dim=-1)[order]
+    parts = [pos, mass[:, None]]
+    if extra is not None:
+        parts.append(extra.to(pos.dtype))
+    payload = torch.cat(parts, dim=-1)[order]
+    psort = payload if extra is None else payload[:, :4].contiguous()
     ids_sorted = ids[order]
-    cells = torch.arange(d * d * d + 1, dtype=torch.int32, device=pos.device)
+    cell_start = None
+    if with_cell_start:
+        cells = torch.arange(d * d * d + 1, dtype=torch.int32,
+                             device=pos.device)
+        cell_start = cell_starts_at(ids_sorted, cells)
     csort = None
     if with_csort:
         cyx = ids_sorted // d
@@ -99,9 +123,31 @@ def build_sorted_grid(
         order=order,
         psort=psort,
         ids=ids_sorted,
-        cell_start=cell_starts_at(ids_sorted, cells),
+        cell_start=cell_start,
         csort=csort,
+        extra=None if extra is None else payload[:, 4:],
     )
+
+
+# The JAX package's bound for the full segment index of a caller that
+# indexes it per cell (the window engine): above 2¹⁹ cells it builds light.
+FULL_CELL_START_MAX_CELLS = 1 << 19
+
+
+def use_full_cell_start(num_cells: int) -> bool:
+    """Whether a grid of ``num_cells`` cells takes the full (d³ + 1,)
+    segment index, by the JAX package's rule (``num_cells ≤ 2¹⁹``)."""
+    return num_cells <= FULL_CELL_START_MAX_CELLS
+
+
+def sorted_outputs(acc, grid: SortedGrid, extra, *rest) -> tuple:
+    """The sorted-stepping contract's tuple: ``(acc_sorted, psort,
+    order)``, then ``extra_sorted`` when the caller passed ``extra``, then
+    ``rest`` (a frozen-grid meta)."""
+    out = (acc, grid.psort, grid.order)
+    if extra is not None:
+        out += (grid.extra,)
+    return out + rest
 
 
 def sorted_ranks(sorted_ids: torch.Tensor) -> torch.Tensor:
@@ -141,20 +187,40 @@ def xy_ball(ws: int):
 
 
 def window_sweep(grid: SortedGrid, *, d: int, xy_offsets, z_halfwidth: int,
-                 window: int, block_size: int, eps: float,
-                 cutoff2: float | None = None, sorted_output: bool = False):
-    """Σ_j m_j·(x_j − x_i)·(r² + ε²)^{-3/2} over the neighbour windows
-    (kernel K7), with the raw-r² cutoff when ``cutoff2`` is given.
+                 window: int = 1024, block_size: int = 256,
+                 eps: float | None = None, cutoff2: float | None = None,
+                 pair_weight=None, sorted_output: bool = False):
+    """Σ_j w(r², m_j)·(x_j − x_i) over the neighbour windows, with one of
+    two weights:
+
+      * ``eps`` (+ ``cutoff2``): softened gravity m_j·(r² + ε²)^{-3/2},
+        with the raw-r² cutoff when ``cutoff2`` is given (kernel K7 on
+        the card);
+      * ``pair_weight(r2_raw, m_j)``: a caller's closure on tensors of
+        pairs, evaluated by the plain sweep on every device (the JAX
+        package's "XLA only" form; the kernel hardcodes the gravity law).
+
+    Passing both, or neither, raises ``ValueError``, as in the JAX package.
+    Self and coincident pairs (r² = 0) are masked either way.
 
     Returns ``(acc (N, 3) un-scaled by G, overflow () int64)``, acc in
     ORIGINAL row order, or in the grid's CELL-SORTED order with
     ``sorted_output=True`` (the sorted-stepping contract). The grid needs
     ``csort`` (``build_sorted_grid(..., with_csort=True)``)."""
-    acc, overflow = window_sweep_kernel(
-        grid.psort, grid.csort, grid.cell_start, d=d, offsets=xy_offsets,
-        z_hw=z_halfwidth, window=window, block_size=block_size, eps=eps,
-        cutoff2=cutoff2,
-    )
+    if (eps is None) == (pair_weight is None):
+        raise ValueError(
+            "window_sweep: pass exactly one of eps= (gravity kernel) or "
+            "pair_weight= (custom closure, plain sweep only)")
+    kw = dict(d=d, offsets=xy_offsets, z_hw=z_halfwidth, window=window,
+              block_size=block_size)
+    if pair_weight is not None:
+        acc, overflow = window_sweep_plain(
+            grid.psort, grid.csort, grid.cell_start, eps=0.0,
+            pair_weight=pair_weight, **kw)
+    else:
+        acc, overflow = window_sweep_kernel(
+            grid.psort, grid.csort, grid.cell_start, eps=eps,
+            cutoff2=cutoff2, **kw)
     if sorted_output:
         return acc, overflow
     return unsort_rows(acc, grid.order), overflow

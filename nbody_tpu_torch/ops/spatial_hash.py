@@ -40,6 +40,7 @@ from nbody_tpu_torch.ops.sorted_window import (
     build_sorted_grid,
     cell_ids,
     cell_starts_at,
+    sorted_outputs,
     window_sweep,
     xy_ball,
 )
@@ -138,11 +139,12 @@ def verify_cell_assignment(pos, grid: GridData, cap: int) -> bool:
 
 
 def _window_forces(pos, mass, G, softening, *, cutoff, cell_size, cap,
-                   window, block_size, sorted_output):
+                   window, block_size, sorted_output, extra=None):
     dev = pos.device
     with profile_phase("hash.sort", device=dev):
         _lo, _dims, coords = hash_bin(pos, cell_size, cap)
-        grid = build_sorted_grid(pos, mass, coords, cap, with_csort=True)
+        grid = build_sorted_grid(pos, mass, coords, cap, with_csort=True,
+                                 extra=extra)
     with profile_phase("hash.window", device=dev):
         acc, overflow = window_sweep(
             grid, d=cap, xy_offsets=xy_ball(1), z_halfwidth=1, window=window,
@@ -166,22 +168,25 @@ def spatial_hash_forces(pos, mass, G: float = 1.0, softening: float = 0.1, *,
 
 def spatial_hash_forces_window_sorted(pos, mass, G=1.0, softening=0.1, *,
                                       cutoff=2.0, cell_size=1.0, cap=64,
-                                      window=2048, block_size=256):
+                                      window=2048, block_size=256,
+                                      extra=None):
     """The window engine in CELL-SORTED row order →
-    ``(acc_sorted, psort, order)`` (the sorted-stepping contract)."""
+    ``(acc_sorted, psort, order)`` (the sorted-stepping contract), with
+    ``extra_sorted`` appended when ``extra`` (N, E) rides the sort."""
     acc, _, grid = _window_forces(
         pos, mass, G, softening, cutoff=cutoff, cell_size=cell_size, cap=cap,
-        window=window, block_size=block_size, sorted_output=True)
-    return acc, grid.psort, grid.order
+        window=window, block_size=block_size, sorted_output=True,
+        extra=extra)
+    return sorted_outputs(acc, grid, extra)
 
 
 def _tiles_forces(pos, mass, G, softening, *, cutoff, cell_size, d, k,
-                  sorted_output, with_grid_meta=False):
+                  sorted_output, with_grid_meta=False, extra=None):
     if with_grid_meta:
         _require_frozen_contract(d, k)
     with profile_phase("hash.sort", device=pos.device):
         lo, coords = tiles_bin(pos, cell_size, d)
-        grid = build_sorted_grid(pos, mass, coords, d)
+        grid = build_sorted_grid(pos, mass, coords, d, extra=extra)
     cell = torch.full((), float(cell_size), dtype=pos.dtype,
                       device=pos.device)
     acc, tb = tile_near_field(
@@ -215,17 +220,18 @@ def spatial_hash_forces_tiles(pos, mass, G: float = 1.0,
 
 def spatial_hash_forces_tiles_sorted(pos, mass, G=1.0, softening=0.1, *,
                                      cutoff=2.0, cell_size=1.0, d=64, k=8,
-                                     with_grid_meta=False):
+                                     extra=None, with_grid_meta=False):
     """The tiles engine in CELL-SORTED row order →
-    ``(acc_sorted, psort, order)``; ``with_grid_meta=True`` appends the
-    ``FrozenGridMeta`` that ``spatial_hash_forces_tiles_frozen`` steps on
-    (raises where ``tile_engine_fused`` does not hold)."""
+    ``(acc_sorted, psort, order)``; ``extra`` (N, E) rides the engine's
+    own sort gather and ``extra_sorted`` is appended; ``with_grid_meta=True``
+    appends (last) the ``FrozenGridMeta`` that
+    ``spatial_hash_forces_tiles_frozen`` steps on (raises where
+    ``tile_engine_fused`` does not hold)."""
     acc, _, grid, meta = _tiles_forces(
         pos, mass, G, softening, cutoff=cutoff, cell_size=cell_size, d=d,
-        k=k, sorted_output=True, with_grid_meta=with_grid_meta)
-    if with_grid_meta:
-        return acc, grid.psort, grid.order, meta
-    return acc, grid.psort, grid.order
+        k=k, sorted_output=True, with_grid_meta=with_grid_meta, extra=extra)
+    rest = (meta,) if with_grid_meta else ()
+    return sorted_outputs(acc, grid, extra, *rest)
 
 
 def spatial_hash_forces_tiles_frozen(psort, meta: FrozenGridMeta, G=1.0,
@@ -343,10 +349,11 @@ def make_spatial_hash_forces(config: SimulationConfig, pos_hint=None):
 
 
 def make_spatial_hash_forces_sorted(config: SimulationConfig, pos_hint=None):
-    """``sorted_force_fn(pos, mass) -> (acc_sorted, psort, order)``; both
-    engines have the sorted contract. The tiles engine's closure carries
-    the frozen-grid contract (``with_meta``, ``frozen``) where
-    ``tile_engine_fused`` holds, as the JAX factory does."""
+    """``sorted_force_fn(pos, mass, extra=None) -> (acc_sorted, psort,
+    order[, extra_sorted])``; both engines have the sorted contract. The
+    tiles engine's closure carries the frozen-grid contract (``with_meta``,
+    ``frozen``) where ``tile_engine_fused`` holds, as the JAX factory
+    does."""
     G, eps = config.G, config.softening
     cutoff, cell = config.spatial_hash_cutoff, config.spatial_hash_cell_size
     cap = config.hash_max_grid_dim
@@ -355,8 +362,9 @@ def make_spatial_hash_forces_sorted(config: SimulationConfig, pos_hint=None):
         kw = dict(cutoff=cutoff, cell_size=cell, d=p["tile_d"],
                   k=p["tile_k"])
 
-        def sorted_force_fn(pos, mass):
-            return spatial_hash_forces_tiles_sorted(pos, mass, G, eps, **kw)
+        def sorted_force_fn(pos, mass, extra=None):
+            return spatial_hash_forces_tiles_sorted(pos, mass, G, eps,
+                                                    extra=extra, **kw)
 
         if tile_engine_fused(p["tile_d"], p["tile_k"]):
 
@@ -373,10 +381,14 @@ def make_spatial_hash_forces_sorted(config: SimulationConfig, pos_hint=None):
 
     else:
 
-        def sorted_force_fn(pos, mass):
+        def sorted_force_fn(pos, mass, extra=None):
             return spatial_hash_forces_window_sorted(
                 pos, mass, G, eps, cutoff=cutoff, cell_size=cell, cap=cap,
-                window=p["window"], block_size=p["block"])
+                window=p["window"], block_size=p["block"], extra=extra)
 
     sorted_force_fn.engine_params = p
+    # the integrator's payload takes its own gather by default, as the JAX
+    # factory sets it (``make_sorted_multi_step(route_extra=True)`` sends it
+    # through the engine's sort instead)
+    sorted_force_fn.route_extra = False
     return sorted_force_fn

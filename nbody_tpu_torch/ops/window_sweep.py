@@ -109,7 +109,8 @@ def block_rows(blocks, n: int, block_size: int):
 
 def window_sweep_plain(psort, csort, cell_start, *, d: int, offsets,
                        z_hw: int, window: int, block_size: int, eps: float,
-                       cutoff2: float | None = None, target_blocks=None):
+                       cutoff2: float | None = None, target_blocks=None,
+                       pair_weight=None):
     """Plain twin of kernel K7 → ``(acc (N, 3) sorted order, overflow)``.
 
     The same arithmetic in torch, vectorized over chunks of target blocks:
@@ -117,7 +118,9 @@ def window_sweep_plain(psort, csort, cell_start, *, d: int, offsets,
     ``[win_start, min(needed_end, win_start + window))`` (padded to the
     chunk's longest span and masked) and evaluates every (target, row)
     pair. ``target_blocks`` (1-D int tensor) computes only those blocks
-    and returns their rows in ``block_rows`` order."""
+    and returns their rows in ``block_rows`` order. ``pair_weight(r2,
+    m_j)``, when given, replaces the softened weight (``eps`` unused): the
+    custom-closure form of ``sorted_window.window_sweep``."""
     window_sweep_plain.calls += 1
     n = psort.shape[0]
     dev = psort.device
@@ -165,8 +168,11 @@ def window_sweep_plain(psort, csort, cell_start, *, d: int, offsets,
             dvec = sp[:, None, :, :3] - tp[:, :, None, :]      # (c, b, L, 3)
             dx_, dy_, dz_ = dvec.unbind(-1)
             r2 = dx_ * dx_ + dy_ * dy_ + dz_ * dz_  # the kernel's rounding
-            inv = torch.rsqrt(r2 + eps2)
-            w = sp[:, None, :, 3] * (inv * inv * inv)
+            if pair_weight is None:
+                inv = torch.rsqrt(r2 + eps2)
+                w = sp[:, None, :, 3] * (inv * inv * inv)
+            else:
+                w = pair_weight(r2, sp[:, None, :, 3])
             keep = match & (r2 > 0.0)
             if cutoff2 is not None:
                 keep = keep & (r2 <= cutoff2)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where a step's time goes on the card, for each 1M path of the PyTorch port.
 
-    python3 scripts/profile_torch_paths.py [--steps 10] [--out build/profile_torch_paths.json]
+    python3 scripts/profile_torch_paths.py [--steps 10]
+        [--out build/profile_torch_paths.json] [--paths LABEL ...]
 
 From the root of a checkout, on a machine with one CUDA card. For each path
 that ``chip_smoke.py`` drives — the facade paths of
@@ -9,9 +10,11 @@ that ``chip_smoke.py`` drives — the facade paths of
 sparse hash, 1M Barnes-Hut window engine, 100K direct, and the six
 frozen-grid paths: the re-sort cadence, the audited re-sort and repair on
 the sparse hash and Barnes-Hut tiles, each as the facade routes it), through
-``ParticleSystem.run_steps``, and the 1M Barnes-Hut monopole path
-(``chip_smoke.monopole_forces`` under ``make_sorted_multi_step``) — it
-takes a warm run of ``steps`` steps from the initial state, then:
+``ParticleSystem.run_steps``, the 1M Barnes-Hut monopole path
+(``chip_smoke.monopole_forces`` under ``make_sorted_multi_step``) and the
+4M flagship's two step paths (``scripts/flagship_4m_torch.py``'s scenes
+and configs under ``make_sorted_multi_step``; ``--paths`` picks labels) —
+it takes a warm run of ``steps`` steps from the initial state, then:
 
   * times ``steps`` steps from the initial state with no profiler (host
     clock around ``synchronize``) → ms/step;
@@ -34,6 +37,10 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+FLAGSHIP_BH = "4M BH tiles (flagship bh-4m)"
+FLAGSHIP_GALAXY = "4M galaxy collision (flagship galaxy-4m)"
 
 
 def busy_ms(trace_path: str) -> tuple[float, int, dict]:
@@ -60,6 +67,8 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--out", default="build/profile_torch_paths.json")
+    ap.add_argument("--paths", nargs="+", default=None,
+                    help="the labels to profile (default: all)")
     args = ap.parse_args()
 
     import torch
@@ -67,9 +76,15 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
-    from chip_smoke import MONOPOLE, monopole_forces, path_configs
+    from chip_smoke import (
+        MONOPOLE,
+        flagship_module,
+        monopole_forces,
+        path_configs,
+    )
     from nbody_tpu_torch import ParticleSystem
     from nbody_tpu_torch.models.distributions import init_from_config
+    from nbody_tpu_torch.ops.forces import make_sorted_force_fn
     from nbody_tpu_torch.ops.integrator import (
         initialize_forces,
         make_sorted_multi_step,
@@ -127,17 +142,42 @@ def main() -> None:
         for k, v in top:
             print(f"    {v / steps:8.4f} ms/step  {k[:90]}")
 
+    def wanted(label):
+        return args.paths is None or label in args.paths
+
     for label, cfg in paths.items():
+        if not wanted(label):
+            continue
         ps = ParticleSystem()
         ps.initialize(cfg)
         measure(label, lambda: ps.run_steps(steps), ps.reset)
+        del ps
 
-    bh = paths["1M BH tiles"]
-    force_fn, sorted_fn = monopole_forces(bh)
-    state0 = initialize_forces(init_from_config(bh, device="cuda"), force_fn)
-    multi = make_sorted_multi_step(sorted_fn, bh.dt, steps)
-    measure(MONOPOLE, lambda: multi(state0), lambda: None)
-    os.remove(trace)
+    if wanted(MONOPOLE):
+        bh = paths["1M BH tiles"]
+        force_fn, sorted_fn = monopole_forces(bh)
+        state0 = initialize_forces(init_from_config(bh, device="cuda"),
+                                   force_fn)
+        multi = make_sorted_multi_step(sorted_fn, bh.dt, steps)
+        measure(MONOPOLE, lambda: multi(state0), lambda: None)
+
+    # the 4M flagship's two step paths (scripts/flagship_4m_torch.py), its
+    # sorted stepping alone (no rendering)
+    F = flagship_module()
+    for label, config, scene in (
+            (FLAGSHIP_BH, F.bh_config(F.N), F.bh_scene),
+            (FLAGSHIP_GALAXY, F.galaxy_config(F.N), F.galaxy_scene)):
+        if not wanted(label):
+            continue
+        state = scene(F.N, torch.device("cuda"))
+        sf = make_sorted_force_fn(config, pos_hint=state.pos)
+        state0 = F.with_forces(state, sf)
+        multi = make_sorted_multi_step(sf, config.dt, steps)
+        measure(label, lambda: multi(state0), lambda: None)
+        del state, state0, sf, multi
+        torch.cuda.empty_cache()
+    if os.path.exists(trace):
+        os.remove(trace)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)
 

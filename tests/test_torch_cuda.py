@@ -377,7 +377,7 @@ def test_tile_near_kernel_small_eps(dev, eps):
     assert torch.equal(got, tile_sweep_plane(tiles, **kw))
 
 
-@pytest.mark.parametrize("k", [1, 8, 16, 64])
+@pytest.mark.parametrize("k", [1, 8, 16, 40, 64])
 def test_tile_near_plan_fits_the_kernel(dev, k):
     """K4's launch plan is one the kernel takes (bricks of 1-32 cells, at
     least one staged row and halo column a chunk, at most 200 KB of
@@ -393,6 +393,87 @@ def test_tile_near_plan_fits_the_kernel(dev, k):
             assert smem <= 200 * 1024, (d, ws, smem)
             if ws >= 1 and 128 // k * ws * ws <= min(32, d):
                 assert bz == 128 // k * ws * ws
+
+
+def _k40_scene(dev, d=32, ws=1):
+    """The 4M flagship's occupancy band at a smaller grid: a sphere of
+    15·d³ rows binned at d (occupancy 15 over the cube, ~29 inside the
+    sphere; ``bh_engine_params`` gives near_k 40), its K2 tiles and
+    moments at k 40, and K4's keyword arguments with a 19-channel far
+    plane from the pyramid."""
+    from nbody_tpu_torch.ops.barnes_hut import (
+        far_field_grid,
+        pyramid_from_packed,
+    )
+
+    k, levels = 40, d.bit_length() - 1
+    p, m = (t.to(dev) for t in _sphere(15 * d ** 3, 10.0, seed=40))
+    lo, cell, coords = bin_particles(p, levels)
+    g = build_sorted_grid(p, m, coords, d)
+    tk, mk = tile_scatter(g.psort, g.cell_start, lo, cell, d=d, k=k)
+    pyr = pyramid_from_packed(mk[:10].T.reshape(d, d, d, 10), lo, cell,
+                              levels)
+    far = torch.cat(far_field_grid(pyr, ws, 1.0, 0.1, levels), dim=-1)
+    far = far.reshape(d, d * d, 19).permute(0, 2, 1).contiguous()
+    kw = dict(k=k, d=d, ws=ws, eps=0.1, counts=mk[10], far_plane=far, lo=lo,
+              cell=cell)
+    return g, lo, cell, tk, kw
+
+
+def test_scatter_kernel_at_k40(dev):
+    """K2 at the flagship's k 40 (a 491520-row sphere at d 32): slots
+    (placed and filler) and counts bit-equal to the twin, moments within
+    1e-5·|x| + 1e-6·max|channel|, some cells past the cap, two calls
+    bit-equal."""
+    g, lo, cell, _, kw = _k40_scene(dev)
+    args = (g.psort, g.cell_start, lo, cell)
+    tk, mk = tile_scatter(*args, d=kw["d"], k=40)
+    tp, mp = tile_scatter_plain(*args, d=kw["d"], k=40)
+    assert torch.equal(tk, tp) and torch.equal(mk[10], mp[10])
+    assert float(mk[10].max()) > 40
+    tol = 1e-5 * mp.abs() + 1e-6 * mp.abs().amax(dim=1, keepdim=True)
+    assert bool(((mk - mp).abs() <= tol).all())
+    again = tile_scatter(*args, d=kw["d"], k=40)
+    assert torch.equal(again[0], tk) and torch.equal(again[1], mk)
+
+
+@pytest.mark.parametrize("ws", [1, 2])
+def test_tile_near_kernel_at_k40(dev, ws):
+    """K4 at the flagship's k 40 on real K2 tiles with the far seed, ws 1
+    (bricks of 128/40 = 3 cells) and 2 (12): vs plain atol
+    2e-5·max|out|, two calls bit-equal, and the plan as ``make_plan``
+    states it."""
+    _, _, _, tiles, kw = _k40_scene(dev, ws=ws)
+    assert _k4_plan(kw["d"], 40, ws)[0] == 128 // 40 * ws * ws
+    before = tile_sweep_plane.launches
+    got = tile_sweep_plane(tiles, **kw)
+    assert tile_sweep_plane.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    _close(got, tile_sweep_plane_plain(tiles, **kw), 2e-5)
+    assert torch.equal(got, tile_sweep_plane(tiles, **kw))
+
+
+def test_sorted_routes_bit_equal_on_card(dev):
+    """``sorted_verlet_step`` with the payload riding K2's sort
+    (``route_extra=True``) and with its own gathers, 3 steps of BH tiles
+    at k 40 on the card: bit-equal to each other and to
+    ``make_sorted_multi_step``."""
+    p, m = (t.to(dev) for t in _sphere(15 * 16 ** 3, 6.0, seed=41))
+    cfg = SimulationConfig(particle_count=p.shape[0], bh_max_level=4,
+                           force_method=ForceMethod.BARNES_HUT)
+    sf = make_barnes_hut_forces_sorted(cfg)
+    st = tint.initialize_forces(
+        ParticleState(pos=p, vel=torch.zeros_like(p), acc=torch.zeros_like(p),
+                      mass=m, time=torch.zeros((), device=dev)),
+        lambda q, w: barnes_hut_forces(q, w, levels=4, near_k=40))
+    a = b = tint.sorted_state_from(st)
+    for _ in range(3):
+        a = tint.sorted_verlet_step(a, sf, 1e-3)
+        b = tint.sorted_verlet_step(b, sf, 1e-3, route_extra=True)
+    for f in ("pos", "vel", "acc", "mass", "to_orig"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    multi = tint.make_sorted_multi_step(sf, 1e-3, 3, route_extra=True)(st)
+    assert torch.equal(multi.pos, tint.to_particle_state(a).pos)
 
 
 def test_barnes_hut_card_matches_cpu(dev):
@@ -1039,13 +1120,14 @@ def _near(a, b, rel):
 def _replay(sf, st, resorted, dt=1e-3):
     """The row-space steps on a given schedule (the first step and those
     flagged sort; the others frozen on the last sort's cells)."""
-    r, (meta,) = tint._sorted_step(tint._rows_from(st), sf.with_meta, dt)
+    r, (meta,) = tint._sorted_step(tint.sorted_state_from(st),
+                                   sf.with_meta, dt)
     for resort in resorted:
         if resort:
             r, (meta,) = tint._sorted_step(r, sf.with_meta, dt)
         else:
             r, _ = tint._frozen_step(r, sf.frozen, meta, dt)
-    return tint._state_from(r)
+    return tint.to_particle_state(r)
 
 
 def test_table_drivers_on_card_match_row_space(dev):

@@ -178,7 +178,8 @@ def _replay(sf, st, resorted):
     those flagged sort, the others are frozen on the last sort's cells.
     Returns (state, the pre-force stale count of each step after the
     first)."""
-    r, (meta,) = tint._sorted_step(tint._rows_from(st), sf.with_meta, DT)
+    r, (meta,) = tint._sorted_step(tint.sorted_state_from(st),
+                                   sf.with_meta, DT)
     counts = []
     for resort in resorted:
         pos_d = r.pos + r.vel * DT + (0.5 * DT * DT) * r.acc
@@ -188,7 +189,7 @@ def _replay(sf, st, resorted):
             r, (meta,) = tint._sorted_step(r, sf.with_meta, DT)
         else:
             r, _ = tint._frozen_step(r, sf.frozen, meta, DT)
-    return tint._state_from(r), counts
+    return tint.to_particle_state(r), counts
 
 
 def test_adaptive_resorts_exactly_on_stale_steps():
