@@ -246,6 +246,31 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
        f7. ``sorted_verlet_step`` with ``route_extra`` False and True for
            10 steps of 1M BH tiles and of the 1M sparse hash, both bit-
            equal to ``make_sorted_multi_step`` from the same state.
+ 11. one-program stepping (``graph_phase``): on the card the facade's
+     ``run_steps`` and ``update()`` replay one captured CUDA graph of the
+     step (``ops/step_graph.py``). For 1M BH tiles, 1M BH monopole (a
+     ``StepGraph`` of its sorted step: the facade never selects it), the
+     1M dense and sparse hash, 1M BH window and 100K direct, 10 steps of
+     the graphed function (its first call: an eager step, the capture,
+     replays; then a replay-only call) against the eager multi-step
+     function of the same force from one state, bit for bit (BH window,
+     whose pyramid sums with ``index_add_``'s float atomics, within the
+     spread of three eager runs); both timed in turns (median of 3); the
+     capture time and memory pool; the graph's kernel nodes equal to an
+     eager step's kernels plus the copy-back's. Then ``update()`` x10 on
+     1M BH tiles (bit-equal, ms an update: the render loop's step), the
+     cache (a second ``run_steps`` captures nothing; ``set_time_step`` and
+     ``set_softening`` each force one capture and equal a fresh eager run;
+     a state handed out earlier is unchanged), and bh-4m through the
+     graphed facade against its eager stepping (bit-equal, best of 3).
+
+Launch counts on graphed paths: a replay calls no wrapper, so the captured
+step adds the launches its capture recorded once per replay
+(``_build.COUNTED``) and the capture itself counts none; the counts and
+their expectations are the kernel launches that ran, as before. ``run_path``
+calls ``reset()`` between the warm and the timed run, which drops the
+graph: the timed run's first step is eager, then the capture (its time
+printed) and the replays.
 
 It stops at the first failed check with a non-zero exit. It needs one CUDA
 card and exits non-zero without one. The last two lines of its output are
@@ -309,8 +334,6 @@ def graph_kernels(fn) -> int:
     driver API. (torch.profiler loses kernel records in a long process:
     on the H100 machine its count of one 1M sort fell by one kernel every
     ~15 s of process time, padding the trace window or not.)"""
-    import ctypes
-
     import torch
 
     fn()
@@ -318,6 +341,16 @@ def graph_kernels(fn) -> int:
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         fn()
+    kernels = kernel_nodes(graph)
+    del graph
+    return kernels
+
+
+def kernel_nodes(graph) -> int:
+    """The kernel nodes of a captured ``torch.cuda.CUDAGraph`` made with
+    ``keep_graph=True``, counted through the driver API."""
+    import ctypes
+
     cu = ctypes.CDLL("libcuda.so.1")
     handle = ctypes.c_void_p(graph.raw_cuda_graph())
     count = ctypes.c_size_t(0)
@@ -333,7 +366,6 @@ def graph_kernels(fn) -> int:
                                     ctypes.byref(kind)) == 0,
               "cuGraphNodeGetType failed")
         kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
-    del graph
     return kernels
 
 
@@ -1572,6 +1604,11 @@ def run_path(label, cfg, steps, want, wrappers, plains, smi, dev,
     launches, _, phases = counted_run(
         label, steps, lambda: ps.run_steps(steps), want, wrappers, plains,
         smi)
+    for kind, g in ps.step_graphs.items():
+        # reset() dropped the warm run's graph: the timed run captured it
+        print(f"  {kind} step graph: captured inside the timed run in "
+              f"{g.capture_ms:.1f} ms (after its eager first step), then "
+              f"{g.replays} replays; pool {g.pool_bytes / 2**20:.1f} MiB")
     check_finite(label, ps.state)
     check(abs(ps.simulation_time - steps * cfg.dt) < 1e-6,
           f"{label}: simulation time did not advance")
@@ -3386,6 +3423,317 @@ def flagship_phase(res, cfgs, wrappers, plains, none, keep, smi, dev,
     return readings
 
 
+# Phase 11 (g): one-program stepping, the facade's captured step
+GRAPH_STEPS = 10
+GRAPH_TURNS = 3
+GRAPH_PATHS = ("1M BH tiles", MONOPOLE, "1M dense hash", "1M sparse hash",
+               "1M BH window", "100K direct")
+STATE_FIELDS = ("pos", "vel", "acc", "mass", "time")
+
+
+def wall_s(fn) -> float:
+    """Host seconds of ``fn()`` to a synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def state_diff(a, b) -> dict:
+    return {k: float((getattr(a, k) - getattr(b, k)).abs().max())
+            for k in STATE_FIELDS}
+
+
+def hold_to_eager(label, outs, eagers) -> dict:
+    """Each of ``outs`` against the eager runs ``eagers`` (≥ 2, from the
+    same state): bit for bit where the eager runs agree bit for bit;
+    where they differ, each out within their spread (its nearest eager
+    run no farther than the farthest two eager runs). Returns the
+    spread."""
+    import torch
+
+    spread = {k: 0.0 for k in STATE_FIELDS}
+    for i, a in enumerate(eagers):
+        for b in eagers[i + 1:]:
+            spread = {k: max(v, d) for (k, v), d in
+                      zip(spread.items(), state_diff(a, b).values())}
+    exact = all(torch.equal(getattr(e, k), getattr(eagers[0], k))
+                for e in eagers[1:] for k in STATE_FIELDS)
+    for what, out in outs:
+        check_finite(f"{label} {what}", out)
+        if exact:
+            same = [k for k in STATE_FIELDS
+                    if torch.equal(getattr(out, k), getattr(eagers[0], k))]
+            check(len(same) == len(STATE_FIELDS),
+                  f"{label}: the graph's {what} differs from the eager run "
+                  f"in {set(STATE_FIELDS) - set(same)}: "
+                  f"{state_diff(out, eagers[0])}")
+            continue
+        near = {k: min(state_diff(out, e)[k] for e in eagers)
+                for k in STATE_FIELDS}
+        check(all(near[k] <= spread[k] for k in STATE_FIELDS),
+              f"{label}: the graph's {what} is {near} from the nearest "
+              f"eager run, outside the eager runs' spread {spread}")
+    return spread
+
+
+def graph_path(label, graph, graphed, eager, step_kernels, state0, steps,
+               smi, eager_runs=2):
+    """One path: ``graphed`` (through the captured step ``graph``) and
+    ``eager`` (the multi-step function of the same force), ``steps``
+    steps each from ``state0``. The graph's first call (its eager step,
+    the capture, replays) and a replay-only call held to ``eager_runs``
+    eager runs (``hold_to_eager``); both timed in turns (host clock to a
+    synchronize, median of ``GRAPH_TURNS``); the graph's kernel nodes held
+    to one eager step's kernels (``step_kernels()``) plus the copy-back's.
+    Returns the readings."""
+    import torch
+
+    first = graphed(state0)
+    torch.cuda.synchronize()
+    check(graph.captures == 1 and graph.replays == steps - 1,
+          f"{label}: {graph.captures} captures, {graph.replays} replays "
+          f"after the first call of {steps} steps")
+    again = graphed(state0)
+    check(graph.captures == 1, f"{label}: a second call captured again")
+    eagers = [eager(state0) for _ in range(eager_runs)]
+    spread = hold_to_eager(label, [("first call", first),
+                                   ("replay-only call", again)], eagers)
+    del first, again, eagers
+    tg, te = [], []
+    for _ in range(GRAPH_TURNS):
+        tg.append(wall_s(lambda: graphed(state0)))
+        te.append(wall_s(lambda: eager(state0)))
+    nodes, per_step = kernel_nodes(graph.graph), step_kernels()
+    check(nodes == per_step + graph.copy_kernels,
+          f"{label}: the graph holds {nodes} kernels, one eager step "
+          f"queues {per_step} (+ {graph.copy_kernels} copy-back)")
+    rec = {
+        "steps/s graphed": steps / statistics.median(tg),
+        "steps/s eager": steps / statistics.median(te),
+        "capture ms": graph.capture_ms,
+        "pool MiB": graph.pool_bytes / 2**20,
+        "kernels a step": nodes,
+        "eager kernels a step": per_step,
+        "copy-back kernels": graph.copy_kernels,
+    }
+    held = ("bit for bit" if not any(spread.values()) else
+            f"within the eager runs' spread {spread} (two eager runs differ)")
+    print(f"g {label}: graphed {rec['steps/s graphed']:.3f} steps/s, eager "
+          f"{rec['steps/s eager']:.3f} steps/s ({steps} steps a run, median "
+          f"of {GRAPH_TURNS} in turns; {smi}); capture {graph.capture_ms:.1f}"
+          f" ms, pool {rec['pool MiB']:.1f} MiB; {nodes} kernels a step in "
+          f"the graph = {per_step} of an eager step + {graph.copy_kernels} "
+          f"copy-back; graph == eager {held}")
+    return rec
+
+
+def facade_graph_path(label, cfg, steps, smi, dev):
+    """``graph_path`` through a facade on ``cfg``: its ``run_steps``
+    function on the card and ``_multi_step(..., graphed=False)``. Returns
+    (readings, the system)."""
+    from nbody_tpu_torch import ParticleSystem
+    from nbody_tpu_torch.ops.integrator import sorted_state_from
+
+    ps = ParticleSystem()
+    ps.initialize(cfg, device=dev)
+    state0 = ps.state
+    kind = "plain" if ps._sorted_step is None else "sorted"
+    graphed = ps._multi_step(steps)
+    eager = ps._multi_step(steps, graphed=False)
+    graph = ps.step_graphs[kind]
+    if kind == "sorted":
+        s0, step = sorted_state_from(state0), ps._sorted_step
+    else:
+        s0, step = state0, ps._step
+    # BH window: build_pyramid's index_add_ sums with float atomics
+    runs = 3 if label == "1M BH window" else 2
+    rec = graph_path(label, graph, graphed, eager,
+                     lambda: graph_kernels(lambda: step(s0)), state0, steps,
+                     smi, runs)
+    rec["step"] = kind
+    return rec, ps
+
+
+def update_check(ps, smi) -> dict:
+    """``update()`` ×GRAPH_STEPS through the facade's plain-step graph
+    against the eager plain step from the same state, bit for bit, and
+    ms an update of each (median of GRAPH_TURNS runs in turns): the
+    render loop's step."""
+    import torch
+
+    from nbody_tpu_torch.ops.integrator import make_multi_step
+
+    n = GRAPH_STEPS
+    s0 = ps.state
+    eager = make_multi_step(ps._force_fn, ps.config.dt, n)
+    want = eager(s0)
+    for _ in range(n):
+        ps.update()
+    g = ps.step_graphs["plain"]
+    check((g.captures, g.replays) == (1, n - 1),
+          f"update: {g.captures} captures, {g.replays} replays")
+    for k in STATE_FIELDS:
+        check(torch.equal(getattr(ps.state, k), getattr(want, k)),
+              f"update x{n}: {k} differs from the eager step")
+
+    def updates():
+        for _ in range(n):
+            ps.update()
+
+    tg, te = [], []
+    for _ in range(GRAPH_TURNS):
+        tg.append(wall_s(updates))
+        te.append(wall_s(lambda: eager(s0)))
+    nodes, per_step = kernel_nodes(g.graph), graph_kernels(
+        lambda: ps._step(s0))
+    check(nodes == per_step + g.copy_kernels,
+          f"update: {nodes} graph kernels, {per_step} eager "
+          f"+ {g.copy_kernels}")
+    rec = {"ms an update graphed": statistics.median(tg) / n * 1e3,
+           "ms an update eager": statistics.median(te) / n * 1e3,
+           "capture ms": g.capture_ms, "kernels a step": nodes}
+    print(f"g update() x{n} on 1M BH tiles (the render loop's step): bit-"
+          f"equal to the eager plain step; {rec['ms an update graphed']:.3f}"
+          f" ms an update graphed, {rec['ms an update eager']:.3f} eager "
+          f"({smi}); capture {g.capture_ms:.1f} ms, {nodes} kernels a step "
+          f"= {per_step} + {g.copy_kernels} copy-back")
+    return rec
+
+
+def cache_checks(ps) -> None:
+    """On a graphed facade that has run: a second run_steps captures
+    nothing; set_time_step and set_softening each drop the graph and the
+    next run captures once and equals a fresh eager run at the new
+    parameter bit for bit; a state handed out earlier is unchanged after
+    all of it."""
+    import torch
+
+    g = ps.step_graphs["sorted"]
+    caps = g.captures
+    ps.run_steps(2)
+    check(ps.step_graphs["sorted"] is g and g.captures == caps,
+          "a second run_steps captured again")
+    held = ps.state
+    copy = {k: getattr(held, k).clone() for k in STATE_FIELDS}
+    for name, change in (("set_time_step(2e-3)",
+                          lambda: ps.set_time_step(2e-3)),
+                         ("set_softening(0.2)",
+                          lambda: ps.set_softening(0.2))):
+        change()
+        check(ps.step_graphs == {}, f"{name} kept the graph")
+        start = ps.state
+        want = ps._multi_step(3, graphed=False)(start)
+        ps.run_steps(3)
+        g = ps.step_graphs["sorted"]
+        check(g.captures == 1, f"after {name}: {g.captures} captures")
+        for k in STATE_FIELDS:
+            check(torch.equal(getattr(ps.state, k), getattr(want, k)),
+                  f"after {name}: {k} differs from a fresh eager run")
+    ps.update()
+    torch.cuda.synchronize()
+    for k in STATE_FIELDS:
+        check(torch.equal(getattr(held, k), copy[k]),
+              f"a held state's {k} changed under later calls")
+    print("g cache: a second run_steps captures nothing; set_time_step and "
+          "set_softening each drop the graph, one capture after each, equal "
+          "to a fresh eager run at the new parameter bit for bit; a state "
+          "handed out earlier unchanged after later run_steps and update()")
+
+
+def flagship_graph(F, smi, dev) -> dict:
+    """bh-4m (``F.bh_config`` at ``FLAGSHIP_N``, the facade's own scene)
+    through the graphed facade against the eager sorted step: one run
+    each held bit for bit, then the best of 3 runs of ``F.BH_STEPS`` steps
+    each, in turns."""
+    import torch
+
+    from nbody_tpu_torch import ParticleSystem
+
+    ps = ParticleSystem()
+    ps.initialize(F.bh_config(FLAGSHIP_N), device=dev)
+    state0 = ps.state
+    steps = F.BH_STEPS
+    graphed = ps._multi_step(steps)
+    eager = ps._multi_step(steps, graphed=False)
+    got, want = graphed(state0), eager(state0)
+    for k in STATE_FIELDS:
+        check(torch.equal(getattr(got, k), getattr(want, k)),
+              f"bh-4m: the graph's {k} differs from the eager run")
+    del got, want
+    g = ps.step_graphs["sorted"]
+    tg, te = [], []
+    for _ in range(3):
+        tg.append(wall_s(lambda: graphed(state0)))
+        te.append(wall_s(lambda: eager(state0)))
+    rec = {"steps/s graphed": steps / min(tg),
+           "steps/s eager": steps / min(te), "capture ms": g.capture_ms,
+           "pool MiB": g.pool_bytes / 2**20,
+           "kernels a step": kernel_nodes(g.graph)}
+    print(f"g bh-4m through the graphed facade: {rec['steps/s graphed']:.3f}"
+          f" steps/s graphed, {rec['steps/s eager']:.3f} eager (best of 3 "
+          f"runs of {steps} steps in turns; {smi}), bit-equal; capture "
+          f"{g.capture_ms:.1f} ms, pool {rec['pool MiB']:.1f} MiB, "
+          f"{rec['kernels a step']} kernels a step")
+    return rec
+
+
+def graph_phase(cfgs, scene, smi, dev) -> dict:
+    """Phase 11 (g): one-program stepping. The facade's captured step
+    against the eager multi-step functions of the same force on the 1M
+    paths and 100K direct (``graph_path``), the monopole path on a
+    ``StepGraph`` of its sorted step (the facade never selects it),
+    ``update()`` (``update_check``), the cache and aliasing checks
+    (``cache_checks``) and bh-4m (``flagship_graph``). Returns the
+    readings."""
+    import torch
+
+    from nbody_tpu_torch.ops.integrator import (
+        initialize_forces,
+        make_sorted_multi_step,
+        sorted_state_from,
+        sorted_verlet_step,
+        to_particle_state,
+    )
+    from nbody_tpu_torch.ops.step_graph import StepGraph
+
+    readings = {}
+    for label in GRAPH_PATHS:
+        if label == MONOPOLE:
+            cfg = cfgs["1M BH tiles"]
+            force_fn, sorted_fn = monopole_forces(cfg)
+            state0 = initialize_forces(scene, force_fn)
+
+            def step(s, sorted_fn=sorted_fn, dt=cfg.dt):
+                return sorted_verlet_step(s, sorted_fn, dt)
+
+            graph = StepGraph(step)
+            s0 = sorted_state_from(state0)
+            readings[label] = graph_path(
+                label, graph,
+                lambda st: to_particle_state(
+                    graph(sorted_state_from(st), GRAPH_STEPS)),
+                make_sorted_multi_step(sorted_fn, cfg.dt, GRAPH_STEPS),
+                lambda: graph_kernels(lambda: step(s0)), state0,
+                GRAPH_STEPS, smi)
+            del graph, state0, s0
+        else:
+            rec, ps = facade_graph_path(label, cfgs[label], GRAPH_STEPS,
+                                        smi, dev)
+            readings[label] = rec
+            if label == "1M BH tiles":
+                readings["update() x10, 1M BH tiles"] = update_check(ps, smi)
+                cache_checks(ps)
+            del ps
+        torch.cuda.empty_cache()
+    readings["bh-4m"] = flagship_graph(flagship_module(), smi, dev)
+    torch.cuda.empty_cache()
+    return readings
+
+
 def main() -> None:
     import torch
 
@@ -3593,6 +3941,10 @@ def main() -> None:
     readings = flagship_phase(res, cfgs, wrappers, plains, none, keep, smi,
                               dev, levels)
     print(f"flagship readings (steps/s): {json.dumps(readings)} ({smi})")
+
+    # Phase 11 (g): one-program stepping
+    readings = graph_phase(cfgs, scene, smi, dev)
+    print(f"graph readings: {json.dumps(readings)} ({smi})")
     print(f"launches by path: {by_path}")
 
     sources = {

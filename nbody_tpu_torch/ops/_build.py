@@ -118,6 +118,21 @@ QUERIES = {
     "nbt_render_scratch": ((_I, _I, _I), _I),
 }
 
+# Every kernel wrapper, registered by ``counted``. A wrapper adds one to
+# its ``launches`` where it launches its kernel; a replay of a captured
+# step (``ops/step_graph.py``) calls no wrapper, so the graph adds the
+# launches its capture recorded once per replay.
+COUNTED: list = []
+
+
+def counted(fn):
+    """Register the kernel wrapper ``fn``, its launch counter
+    ``fn.launches`` set to 0 (a decorator)."""
+    fn.launches = 0
+    COUNTED.append(fn)
+    return fn
+
+
 _lock = threading.Lock()
 _lib = None
 last_build = {"seconds": 0.0, "path": None, "built": False, "log": ""}

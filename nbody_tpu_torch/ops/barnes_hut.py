@@ -135,8 +135,7 @@ def pyramid_from_packed(packed, lo, cell, levels: int,
         m_c = masses[-1].reshape(dm, 2, dm, 2, dm, 2)
         masses.append(m_c.sum(dim=(1, 3, 5)))
         e = cell * (1 << lvl) * 0.5
-        par = torch.tensor([-0.5, 0.5], dtype=dtype, device=packed.device)
-        par = par * 2.0 * e
+        par = _child_offsets(packed.device, dtype) * 2.0 * e
         dx = par.reshape(1, 2, 1, 1, 1, 1)
         dy = par.reshape(1, 1, 1, 2, 1, 1)
         dz = par.reshape(1, 1, 1, 1, 1, 2)
@@ -277,6 +276,40 @@ def _tap_table():
 
 _TAP_IDX, _TAP_COEF = _tap_table()
 
+# The tables below are made on the device once per key and reused: the
+# step runs no host-to-device copy, which a captured CUDA graph cannot
+# hold (``ops/step_graph.py``).
+
+
+@functools.lru_cache(maxsize=None)
+def _child_offsets(dev: torch.device, dt: torch.dtype) -> torch.Tensor:
+    """[−½, ½]: the children's centres along an axis, in parent edges."""
+    return torch.tensor([-0.5, 0.5], dtype=dt, device=dev)
+
+
+@functools.lru_cache(maxsize=None)
+def _bank_tables(dev: torch.device, dt: torch.dtype):
+    """``_TAP_IDX`` flattened and ``_TAP_COEF`` on ``dev``."""
+    return (torch.as_tensor(_TAP_IDX.reshape(-1), device=dev),
+            torch.as_tensor(_TAP_COEF, dtype=dt, device=dev))
+
+
+@functools.lru_cache(maxsize=None)
+def _tap_geometry(ws: int, levels: int, dev: torch.device, dt: torch.dtype):
+    """The tap matrices' static inputs on ``dev``: each (offset, target
+    child, source child) displacement in cells of its level (T·64, 3), its
+    accept mask (T·64,), and the cell edge of level ℓ over the finest one,
+    2^(levels − ℓ), at index ℓ (levels + 1,)."""
+    po, accept = _window_offsets_and_masks(ws)
+    delta_int = (
+        2 * po[:, None, None, :] + _KIDS[None, None, :, :]
+        - _KIDS[None, :, None, :]
+    ).reshape(-1, 3)
+    scale = [float(1 << (levels - lvl)) for lvl in range(levels + 1)]
+    return (torch.as_tensor(delta_int, dtype=dt, device=dev),
+            torch.as_tensor(accept.reshape(-1), dtype=dt, device=dev),
+            torch.tensor(scale, dtype=dt, device=dev))
+
 
 def _conv_taps_kernel(dvec: torch.Tensor, eps: float) -> torch.Tensor:
     """Per-tap multipole-to-local translation matrices.
@@ -336,9 +369,8 @@ def _conv_taps_kernel(dvec: torch.Tensor, eps: float) -> torch.Tensor:
          torch.zeros((n, 1), dtype=dt, device=dev)],
         dim=1,
     )  # (n, 121)
-    idx = torch.as_tensor(_TAP_IDX, device=dev)
-    coef = torch.as_tensor(_TAP_COEF, dtype=dt, device=dev)
-    out = bank[:, idx.reshape(-1)].reshape(n, 19, 10) * coef
+    idx, coef = _bank_tables(dev, dt)
+    out = bank[:, idx].reshape(n, 19, 10) * coef
     return out.reshape(lead + (19, 10))
 
 
@@ -347,20 +379,17 @@ def level_tap_matrices(cell, ws: int, eps: float, levels: int,
     """Tap matrices (len(lvls), T, 8·19, 8·10) of the listed levels
     (default 1..levels), telescoping acceptance folded in. Rebuilt every
     force evaluation, because ``cell`` follows the particles."""
-    lvls = list(range(1, levels + 1)) if lvls is None else list(lvls)
-    po, accept = _window_offsets_and_masks(ws)
-    t = po.shape[0]
-    delta_int = (
-        2 * po[:, None, None, :] + _KIDS[None, None, :, :]
-        - _KIDS[None, :, None, :]
-    ).reshape(t * 64, 3)
     dev, dt = cell.device, cell.dtype
-    scale = torch.tensor([float(1 << (levels - lvl)) for lvl in lvls],
-                         dtype=dt, device=dev)
+    delta_int, mask, scales = _tap_geometry(ws, levels, dev, dt)
+    if lvls is None:
+        lvls, scale = list(range(1, levels + 1)), scales[1:]
+    else:
+        lvls = list(lvls)
+        scale = torch.stack([scales[lvl] for lvl in lvls])
+    t = mask.shape[0] // 64
     s_l = (cell.reshape(()) * scale).reshape(-1, 1, 1)
-    dvec = torch.as_tensor(delta_int, dtype=dt, device=dev) * s_l
+    dvec = delta_int * s_l
     k = _conv_taps_kernel(dvec, eps)                     # (L, T·64, 19, 10)
-    mask = torch.as_tensor(accept.reshape(t * 64), dtype=dt, device=dev)
     k = k * mask[:, None, None]
     return (
         k.reshape(len(lvls), t, 8, 8, 19, 10)

@@ -80,6 +80,7 @@ def _source_range(index: int, nt: int, n: int) -> int:
     return rows
 
 
+@_build.counted
 def direct_forces_kernel(pos, mass, G=1.0, softening=0.1, *, targets=None):
     """Kernel K1 (``csrc/direct.cu``): all-pairs forces, four targets a
     thread against shared-memory source tiles, the source axis split over
@@ -110,9 +111,6 @@ def direct_forces_kernel(pos, mass, G=1.0, softening=0.1, *, targets=None):
     )
     direct_forces_kernel.launches += 1
     return acc
-
-
-direct_forces_kernel.launches = 0
 
 
 # Pair terms one row block of the plain potential evaluates at once (2048
@@ -227,6 +225,7 @@ def _pe_launch(name, pos, mass, src, softening) -> torch.Tensor:
     return partial.sum()
 
 
+@_build.counted
 def pairwise_potential(pos, mass, G=1.0, softening=0.1):
     """Kernel K5 (``csrc/pair_potential.cu``): the all-pairs potential,
     each unordered pair once over the upper triangle of 256-row tile pairs
@@ -248,9 +247,7 @@ def pairwise_potential(pos, mass, G=1.0, softening=0.1):
     return (-G * total).to(torch.float32)
 
 
-pairwise_potential.launches = 0
-
-
+@_build.counted
 def pairwise_potential_cross(pos, mass, src_pos, src_mass, G=1.0,
                              softening=0.1):
     """Kernel K5's cross form (``csrc/pair_potential.cu``,
@@ -276,6 +273,3 @@ def pairwise_potential_cross(pos, mass, src_pos, src_mass, G=1.0,
                        (src_pos, src_mass), softening)
     pairwise_potential_cross.launches += 1
     return (-0.5 * G * total).to(torch.float32)
-
-
-pairwise_potential_cross.launches = 0

@@ -48,6 +48,7 @@ def far_taps_plain(mom, tap_mat, *, p: int, ws: int):
 far_taps_plain.calls = 0
 
 
+@_build.counted
 def far_taps(mom, tap_mat, *, p: int, ws: int):
     """Kernel K3 (``csrc/far_taps.cu``): bricks of parent cells against
     a range of the 152 outputs per block, (tap, 40-channel) stages of
@@ -73,6 +74,3 @@ def far_taps(mom, tap_mat, *, p: int, ws: int):
     )
     far_taps.launches += 1
     return out
-
-
-far_taps.launches = 0

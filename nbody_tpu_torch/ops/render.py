@@ -254,6 +254,7 @@ def tile_counts(px, py, size, *, width: int, height: int) -> torch.Tensor:
     return counts.reshape(ty_n, tx_n)
 
 
+@_build.counted
 def render_points(pos, vel, camera, *, width: int, height: int,
                   point_size: float, mode: ColorMode, uint8: bool = False,
                   sprites: bool = False) -> Rendered:
@@ -346,4 +347,3 @@ def _scratch(chunks: int, n_tiles: int, field: int) -> int:
 
 
 _scratch.cache = {}
-render_points.launches = 0

@@ -126,6 +126,7 @@ def _table_form(with_coverage: bool, extra, n: int) -> bool:
     return True
 
 
+@_build.counted
 def tile_scatter(psort, cell_start, lo, cell, *, d: int, k: int,
                  with_coverage: bool = False, extra=None):
     """Kernel K2's rank form (``csrc/scatter.cu``: a block per z-row of d
@@ -180,9 +181,6 @@ def tile_scatter(psort, cell_start, lo, cell, *, d: int, k: int,
     return tiles, moments, cov, ext
 
 
-tile_scatter.launches = 0
-
-
 def k2_plan() -> dict:
     """The rank form's plan, from the kernel library (``csrc/scatter.cu``
     defines it; needs the CUDA build): the rows staged at a time
@@ -232,6 +230,7 @@ def tile_place_plain(tiles, cov, ext, live, slot_row, idx_ext, src, dest,
 tile_place_plain.calls = 0
 
 
+@_build.counted
 def tile_place(tiles, cov, ext, live, slot_row, idx_ext, src, dest, lo,
                cell, *, d: int, k: int) -> None:
     """Kernel K2's dest form (``csrc/scatter.cu``: a thread per mover, then
@@ -283,8 +282,6 @@ def tile_place(tiles, cov, ext, live, slot_row, idx_ext, src, dest, lo,
     tile_place.launches += 1
 
 
-tile_place.launches = 0
-
 # Destination ids at or above this are sentinel rows: they may interleave
 # with the sorted real ids and add nothing (``monotone_segment_sum``).
 SENTINEL_DEST = 1 << 24
@@ -304,6 +301,7 @@ def segment_sum_plain(vals, dest, num_dest: int):
 segment_sum_plain.calls = 0
 
 
+@_build.counted
 def segment_sum(vals, dest, num_dest: int):
     """Kernel K6 (``csrc/segment_sum.cu``: chunks of rows reduced in
     parallel, the partial sums of runs that cross chunks
@@ -334,6 +332,3 @@ def segment_sum(vals, dest, num_dest: int):
                   dest.data_ptr(), num_dest, buf.data_ptr(), buf.numel())
     segment_sum.launches += 1
     return buf.as_strided((c, num_dest), (num_dest, 1))
-
-
-segment_sum.launches = 0

@@ -107,6 +107,7 @@ def bitonic_sort_pairs_plain(keys, vals):
 bitonic_sort_pairs_plain.calls = 0
 
 
+@_build.counted
 def bitonic_sort_pairs(keys, vals):
     """Kernel K8 (``csrc/bitonic_sort.cu``): sort int32 ``(keys, vals)``
     (N,) by key → ``(keys_sorted, vals_sorted)``. CPU tensors take the
@@ -132,9 +133,6 @@ def bitonic_sort_pairs(keys, vals):
                   out_k.data_ptr(), out_v.data_ptr())
     bitonic_sort_pairs.launches += 1
     return out_k, out_v
-
-
-bitonic_sort_pairs.launches = 0
 
 
 def bitonic_argsort(keys):

@@ -300,6 +300,7 @@ def table_drift_plain(pos_t, vel_t, acc_t, cov_t, lo, cell, dt,
 table_drift_plain.calls = 0
 
 
+@_build.counted
 def table_drift(pos_t, vel_t, acc_t, cov_t, lo, cell, dt, p: TableParams,
                 audit: bool = False):
     """Position drift and first half-kick of a table, one pass
@@ -345,9 +346,6 @@ def table_drift(pos_t, vel_t, acc_t, cov_t, lo, cell, dt, p: TableParams,
     return pos_d_t, vel_h, mover, n_stale
 
 
-table_drift.launches = 0
-
-
 def table_kick_plain(raw, cov_t, vel_h, G: float, dt):
     """Plain twin of ``table_kick``, in place too."""
     table_kick_plain.calls += 1
@@ -358,6 +356,7 @@ def table_kick_plain(raw, cov_t, vel_h, G: float, dt):
 table_kick_plain.calls = 0
 
 
+@_build.counted
 def table_kick(raw, cov_t, vel_h, G: float, dt):
     """Second half-kick of a table, one pass (``csrc/table_step.cu``), in
     place: ``raw`` (d, 3, k, d²), the sweep's unscaled output, becomes
@@ -376,9 +375,6 @@ def table_kick(raw, cov_t, vel_h, G: float, dt):
                   vel_h.data_ptr(), G, 0.5 * dt, d, k)
     table_kick.launches += 1
     return raw, vel_h
-
-
-table_kick.launches = 0
 
 
 def _drift(ts: TableState, dt, p: TableParams, audit: bool = False):

@@ -131,6 +131,7 @@ def tile_sweep_plane_plain(tiles_plane, *, k: int, d: int, ws: int,
 tile_sweep_plane_plain.calls = 0
 
 
+@_build.counted
 def tile_sweep_plane(tiles_plane, *, k: int, d: int, ws: int, eps: float,
                      cutoff2: float | None = None, far_plane=None, lo=None,
                      cell=None, counts=None):
@@ -174,9 +175,7 @@ def tile_sweep_plane(tiles_plane, *, k: int, d: int, ws: int, eps: float,
     return out
 
 
-tile_sweep_plane.launches = 0
-
-
+@_build.counted
 def tile_sweep_slab(tiles, counts, *, k: int, d: int, ws: int, eps: float,
                     x0: int, planes: int, cutoff2: float | None = None):
     """Kernel K4's slab form (``csrc/tile_near.cu``, ``nbt_tile_near_slab``):
@@ -208,6 +207,3 @@ def tile_sweep_slab(tiles, counts, *, k: int, d: int, ws: int, eps: float,
     )
     tile_sweep_slab.launches += 1
     return out
-
-
-tile_sweep_slab.launches = 0

@@ -200,6 +200,7 @@ def _offsets_on(offsets, dev) -> torch.Tensor:
     return t
 
 
+@_build.counted
 def window_sweep_kernel(psort, csort, cell_start, *, d: int, offsets,
                         z_hw: int, window: int, block_size: int, eps: float,
                         cutoff2: float | None = None):
@@ -239,6 +240,3 @@ def window_sweep_kernel(psort, csort, cell_start, *, d: int, offsets,
     )
     window_sweep_kernel.launches += 1
     return acc, overflow
-
-
-window_sweep_kernel.launches = 0

@@ -14,6 +14,18 @@ on the card); ``audit_short_range`` for the short-range engines' capacity
 audits; ``diagnostics``. Every tensor lives on the device given to
 ``initialize``: the CUDA card unless the caller passes ``device="cpu"``.
 
+On the card ``update()`` and ``run_steps`` are one device program, as the
+JAX facade's jitted step and fused n-step program are: ONE Verlet step
+captured as a CUDA graph and replayed once a step (``ops/step_graph.py``),
+the plain step for ``update()`` and for engines without the sorted
+contract, the cell-sorted step (``sorted_verlet_step`` on a
+``SortedState``) for ``run_steps`` on the others. A strategy's graph is
+captured on its first call and kept for every n; it is dropped whenever
+what it closes over changes: a live setter, ``reset``, ``set_time_step``,
+``set_state`` and ``load_state``. The frozen-grid drivers, the table
+drivers and the sharded mesh step eagerly (see ``_multi_step``); so does
+every path on the CPU.
+
 With ``shard_devices`` P > 1 the state is padded with zero-mass rows to a
 multiple of P and sharded over a mesh of P positions
 (``parallel/``): P virtual shards of the CPU with ``device="cpu"``, else
@@ -63,7 +75,11 @@ from nbody_tpu_torch.ops.integrator import (
     make_resort_multi_step,
     make_sorted_multi_step,
     make_verlet_step,
+    sorted_state_from,
+    sorted_verlet_step,
+    to_particle_state,
 )
+from nbody_tpu_torch.ops.step_graph import StepGraph
 from nbody_tpu_torch.ops.table_step import (
     make_table_adaptive_multi_step,
     make_table_multi_step,
@@ -146,6 +162,9 @@ class ParticleSystem:
         self._sorted_force = None
         self._table_params = None
         self._step = None
+        self._sorted_step = None
+        # the captured steps on the card, by kind ("plain", "sorted")
+        self._graphs: dict = {}
         self._paused = False
         self._initialized = False
         # shard_devices > 1: the mesh, and the logical particle count (the
@@ -203,6 +222,7 @@ class ParticleSystem:
         ``pos`` feeds the hash's ``hash_engine="auto"`` choice, so a live
         setter re-resolves it from the current state."""
         cfg = self._config
+        self._graphs = {}
         # The hash's engine choice reads positions on the host: here,
         # never inside a timed run_steps.
         hint = None
@@ -212,7 +232,7 @@ class ParticleSystem:
             self._force_fn = make_sharded_force_fn(cfg, self._mesh,
                                                    pos_hint=hint)
             self._sorted_force = self._table_params = None
-            self._step = self._make_step(cfg.dt)
+            self._step, self._sorted_step = self._make_steps(cfg.dt)
             return
         self._force_fn = make_force_fn(cfg, pos_hint=hint)
         self._sorted_force = make_sorted_force_fn(cfg, pos_hint=hint)
@@ -223,14 +243,47 @@ class ParticleSystem:
                                         pos_hint=hint)
             if tp is not None and (tp.mode, knob) in TABLE_ROUTES:
                 self._table_params = tp
-        self._step = self._make_step(cfg.dt)
+        self._step, self._sorted_step = self._make_steps(cfg.dt)
 
-    def _make_step(self, dt: float):
-        """One Verlet step with the current force, sharded or not."""
-        if self._mesh is None:
-            return make_verlet_step(self._force_fn, dt)
-        force_fn = self._force_fn
-        return lambda state: sharded_verlet_step(state, force_fn, dt)
+    def _make_steps(self, dt: float):
+        """One Verlet step with the current force (sharded or not), and
+        one cell-sorted step on a ``SortedState`` where the force has the
+        sorted contract (else None): the steps the card's graphs capture.
+        The payload takes the route the engine's closure names, as in
+        ``make_sorted_multi_step``."""
+        force_fn, sf = self._force_fn, self._sorted_force
+        if self._mesh is not None:
+            return (lambda state: sharded_verlet_step(state, force_fn, dt),
+                    None)
+        sorted_step = None
+        if sf is not None:
+            route = bool(getattr(sf, "route_extra", False))
+
+            def sorted_step(s):
+                return sorted_verlet_step(s, sf, dt, route)
+
+        return make_verlet_step(force_fn, dt), sorted_step
+
+    def _graph(self, kind: str) -> StepGraph:
+        """The card's captured step of ``kind`` ("plain" or "sorted"),
+        made on first use (captured on its first call)."""
+        g = self._graphs.get(kind)
+        if g is None:
+            g = StepGraph(self._step if kind == "plain" else
+                          self._sorted_step)
+            self._graphs[kind] = g
+        return g
+
+    @property
+    def step_graphs(self) -> dict:
+        """The captured steps made so far for the current strategy and dt,
+        by kind ("plain": ``update()`` and plain ``run_steps``; "sorted":
+        cell-sorted ``run_steps``), each an ``ops.step_graph.StepGraph``
+        (captured once its first call has run). Empty off the card."""
+        return dict(self._graphs)
+
+    def _graphed(self) -> bool:
+        return self._device.type == "cuda" and self._mesh is None
 
     def _initialize_forces(self) -> None:
         """a(t) of the current state with the current strategy."""
@@ -254,7 +307,10 @@ class ParticleSystem:
         with profile_phase("simulation.update", device=self._device):
             if dt is not None and dt != self._config.dt:
                 self.set_time_step(dt)
-            self._state = self._step(self._state)
+            if self._graphed():
+                self._state = self._graph("plain")(self._state, 1)
+            else:
+                self._state = self._step(self._state)
 
     def run_steps(self, n_steps: int) -> None:
         """``n_steps`` Verlet steps — cell-sorted stepping when the force
@@ -266,8 +322,9 @@ class ParticleSystem:
         with profile_phase("simulation.run_steps", device=self._device):
             self._state = self._multi_step(n_steps)(self._state)
 
-    def _multi_step(self, n_steps: int):
-        """The JAX facade's choice. Where table-resident stepping applies
+    def _multi_step(self, n_steps: int, graphed: Optional[bool] = None):
+        """``multi(state) -> state``, the JAX facade's choice. Where
+        table-resident stepping applies
         (``make_table_step_params``: the card, the fused tiles engines,
         N < 2²⁴) and the engine and knob are in ``TABLE_ROUTES``:
         ``resort_repair`` takes the repair driver (cadence cap
@@ -278,7 +335,16 @@ class ParticleSystem:
         with the engine's frozen-grid contract and N < 2²⁴, the audited
         re-sort when ``resort_stale_frac > 0`` (the same caps), else the
         fixed cadence when ``resort_every > 1``; else a sort every step
-        (``resort_repair`` alone included)."""
+        (``resort_repair`` alone included).
+
+        On the card (``graphed`` None or True) the plain steps and the
+        sort every step replay the strategy's captured step
+        (``StepGraph``: n replays, the first call's first step eager and
+        the capture after it); ``graphed=False`` gives the eager
+        multi-step function of the same force, the reference the graph is
+        held to. The frozen-grid drivers (the fixed cadence, the audited
+        re-sort and repair, in row space or table-resident) and the
+        sharded mesh step eagerly: their graphs are still to come."""
         cfg, sf, tp = self._config, self._sorted_force, self._table_params
         if self._mesh is not None:
             return sharded_multi_step(self._force_fn, cfg.dt, n_steps)
@@ -293,7 +359,12 @@ class ParticleSystem:
                     tp, cfg.dt, n_steps, max_stale_frac=cfg.resort_stale_frac,
                     max_cadence=cadence if cadence > 1 else 16)
             return make_table_multi_step(tp, cfg.dt, n_steps, cadence)
+        if graphed is None:
+            graphed = self._graphed()
         if sf is None:
+            if graphed:
+                g = self._graph("plain")
+                return lambda state: g(state, n_steps)
             return make_multi_step(self._force_fn, cfg.dt, n_steps)
         frozen = hasattr(sf, "frozen") and self._state.n < (1 << 24)
         if frozen and cfg.resort_stale_frac > 0.0:
@@ -302,6 +373,10 @@ class ParticleSystem:
                 max_cadence=cadence if cadence > 1 else 16)
         if frozen and cadence > 1:
             return make_resort_multi_step(sf, cfg.dt, n_steps, cadence)
+        if graphed:
+            g = self._graph("sorted")
+            return lambda state: to_particle_state(
+                g(sorted_state_from(state), n_steps))
         return make_sorted_multi_step(sf, cfg.dt, n_steps)
 
     def pause(self) -> None:
@@ -335,12 +410,14 @@ class ParticleSystem:
 
     def set_time_step(self, dt: float) -> None:
         """The multi-step drivers read ``dt`` from the config on every
-        ``run_steps``, so only the single step is rebuilt."""
+        ``run_steps``, so only the single steps are rebuilt, and the
+        captured ones dropped (dt is a launch argument)."""
         self._require_init()
         cfg = self._config.replace(dt=float(dt))
         validate_config(cfg)
         self._config = cfg
-        self._step = self._make_step(cfg.dt)
+        self._step, self._sorted_step = self._make_steps(cfg.dt)
+        self._graphs = {}
 
     def _set_param(self, **kw) -> None:
         """Rebuild the strategy for the new parameters. a(t) is kept, as

@@ -12,6 +12,19 @@ the current stream, so it measures device time without synchronizing the
 step; the pairs are resolved (waiting for their end events) when the
 profiler is drained, or once more than ``MAX_PENDING`` are outstanding. On
 the CPU it uses the host clock.
+
+While the current CUDA stream is capturing a graph, a CUDA phase records
+nothing: an event recorded during a capture is not recorded again when
+the graph is replayed, so its time would be stale or unreadable. On the
+card the facade steps by replaying one captured step
+(``ops/step_graph.py``), so the inner phases of a step (``bh.far``,
+``bh.sweep``, ``hash.window``, ``near.*``, ...) are timed only where a
+step runs eagerly: the multi-step functions of ``ops/integrator.py``
+called directly, as ``chip_smoke.py`` and
+``scripts/profile_torch_paths.py`` do. A CLI record's ``phase_timings``
+on the card hold the facade's phases, ``simulation.run_steps`` and
+``simulation.update``, which wrap the replays: the JAX package's only
+step phases.
 """
 
 from __future__ import annotations
@@ -115,13 +128,17 @@ def profile_phase(name: str, device: torch.device | str | None = None,
     current stream when ``device`` is a CUDA device, else with the host
     clock. One yield on every path: an exception from the block propagates
     unchanged, and the partial phase is not recorded. A no-op while
-    profiling is disabled."""
+    profiling is disabled, and on a CUDA device while the current stream
+    is capturing a graph."""
     if not _ENABLED:
         yield
         return
     prof = profiler or _GLOBAL
     device = torch.device(device) if device is not None else None
     if device is not None and device.type == "cuda":
+        if torch.cuda.is_current_stream_capturing():
+            yield
+            return
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record(torch.cuda.current_stream(device))

@@ -10,10 +10,16 @@ that ``chip_smoke.py`` drives — the facade paths of
 sparse hash, 1M Barnes-Hut window engine, 100K direct, and the six
 frozen-grid paths: the re-sort cadence, the audited re-sort and repair on
 the sparse hash and Barnes-Hut tiles, each as the facade routes it), through
-``ParticleSystem.run_steps``, the 1M Barnes-Hut monopole path
+the facade's eager multi-step function (``ParticleSystem._multi_step(...,
+graphed=False)``, what ``run_steps`` ran before it replayed a captured
+step) and, on the paths whose ``run_steps`` replays one captured step
+(``ops/step_graph.py``), through that function as well (label
+"... (graphed)"), the 1M Barnes-Hut monopole path
 (``chip_smoke.monopole_forces`` under ``make_sorted_multi_step``) and the
 4M flagship's two step paths (``scripts/flagship_4m_torch.py``'s scenes
-and configs under ``make_sorted_multi_step``; ``--paths`` picks labels) —
+and configs under ``make_sorted_multi_step``, and each of these three on a
+``StepGraph`` of its sorted step as well, "... (graphed)"; ``--paths``
+picks labels) —
 it takes a warm run of ``steps`` steps from the initial state, then:
 
   * times ``steps`` steps from the initial state with no profiler (host
@@ -22,7 +28,9 @@ it takes a warm run of ``steps`` steps from the initial state, then:
     activity) → device kernels per step, device busy ms/step (the union of
     the kernel intervals of the exported trace) and the device time of
     each kernel name per step;
-  * reports the idle share as 1 − busy / unprofiled ms/step.
+  * reports the idle share as 1 − busy / unprofiled ms/step;
+  * on a graphed path, also the kernel nodes of the captured step
+    (``chip_smoke.kernel_nodes``), the kernels a replay launches.
 
 Prints one summary line per path and writes everything as JSON to
 ``--out`` (the trace is written beside it and removed). Needs a card;
@@ -79,6 +87,7 @@ def main() -> None:
     from chip_smoke import (
         MONOPOLE,
         flagship_module,
+        kernel_nodes,
         monopole_forces,
         path_configs,
     )
@@ -88,7 +97,11 @@ def main() -> None:
     from nbody_tpu_torch.ops.integrator import (
         initialize_forces,
         make_sorted_multi_step,
+        sorted_state_from,
+        sorted_verlet_step,
+        to_particle_state,
     )
+    from nbody_tpu_torch.ops.step_graph import StepGraph
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -104,9 +117,9 @@ def main() -> None:
     def sync():
         torch.cuda.synchronize()
 
-    def measure(label, run, reset):
+    def measure(label, run, reset, graph=None):
         """``run()`` takes ``steps`` steps from the initial state after
-        ``reset()``."""
+        ``reset()``; ``graph``: the captured step ``run`` replays."""
         run()
         sync()
         reset()
@@ -134,32 +147,55 @@ def main() -> None:
             "idle_share": 1.0 - (busy / steps) / step_ms,
             "top_kernels_ms_per_step": {k: v / steps for k, v in top},
         }
+        if graph is not None:
+            rec["graph_kernels_per_step"] = kernel_nodes(graph.graph)
         report["paths"][label] = rec
         print(f"{label}: {step_ms:.3f} ms/step unprofiled "
               f"({prof_ms:.3f} profiled), {count / steps:.1f} kernels/step, "
               f"device busy {busy / steps:.3f} ms/step, idle share "
-              f"{rec['idle_share']:.3f} ({smi})")
+              f"{rec['idle_share']:.3f}"
+              + (f", {rec['graph_kernels_per_step']} kernels in the graph"
+                 if graph is not None else "") + f" ({smi})")
         for k, v in top:
             print(f"    {v / steps:8.4f} ms/step  {k[:90]}")
 
     def wanted(label):
         return args.paths is None or label in args.paths
 
+    def sorted_paths(label, sf, dt, state0):
+        """The eager sorted stepping and the same step on a
+        ``StepGraph``."""
+        if wanted(label):
+            multi = make_sorted_multi_step(sf, dt, steps)
+            measure(label, lambda: multi(state0), lambda: None)
+        if wanted(f"{label} (graphed)"):
+            graph = StepGraph(lambda s: sorted_verlet_step(s, sf, dt))
+            measure(f"{label} (graphed)", lambda: to_particle_state(
+                graph(sorted_state_from(state0), steps)), lambda: None, graph)
+
     for label, cfg in paths.items():
-        if not wanted(label):
+        if not wanted(label) and not wanted(f"{label} (graphed)"):
             continue
         ps = ParticleSystem()
         ps.initialize(cfg)
-        measure(label, lambda: ps.run_steps(steps), ps.reset)
-        del ps
+        state0 = ps.state
+        eager = ps._multi_step(steps, graphed=False)
+        graphed = ps._multi_step(steps)
+        if wanted(label):
+            measure(label, lambda: eager(state0), lambda: None)
+        if ps.step_graphs and wanted(f"{label} (graphed)"):
+            graph, = ps.step_graphs.values()
+            measure(f"{label} (graphed)", lambda: graphed(state0),
+                    lambda: None, graph)
+        del ps, eager, graphed
+        torch.cuda.empty_cache()
 
-    if wanted(MONOPOLE):
+    if wanted(MONOPOLE) or wanted(f"{MONOPOLE} (graphed)"):
         bh = paths["1M BH tiles"]
         force_fn, sorted_fn = monopole_forces(bh)
         state0 = initialize_forces(init_from_config(bh, device="cuda"),
                                    force_fn)
-        multi = make_sorted_multi_step(sorted_fn, bh.dt, steps)
-        measure(MONOPOLE, lambda: multi(state0), lambda: None)
+        sorted_paths(MONOPOLE, sorted_fn, bh.dt, state0)
 
     # the 4M flagship's two step paths (scripts/flagship_4m_torch.py), its
     # sorted stepping alone (no rendering)
@@ -167,14 +203,13 @@ def main() -> None:
     for label, config, scene in (
             (FLAGSHIP_BH, F.bh_config(F.N), F.bh_scene),
             (FLAGSHIP_GALAXY, F.galaxy_config(F.N), F.galaxy_scene)):
-        if not wanted(label):
+        if not wanted(label) and not wanted(f"{label} (graphed)"):
             continue
         state = scene(F.N, torch.device("cuda"))
         sf = make_sorted_force_fn(config, pos_hint=state.pos)
         state0 = F.with_forces(state, sf)
-        multi = make_sorted_multi_step(sf, config.dt, steps)
-        measure(label, lambda: multi(state0), lambda: None)
-        del state, state0, sf, multi
+        sorted_paths(label, sf, config.dt, state0)
+        del state, state0, sf
         torch.cuda.empty_cache()
     if os.path.exists(trace):
         os.remove(trace)

@@ -67,7 +67,12 @@ from nbody_tpu_torch.ops.spatial_hash import (
     tiles_bin,
 )
 from nbody_tpu_torch.state import ParticleState
-from nbody_tpu_torch.types import ForceMethod, SimulationConfig
+from nbody_tpu_torch.types import (
+    ForceMethod,
+    InitDistribution,
+    SimulationConfig,
+    UniformDistParams,
+)
 from nbody_tpu_torch.ops.tile_near import (
     tile_sweep_plane,
     tile_sweep_plane_plain,
@@ -1685,3 +1690,154 @@ def test_sharded_paths_across_cards(dev, capsys):
                      "--devices", str(p_n), "--benchmark",
                      "--benchmark-steps", "2"]) == 0
     assert f'"devices": "{p_n}"' in capsys.readouterr().out
+
+
+# ---- the facade's captured step (ops/step_graph.py) ----------------------
+
+# engine -> (config of a small scene that selects it, the step kind its
+# run_steps captures)
+GRAPH_ENGINES = {
+    "bh tiles": (dict(force_method=ForceMethod.BARNES_HUT, bh_max_level=3),
+                 "sorted"),
+    "bh window": (dict(force_method=ForceMethod.BARNES_HUT, bh_max_level=2),
+                  "plain"),
+    "hash window": (dict(force_method=ForceMethod.SPATIAL_HASH,
+                         hash_engine="window"), "sorted"),
+    "hash tiles": (dict(force_method=ForceMethod.SPATIAL_HASH,
+                        hash_engine="tiles", hash_max_grid_dim=32,
+                        spatial_hash_cell_size=2.0,
+                        init_distribution=InitDistribution.UNIFORM,
+                        dist_params=UniformDistParams(
+                            min_bounds=(-16.0,) * 3,
+                            max_bounds=(16.0,) * 3)), "sorted"),
+    "direct": (dict(force_method=ForceMethod.DIRECT_N2), "plain"),
+}
+STATE_FIELDS = ("pos", "vel", "acc", "mass", "time")
+
+
+def _graph_system(dev, engine, n=4096):
+    from nbody_tpu_torch import ParticleSystem
+
+    ps = ParticleSystem()
+    ps.initialize(SimulationConfig(particle_count=n, dt=1e-3,
+                                   **GRAPH_ENGINES[engine][0]), device=dev)
+    return ps
+
+
+def _same_state(got, want, what, atol_rel=0.0):
+    for k in STATE_FIELDS:
+        g, w = getattr(got, k), getattr(want, k)
+        if atol_rel:
+            _close(g, w, atol_rel)
+        else:
+            assert torch.equal(g, w), f"{what}: {k} differs"
+
+
+@pytest.mark.parametrize("engine", list(GRAPH_ENGINES))
+def test_step_graph_equals_eager(dev, engine):
+    """The graphed run_steps (first call: an eager step, the capture and
+    replays; second call: replays only) and update() equal the eager
+    multi-step functions of the same force from the same state, bit for
+    bit; BH window within 1e-6·max of each field, its pyramid summed by
+    ``index_add_``'s float atomics (two eager runs may differ). The
+    launch counters count the replays' launches."""
+    ps = _graph_system(dev, engine)
+    kind = GRAPH_ENGINES[engine][1]
+    assert (ps._sorted_step is not None) == (kind == "sorted")
+    tol = 1e-6 if engine == "bh window" else 0.0
+    state0 = ps.state
+    before = {f: f.launches for f in _build.COUNTED}
+    want = ps._multi_step(4, graphed=False)(state0)
+    eager = {f: f.launches - n for f, n in before.items()}
+    before = {f: f.launches for f in _build.COUNTED}
+    ps.run_steps(4)
+    torch.cuda.synchronize()
+    graphed = {f: f.launches - n for f, n in before.items()}
+    assert graphed == eager, "launch counts of the graphed run"
+    assert any(eager.values())
+    _same_state(ps.state, want, f"{engine} run_steps", tol)
+    g = ps.step_graphs[kind]
+    assert (g.captures, g.replays) == (1, 3)
+    _same_state(ps._multi_step(4)(state0), want, f"{engine} replays", tol)
+    assert (g.captures, g.replays) == (1, 7)
+    # update(): the plain step, its own graph where run_steps sorts
+    start = ps.state
+    want = tint.make_multi_step(ps._force_fn, 1e-3, 3)(start)
+    for _ in range(3):
+        ps.update()
+    _same_state(ps.state, want, f"{engine} update", tol)
+    assert ps.step_graphs["plain"].captures == 1
+
+
+def test_step_graph_hands_out_no_buffer(dev):
+    """A state the facade handed out is unchanged after later calls: the
+    graph's static buffers are never handed out."""
+    ps = _graph_system(dev, "bh tiles")
+    ps.run_steps(2)
+    held = ps.state
+    copy = {k: getattr(held, k).clone() for k in STATE_FIELDS}
+    ps.run_steps(3)
+    ps.update()
+    ps.run_steps(2)
+    torch.cuda.synchronize()
+    for k in STATE_FIELDS:
+        assert torch.equal(getattr(held, k), copy[k]), k
+    bufs = [t.data_ptr() for g in ps.step_graphs.values()
+            for t in g._static.values()]
+    assert not {getattr(ps.state, k).data_ptr() for k in STATE_FIELDS} & set(
+        bufs)
+
+
+def test_step_graph_recaptured_on_change(dev, tmp_path):
+    """A second run_steps captures nothing new; set_time_step,
+    set_softening, set_force_method, reset and load_state of another N
+    each drop the graph, and the next call captures once and equals a
+    fresh eager run at the new parameters."""
+    ps = _graph_system(dev, "bh tiles")
+    ps.run_steps(2)
+    g = ps.step_graphs["sorted"]
+    ps.run_steps(2)
+    assert ps.step_graphs["sorted"] is g and g.captures == 1
+
+    def after(change, kind="sorted"):
+        change()
+        assert ps.step_graphs == {}
+        start = ps.state
+        want = ps._multi_step(3, graphed=False)(start)
+        ps.run_steps(3)
+        assert ps.step_graphs[kind].captures == 1
+        _same_state(ps.state, want, change.__name__)
+
+    after(lambda: ps.set_time_step(2e-3))
+    assert ps.config.dt == 2e-3
+    after(lambda: ps.set_softening(0.2))
+    after(lambda: ps.set_force_method(ForceMethod.DIRECT_N2), "plain")
+    after(ps.reset, "plain")
+    other = _graph_system(dev, "bh tiles", n=2048)
+    other.run_steps(1)
+    path = str(tmp_path / "s.nbody")
+    other.save_state(path)
+    after(lambda: ps.load_state(path))
+    assert ps.particle_count == 2048
+
+
+def test_step_graph_capture_failure_raises(dev):
+    """A step that reads the host cannot be captured: the call raises (no
+    eager fallback), and the card stays usable."""
+    from nbody_tpu_torch.ops.step_graph import StepGraph
+
+    def step(s):
+        shift = float(s.pos.sum().item()) * 0.0
+        return ParticleState(pos=s.pos + shift, vel=s.vel, acc=s.acc,
+                             mass=s.mass, time=s.time + 1.0)
+
+    p, m = (t.to(dev) for t in _sphere(256, 1.0, seed=5))
+    st = ParticleState(pos=p, vel=torch.zeros_like(p),
+                       acc=torch.zeros_like(p), mass=m,
+                       time=torch.zeros((), device=dev))
+    g = StepGraph(step)
+    with pytest.raises(Exception):
+        g(st, 3)
+    assert g.graph is None
+    torch.cuda.synchronize()
+    assert float((p * 2).sum()) == pytest.approx(2 * float(p.sum()))
