@@ -81,20 +81,25 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
           ``resort_stale_frac=0.01`` and Barnes-Hut tiles with
           ``resort_every=8``. Each runs through the facade (table-resident
           stepping, ``ops/table_step.py``, where ``system.TABLE_ROUTES``
-          holds the engine and knob, else the row-space driver), then the
-          other driver of the same knob is called directly from the same
-          state, launches counted for both (the table drivers: K2's rank
-          form on sorted steps only, its dest form on repair steps with
-          movers, K4 and ``table_kick`` every step, ``table_drift`` every
-          step after the first); the two are held to each other (the
+          holds the engine and knob, else the row-space driver; captured
+          segments replayed), then the other driver of the same knob is
+          called directly from the same state on captured segments,
+          launches counted for both (the table drivers: K2's rank form on
+          sorted steps only, its dest form on every repair step, K4 and
+          ``table_kick`` every step, ``table_drift`` every step after the
+          first, on Barnes-Hut K6 on every step that does not re-sort);
+          the two are held to each other (the
           cadence, and the audited re-sort against the row-space steps on
           the table's schedule, within 1e-6 of max|pos| and max|v| on the
           hash and 1e-5 on Barnes-Hut, whose frozen table steps sum the
           moments in another order; repair against sorting every step
           within 1e-4·max|pos|, the JAX package's bound), the traces printed (stale counts,
-          re-sorts, rebuilds), and the two timed in turns; on h also the
-          row-space audited re-sort's trace and the cost of its host read
-          of the audit count;
+          re-sorts, rebuilds), and the two, both graphed, timed in turns
+          (4 runs each; ``routing measured``: the pairs whose table wins
+          by more than the spread of the turns, against
+          ``TABLE_ROUTES``); on h also the row-space audited re-sort's
+          trace and the cost of its host read of the audit count between
+          two replays;
      f. 1M Barnes-Hut monopole (the tiles scene with
      ``multipole_order=1``: ws 2, K6 moments, no far taps), which the
      facade never selects: ``barnes_hut_forces_sorted(multipole_order=1)``
@@ -261,8 +266,17 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
      1M BH tiles (bit-equal, ms an update: the render loop's step), the
      cache (a second ``run_steps`` captures nothing; ``set_time_step`` and
      ``set_softening`` each force one capture and equal a fresh eager run;
-     a state handed out earlier is unchanged), and bh-4m through the
-     graphed facade against its eager stepping (bit-equal, best of 3).
+     a state handed out earlier is unchanged); the ten frozen-grid
+     drivers (``frozen_graph_phase``: the row-space cadence 8 and audited
+     re-sort 0.01, the table cadence, audited re-sort and repair, on 1M
+     Barnes-Hut tiles and the 1M sparse hash, 30 steps) on captured
+     segments against the same driver eager from one state, state and
+     trace bit for bit, host reads a run equal, timed in turns, with
+     their captures, shared pool and side bucket (on the Barnes-Hut cold
+     collapse the side bucket must grow: every segment captured again,
+     still equal); the facade's cache of those graphs; and bh-4m through
+     the graphed facade against its eager stepping (bit-equal, best of
+     3).
 
 Launch counts on graphed paths: a replay calls no wrapper, so the captured
 step adds the launches its capture recorded once per replay
@@ -597,7 +611,7 @@ def mover_set(tiles, cov, ext, counts, d, k, m, gen):
 def k2_table_checks(res, label, grid, lo, cell, tp):
     """K2's two table forms and the table step's two passes against their
     twins at a path's 1M shape (``tp`` its table parameters): the rank form
-    with coverage and the 3 velocity channels (as ``table_step._sort_build``
+    with coverage and the 3 velocity channels (as ``table_step._sort_rows``
     places them; N(0, 1) here); the dest form on a repair-sized mover set
     (``REPAIR_CAP`` rows each sent one cell up in x and ranked above the
     target's high-water mark, as ``table_step._repair_step`` places them,
@@ -1605,10 +1619,8 @@ def run_path(label, cfg, steps, want, wrappers, plains, smi, dev,
         label, steps, lambda: ps.run_steps(steps), want, wrappers, plains,
         smi)
     for kind, g in ps.step_graphs.items():
-        # reset() dropped the warm run's graph: the timed run captured it
-        print(f"  {kind} step graph: captured inside the timed run in "
-              f"{g.capture_ms:.1f} ms (after its eager first step), then "
-              f"{g.replays} replays; pool {g.pool_bytes / 2**20:.1f} MiB")
+        # reset() dropped the warm run's graphs: the timed run captured them
+        print(f"  {kind}: {describe_graphs(g)}")
     check_finite(label, ps.state)
     check(abs(ps.simulation_time - steps * cfg.dt) < 1e-6,
           f"{label}: simulation time did not advance")
@@ -1616,56 +1628,89 @@ def run_path(label, cfg, steps, want, wrappers, plains, smi, dev,
     return launches, phases, ps, state0, info
 
 
-def table_multi(tp, cfg, knob, steps, trace=False):
+def describe_graphs(g) -> str:
+    """One line on a facade's captured step (``StepGraph``) or a frozen-
+    grid driver's captured segments (``SegmentGraphs``)."""
+    from nbody_tpu_torch.ops.step_graph import SegmentGraphs
+
+    if not isinstance(g, SegmentGraphs):
+        return (f"one step captured in {g.capture_ms:.1f} ms (after its "
+                f"eager first step), then {g.replays} replays; pool "
+                f"{g.pool_bytes / 2**20:.1f} MiB")
+    segs = "; ".join(f"{key} {s.capture_ms:.1f} ms, {s.replays} replays"
+                     for key, s in g.segments.items())
+    return (f"{g.captures} segment captures ({segs}); shared pool "
+            f"{g.pool_bytes / 2**20:.1f} MiB; {g.host_reads} host reads; "
+            f"side bucket {g.state or None}")
+
+
+def table_multi(tp, cfg, knob, steps, trace=False, graphs=None):
     """The table driver the facade's rule names for ``cfg``'s knob, with
     its caps (repair: ``REPAIR_CAP`` movers, cadence cap ``resort_every``
-    or 64; audited: cap ``resort_every`` or 16)."""
+    or 64; audited: cap ``resort_every`` or 16), on ``graphs`` (captured
+    segments) or eager."""
     from nbody_tpu_torch.ops import table_step as T
 
     cad = cfg.resort_every
     if knob == "repair":
         return T.make_table_repair_multi_step(
             tp, cfg.dt, steps, repair_cap=REPAIR_CAP,
-            max_cadence=cad if cad > 1 else 64, with_trace=trace)
+            max_cadence=cad if cad > 1 else 64, with_trace=trace,
+            graphs=graphs)
     if knob == "stale_frac":
         return T.make_table_adaptive_multi_step(
             tp, cfg.dt, steps, max_stale_frac=cfg.resort_stale_frac,
-            max_cadence=cad if cad > 1 else 16, with_trace=trace)
-    return T.make_table_multi_step(tp, cfg.dt, steps, cad)
+            max_cadence=cad if cad > 1 else 16, with_trace=trace,
+            graphs=graphs)
+    return T.make_table_multi_step(tp, cfg.dt, steps, cad, graphs=graphs)
 
 
-def row_multi(sf, cfg, knob, steps):
+def row_multi(sf, cfg, knob, steps, trace=False, graphs=None):
     """The row-space driver of the same knob: the cadence, the lagged
-    audited re-sort (cap 16), or for repair a sort every step (the JAX
-    facade's choice off its accelerator, and what repair is exact to)."""
+    audited re-sort (cap 16), on ``graphs`` (captured segments) or eager;
+    or for repair a sort every step (the JAX facade's choice off its
+    accelerator, and what repair is exact to), on a ``StepGraph`` of the
+    sorted step where ``graphs`` is given."""
     from nbody_tpu_torch.ops import integrator as I
+    from nbody_tpu_torch.ops.step_graph import StepGraph
 
     if knob == "cadence":
-        return I.make_resort_multi_step(sf, cfg.dt, steps, cfg.resort_every)
+        return I.make_resort_multi_step(sf, cfg.dt, steps, cfg.resort_every,
+                                        graphs=graphs)
     if knob == "stale_frac":
         return I.make_adaptive_multi_step(
             sf, cfg.dt, steps, max_stale_frac=cfg.resort_stale_frac,
-            max_cadence=16)
-    return I.make_sorted_multi_step(sf, cfg.dt, steps)
+            max_cadence=16, with_trace=trace, graphs=graphs)
+    if graphs is None:
+        return I.make_sorted_multi_step(sf, cfg.dt, steps)
+    g = StepGraph(lambda s: I.sorted_verlet_step(s, sf, cfg.dt))
+    return lambda st: I.to_particle_state(g(I.sorted_state_from(st), steps))
 
 
 def table_launches(tp, cfg, knob, state0, steps, far):
-    """A table run's launches, and its trace where the driver has one (a
-    traced run of the same steps from the same state): K2's rank form on
-    the entry and every re-sort or rebuild, its dest form on every repair
-    step with movers, K4 and the kick on every step, the drift on every
-    step after the first, K3 ``far`` times a step → (want, (out, stale,
-    flags) or None)."""
+    """A table run's launches, and its trace where the driver has one (an
+    eager traced run of the same steps from the same state): K2's rank
+    form on the entry and every re-sort or rebuild, its dest form on every
+    repair step (on the static mover set, movers or not), K4 and the kick
+    on every step, the drift on every step after the first, K3 ``far``
+    times a step and with a far field (Barnes-Hut) K6 on every step that
+    does not re-sort (the side rows' moments) → (want, (out, stale, flags)
+    or None)."""
     want = dict(tile_sweep_plane=steps, far_taps=far * steps,
                 table_drift=steps - 1, table_kick=steps)
+    trace = None
     if knob == "cadence":
-        want["tile_scatter"] = 1 + (steps - 1) // cfg.resort_every
-        return want, None
-    out, (stale, flags) = table_multi(tp, cfg, knob, steps, True)(state0)
-    want["tile_scatter"] = 1 + int(flags.sum())
+        sorts = 1 + (steps - 1) // cfg.resort_every
+    else:
+        out, (stale, flags) = table_multi(tp, cfg, knob, steps, True)(state0)
+        trace = (out, stale, flags)
+        sorts = 1 + int(flags.sum())
+    want["tile_scatter"] = sorts
+    if far:
+        want["segment_sum"] = steps - sorts
     if knob == "repair":
-        want["tile_place"] = int(((~flags) & (stale > 0)).sum())
-    return want, (out, stale, flags)
+        want["tile_place"] = steps - sorts
+    return want, trace
 
 
 def compare_states(label, got, want, pos_rel, vel_rel, what):
@@ -1729,39 +1774,54 @@ def repair_report(label, got, row, state0, trace, steps):
     compare_states(label, got, row, 1e-4, None, "sorting every step")
 
 
+ROUTE_TURNS = 4  # runs of each driver in the routing's turns
+
+
 def turns(label, table, row, state0, steps, routed, smi):
-    """The table and row-space drivers of one knob timed from the same
-    state in turns (table, row, row, table, after a warm run of each):
-    medians of 2 runs each, steps/s, beside whether the facade routes the
-    pair to the table."""
+    """The graphed table and row-space drivers of one knob timed from the
+    same state in turns (table, row, row, table, ... ``ROUTE_TURNS`` runs
+    each, after a warm run of each, which captures): medians, steps/s, and
+    whether the table wins by more than the spread of the turns (the
+    larger distance between the quartiles of the two drivers' runs),
+    beside whether the facade routes the pair to the table."""
     import torch
 
     walls = {"table": [], "row": []}
     runs = {"table": table, "row": row}
     for f in runs.values():
         f(state0)
-    for name in ("table", "row", "row", "table"):
+    order = ("table", "row", "row", "table") * (ROUTE_TURNS // 2)
+    for name in order:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         runs[name](state0)
         torch.cuda.synchronize()
         walls[name].append(time.perf_counter() - t0)
-    rate = {name: steps / statistics.median(w) for name, w in walls.items()}
+    rates = {name: [steps / w for w in ws] for name, ws in walls.items()}
+    rate = {name: statistics.median(r) for name, r in rates.items()}
+    spread = max(q[2] - q[0] for q in (statistics.quantiles(r, n=4)
+                                        for r in rates.values()))
+    wins = rate["table"] - rate["row"] > spread
     print(f"  routing {label}: table {rate['table']:.3f} steps/s, row space "
-          f"{rate['row']:.3f} (medians of 2 in turns; {smi}); the facade "
-          f"routes it to the {'table' if routed else 'row-space'} driver")
-    return rate
+          f"{rate['row']:.3f} (graphed both; medians of {ROUTE_TURNS} in "
+          f"turns, spread {spread:.3f}; {smi}): the table "
+          f"{'wins' if wins else 'does not win'} by more than the spread; "
+          f"the facade routes it to the "
+          f"{'table' if routed else 'row-space'} driver")
+    return {**rate, "spread": spread, "table wins": wins}
 
 
 def frozen_grid_path(label, mode, steps, far, drive, drive_row, smi, dev):
     """One frozen-grid path: through the facade (table-resident where
-    ``TABLE_ROUTES`` holds the engine and knob, else in row space), then
-    the other driver of the same knob called directly from the same state,
-    both with their launches counted; the two held to each other, the
-    traces printed, and the two timed in turns. Returns the rates."""
+    ``TABLE_ROUTES`` holds the engine and knob, else in row space; its
+    captured segments), then the other driver of the same knob called
+    directly from the same state on captured segments, both with their
+    launches counted; the two held to each other, the traces printed, and
+    the two timed in turns. Returns the routing's readings."""
     import torch
 
     from nbody_tpu_torch.ops.forces import make_table_step_params
+    from nbody_tpu_torch.ops.step_graph import SegmentGraphs
     from nbody_tpu_torch.system import TABLE_ROUTES, _resort_knob
 
     cfg = path_configs()[label]
@@ -1783,27 +1843,29 @@ def frozen_grid_path(label, mode, steps, far, drive, drive_row, smi, dev):
         info["want"] = want
         return want, trace
 
-    _, phases, ps, state0, trace = drive(
+    _, _, ps, state0, trace = drive(
         label, steps, expect=expect, **({} if routed else row_want))
     check((ps._table_params is not None) == routed,
           f"{label}: the facade's routing is not TABLE_ROUTES'")
     tp, sf = info["tp"], ps._sorted_force
-    table, row = table_multi(tp, cfg, knob, steps), row_multi(sf, cfg, knob,
-                                                              steps)
+
+    def table():
+        return table_multi(tp, cfg, knob, steps, graphs=SegmentGraphs())
+
+    def row():
+        return row_multi(sf, cfg, knob, steps, graphs=SegmentGraphs())
+
     if routed:
-        tab_out, tab_phases = ps.state, phases
-        row_out, row_phases = drive_row(f"{label}, row-space driver", steps,
-                                        row, state0, **row_want)
+        tab_out = ps.state
+        row_out, _ = drive_row(f"{label}, row-space driver", steps, row(),
+                               state0, **row_want)
     else:
-        row_out, row_phases = ps.state, phases
+        row_out = ps.state
         want, trace = table_launches(tp, cfg, knob, state0, steps, far)
         info["want"] = want
-        tab_out, tab_phases = drive_row(f"{label}, table driver", steps,
-                                        table, state0, **want)
+        tab_out, _ = drive_row(f"{label}, table driver", steps, table(),
+                               state0, **want)
     sorts = info["want"]["tile_scatter"]
-    check(tab_phases[tp.sort_phase].samples == sorts,
-          f"{label}: {tab_phases[tp.sort_phase].samples} table sorts timed, "
-          f"{sorts} expected")
     if trace is not None:
         check(torch.equal(trace[0].pos, tab_out.pos),
               f"{label}: traced table run and timed run differ")
@@ -1826,28 +1888,30 @@ def frozen_grid_path(label, mode, steps, far, drive, drive_row, smi, dev):
                                               cfg.dt),
                        tol, tol, "the row-space steps on its schedule")
         if mode == "bh":
-            adaptive_report(sf, cfg, state0, steps, row_phases)
+            adaptive_report(sf, cfg, state0, steps, row_out)
     else:
         repair_report(label, tab_out, row_out, state0, trace, steps)
-    return turns(label, table, row, state0, steps, routed, smi)
+    return turns(label, table(), row(), state0, steps, routed, smi)
 
 
-def adaptive_report(sf, cfg, state0, steps, phases):
+def adaptive_report(sf, cfg, state0, steps, timed):
     """The row-space adaptive path after its timed run: the trace of the
-    same steps from the same state (``with_trace=True``), whose re-sorts
-    must match the timed run's ``bh.sort`` samples; then the host read of
-    the audit count,
-    timed as the difference between the stale cap N − 1 (read after every
-    frozen step, never exceeded) and N (never read) over the same steps,
-    both at cap 16: medians of 4 runs each, in turns (the host-bound step
-    varies between runs by more than a read costs); and the host's wait
-    inside each read, on audited frozen force evaluations in a row."""
+    same steps from the same state (``with_trace=True``, eager), whose
+    state must equal the timed run's ``timed`` bit for bit (so its
+    schedule is the timed run's); then the host read of the
+    audit count between two replays of the captured segments, timed as
+    the difference between the stale cap N − 1 (read after every frozen
+    step, never exceeded) and N (never read) over the same steps, both at
+    cap 16 and graphed: medians of 4 runs each, in turns; and the host's
+    wait inside each read, on audited frozen force evaluations in a row
+    (eager)."""
     import torch
 
     from nbody_tpu_torch.ops.integrator import make_adaptive_multi_step
+    from nbody_tpu_torch.ops.step_graph import SegmentGraphs
 
     n = state0.n
-    _, (stale, resorted) = make_adaptive_multi_step(
+    out, (stale, resorted) = make_adaptive_multi_step(
         sf, cfg.dt, steps, max_stale_frac=cfg.resort_stale_frac,
         max_cadence=16, with_trace=True)(state0)
     print(f"  {BH_ADAPTIVE}, row-space driver:")
@@ -1857,16 +1921,19 @@ def adaptive_report(sf, cfg, state0, steps, phases):
           f"{(torch.nonzero(resorted)[:, 0] + 2).tolist()}); stale counts "
           f"after steps 2..{steps}: {stale.tolist()} (cap "
           f"{int(cfg.resort_stale_frac * n)})")
-    check(phases["bh.sort"].samples == sorts,
-          f"adaptive: {phases['bh.sort'].samples} sorts timed, trace {sorts}")
+    check(all(torch.equal(getattr(out, k), getattr(timed, k))
+              for k in STATE_FIELDS),
+          "adaptive: the traced eager run differs from the timed run")
 
+    carries = {frac: SegmentGraphs() for frac in ((n - 1) / n, 1.0)}
     multis = {frac: make_adaptive_multi_step(sf, cfg.dt, steps,
                                              max_stale_frac=frac,
-                                             max_cadence=16)
-              for frac in ((n - 1) / n, 1.0)}
+                                             max_cadence=16, graphs=g)
+              for frac, g in carries.items()}
     walls = {frac: [] for frac in multis}
     for frac in multis:
         multis[frac](state0)
+    before = {frac: g.host_reads for frac, g in carries.items()}
     for turn in range(8):
         frac = list(multis)[(turn + turn // 2) % 2]  # r n n r r n n r
         torch.cuda.synchronize()
@@ -1877,12 +1944,16 @@ def adaptive_report(sf, cfg, state0, steps, phases):
     # reads: frozen steps followed by a decision the cadence cap does not
     # already make (since < 15)
     reads = sum(1 for s in range(1, steps) if 0 < (s - 1) % 16 < 15)
+    made = {frac: (g.host_reads - before[frac]) / 4
+            for frac, g in carries.items()}
+    check(list(made.values()) == [reads, 0],
+          f"adaptive: host reads a run {made}, expected {reads} and 0")
     t_read, t_none = (statistics.median(w) for w in walls.values())
     spread = "; ".join(f"{min(w):.3f}-{max(w):.3f}" for w in walls.values())
-    print(f"  audit read: {steps} steps with {reads} host reads of the "
-          f"count {t_read:.3f} ms, without reads {t_none:.3f} ms (medians "
-          f"of 4; ranges {spread} ms): {(t_read - t_none) / reads:.4f} ms "
-          "a read")
+    print(f"  audit read between replays: {steps} steps with {reads} host "
+          f"reads of the count {t_read:.3f} ms, without reads "
+          f"{t_none:.3f} ms (graphed; medians of 4; ranges {spread} ms): "
+          f"{(t_read - t_none) / reads:.4f} ms a read")
     # the wait inside a read: the host clock around each read of the count
     # after an audited frozen evaluation (the host idles while the device
     # finishes what it queued)
@@ -3681,6 +3752,172 @@ def flagship_graph(F, smi, dev) -> dict:
     return rec
 
 
+FROZEN_GRAPH_STEPS = 30
+
+
+def split_run(out):
+    """(state, trace or None) of a driver's result."""
+    return out if isinstance(out, tuple) else (out, None)
+
+
+def frozen_graph_path(label, space, cfg, state0, sf, tp, steps, smi):
+    """One frozen-grid driver (``space`` "row" or "table", ``cfg``'s knob)
+    on captured segments against the same driver run eagerly, ``steps``
+    steps from ``state0``: the first call (each segment's first use eager,
+    then captured) and a replay-only call held to two eager runs
+    (``hold_to_eager``), traces equal, host reads a run equal to the eager
+    driver's; both timed in turns (median of ``GRAPH_TURNS``). Returns
+    the readings and the carry."""
+    from nbody_tpu_torch.ops.step_graph import SegmentGraphs
+    from nbody_tpu_torch.system import _resort_knob
+
+    import torch
+
+    knob = _resort_knob(cfg)
+    traced = knob != "cadence"
+
+    def run(g):
+        if space == "table":
+            return table_multi(tp, cfg, knob, steps, traced, g)(state0)
+        return row_multi(sf, cfg, knob, steps, traced, g)(state0)
+
+    graphs = SegmentGraphs()
+    first = split_run(run(graphs))
+    reads = graphs.host_reads
+    # a side bucket's growth in the first call drops every segment, the
+    # entry after its use: the second call may capture it again
+    again = split_run(run(graphs))
+    captures = graphs.captures
+    carries = [SegmentGraphs(graphed=False) for _ in range(2)]
+    eagers = [split_run(run(g)) for g in carries]
+    check(reads == graphs.host_reads - reads == carries[0].host_reads,
+          f"{label}: host reads a run {reads}, "
+          f"{graphs.host_reads - reads} (graphed), eager "
+          f"{carries[0].host_reads}")
+    if traced:
+        for what, (_, tr) in (("first call", first), ("replay-only call",
+                                                      again)):
+            check(all(torch.equal(a, b) for a, b in zip(tr, eagers[0][1])),
+                  f"{label}: the graph's {what} trace differs from eager")
+    spread = hold_to_eager(label, [("first call", first[0]),
+                                   ("replay-only call", again[0])],
+                           [e[0] for e in eagers])
+    del first, again, eagers
+    tg, te = [], []
+    for _ in range(GRAPH_TURNS):
+        tg.append(wall_s(lambda: run(graphs)))
+        te.append(wall_s(lambda: run(SegmentGraphs(graphed=False))))
+    check(graphs.captures == captures,
+          f"{label}: a call after the second captured again")
+    rec = {
+        "steps/s graphed": steps / statistics.median(tg),
+        "steps/s eager": steps / statistics.median(te),
+        "captures": graphs.captures,
+        "capture ms": sum(g.capture_ms for g in graphs.segments.values()),
+        "pool MiB": graphs.pool_bytes / 2**20,
+        "host reads a run": reads,
+        "side bucket": graphs.state.get("side_cap"),
+        "side grows": graphs.state.get("side_grows", 0),
+    }
+    held = ("bit for bit" if not any(spread.values()) else
+            f"within the eager runs' spread {spread}")
+    print(f"g {label}, {space} driver: graphed {rec['steps/s graphed']:.3f} "
+          f"steps/s, eager {rec['steps/s eager']:.3f} ({steps} steps a run, "
+          f"median of {GRAPH_TURNS} in turns; {smi}); "
+          f"{describe_graphs(graphs)}"
+          f"; graph == eager {held}"
+          + (", traces equal" if traced else ""))
+    return rec, graphs
+
+
+def frozen_graph_phase(cfgs, smi, dev) -> dict:
+    """The ten frozen-grid drivers at 1M on the phase-3 scenes (the row-
+    space cadence and audited re-sort, the table cadence, audited re-sort
+    and repair, on Barnes-Hut tiles and the sparse hash; 30 steps,
+    ``frozen_graph_path``), the Barnes-Hut table drivers on the cold
+    collapse, whose side bucket must grow (every segment captured again
+    after each growth, still equal to eager), then the facade's cache of
+    these graphs."""
+    import torch
+
+    from nbody_tpu_torch import ParticleSystem
+    from nbody_tpu_torch.ops.forces import make_table_step_params
+    from nbody_tpu_torch.system import _resort_knob
+
+    readings = {}
+    for label, mode in FROZEN_PATHS:
+        cfg = cfgs[label]
+        ps = ParticleSystem()
+        ps.initialize(cfg, device=dev)
+        state0, sf = ps.state, ps._sorted_force
+        tp = make_table_step_params(cfg, device=dev, pos_hint=state0.pos)
+        spaces = ("table",) if _resort_knob(cfg) == "repair" else (
+            "row", "table")
+        for space in spaces:
+            rec, graphs = frozen_graph_path(label, space, cfg, state0, sf,
+                                            tp, FROZEN_GRAPH_STEPS, smi)
+            readings[f"{label}, {space}"] = rec
+            if (mode, space) == ("bh", "table"):
+                check(rec["side grows"] >= 1
+                      and graphs.captures > len(graphs.segments),
+                      f"{label}: the side bucket did not grow on the "
+                      f"collapse ({graphs.state}, {graphs.captures} "
+                      f"captures of {len(graphs.segments)} segments)")
+                print(f"g {label}, the collapse: the side bucket grew "
+                      f"{rec['side grows']} times to {rec['side bucket']} "
+                      f"rows; {graphs.captures} captures, "
+                      f"{len(graphs.segments)} segments kept (the rest "
+                      "dropped at a growth and captured again at their "
+                      "next use); equal to eager")
+            del graphs
+            torch.cuda.empty_cache()
+        del ps, state0
+    ps = ParticleSystem()
+    ps.initialize(cfgs[BH_RESORT], device=dev)
+    frozen_cache_checks(ps)
+    del ps
+    torch.cuda.empty_cache()
+    return readings
+
+
+def frozen_cache_checks(ps) -> None:
+    """On a graphed facade on a frozen-grid knob: a second ``run_steps``
+    captures nothing and equals the eager driver; ``set_time_step`` drops
+    the graphs, and the next run captures again and equals a fresh eager
+    run at the new dt bit for bit; a state handed out earlier is unchanged
+    after all of it."""
+    import torch
+
+    start = ps.state
+    want = ps._multi_step(5, graphed=False)(start)
+    ps.run_steps(5)
+    (kind, g), = ps.step_graphs.items()
+    caps = g.captures
+    for k in STATE_FIELDS:
+        check(torch.equal(getattr(ps.state, k), getattr(want, k)),
+              f"frozen cache: {k} differs from the eager driver")
+    held = ps.state
+    copy = {k: getattr(held, k).clone() for k in STATE_FIELDS}
+    ps.run_steps(3)
+    check(ps.step_graphs[kind] is g and g.captures == caps,
+          "frozen cache: a second run_steps captured again")
+    ps.set_time_step(2e-3)
+    check(ps.step_graphs == {}, "set_time_step kept the frozen graphs")
+    start = ps.state
+    want = ps._multi_step(3, graphed=False)(start)
+    ps.run_steps(3)
+    for k in STATE_FIELDS:
+        check(torch.equal(getattr(ps.state, k), getattr(want, k)),
+              f"frozen cache after set_time_step: {k} differs")
+    torch.cuda.synchronize()
+    for k in STATE_FIELDS:
+        check(torch.equal(getattr(held, k), copy[k]),
+              f"frozen cache: a held state's {k} changed")
+    print(f"g frozen cache ({kind}): a second run_steps captures nothing; "
+          "set_time_step drops the graphs, the next run equals a fresh "
+          "eager run bit for bit; a state handed out earlier unchanged")
+
+
 def graph_phase(cfgs, scene, smi, dev) -> dict:
     """Phase 11 (g): one-program stepping. The facade's captured step
     against the eager multi-step functions of the same force on the 1M
@@ -3729,6 +3966,7 @@ def graph_phase(cfgs, scene, smi, dev) -> dict:
                 cache_checks(ps)
             del ps
         torch.cuda.empty_cache()
+    readings.update(frozen_graph_phase(cfgs, smi, dev))
     readings["bh-4m"] = flagship_graph(flagship_module(), smi, dev)
     torch.cuda.empty_cache()
     return readings
@@ -3759,6 +3997,7 @@ def main() -> None:
         tiles_bin,
     )
     from nbody_tpu_torch.ops.window_sweep import window_starts
+    from nbody_tpu_torch.system import TABLE_ROUTES, _resort_knob
 
     # Every matmul and convolution on the card in FP32.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3829,13 +4068,12 @@ def main() -> None:
         return got
 
     def drive_row(label, steps, multi, state0, **want):
-        launches, out, phases = counted_run(label, steps,
-                                            lambda: multi(state0),
-                                            {**none, **want}, wrappers,
-                                            plains, smi)
+        launches, out, _ = counted_run(label, steps, lambda: multi(state0),
+                                       {**none, **want}, wrappers, plains,
+                                       smi)
         keep(label, launches)
         check_finite(label, out)
-        return out, phases
+        return out, launches
 
     levels = bh_engine_params(bh_cfg)["levels"]
     bh_run = drive("1M BH tiles", 30, tile_scatter=30, far_taps=30 * levels,
@@ -3858,6 +4096,12 @@ def main() -> None:
             label, mode, 30, levels if mode == "bh" else 0, drive, drive_row,
             smi, dev)
     print(f"routing: {json.dumps(rates)}")
+    measured = sorted((mode, _resort_knob(cfgs[label]))
+                      for label, mode in FROZEN_PATHS
+                      if rates[label]["table wins"])
+    print(f"routing measured (the table wins by more than the spread): "
+          f"{measured}; system.TABLE_ROUTES {sorted(TABLE_ROUTES)}: "
+          f"{'agree' if set(measured) == TABLE_ROUTES else 'DISAGREE'}")
     keep(SORT_PATH, sort_path(sorts, {**none, "bitonic_sort": 2}, wrappers,
                               plains, smi))
 

@@ -4,7 +4,9 @@ PyTorch counterpart of ``nbody_tpu/ops/integrator.py``. A ``lax.scan`` of
 steps becomes a Python loop; each step is a handful of tensor ops around
 one force evaluation, queued on the device without host synchronization
 (the adaptive re-sort reads one count per frozen step: see
-``make_adaptive_multi_step``).
+``make_adaptive_multi_step``). The frozen-grid drivers run their steps as
+segments of an ``ops.step_graph.SegmentGraphs``: captured CUDA graphs
+when the caller hands one in (the facade on the card), else eagerly.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from typing import Callable
 import torch
 
 from nbody_tpu_torch.ops.direct import pairwise_potential
+from nbody_tpu_torch.ops.sorted_window import FrozenGridMeta
+from nbody_tpu_torch.ops.step_graph import SegmentGraphs, stack_trace
 from nbody_tpu_torch.state import ParticleState
 
 # force_fn(pos (N,3), mass (N,)) -> acc (N,3)
@@ -191,8 +195,47 @@ def _frozen_contract(sorted_force_fn):
     return with_meta, frozen
 
 
+# The row-space frozen-grid drivers' carry: a SortedState and the last
+# sort's FrozenGridMeta, as named buffers of a SegmentGraphs
+_ROWS = tuple(f.name for f in dataclasses.fields(SortedState))
+_META = tuple(f.name for f in dataclasses.fields(FrozenGridMeta))
+
+
+def _rows(b) -> SortedState:
+    return SortedState(**{k: b[k] for k in _ROWS})
+
+
+def _row_segments(sorted_force_fn, dt):
+    """The row-space drivers' segments on their carry: ``sort`` (the
+    sorted step through ``with_meta``, its meta written into the carry),
+    ``frozen`` and ``frozen_audit`` (the frozen step on the carried meta,
+    the latter writing its stale count ``n_stale``)."""
+    with_meta, frozen = _frozen_contract(sorted_force_fn)
+
+    def sort(b):
+        r, (meta,) = _sorted_step(_rows(b), with_meta, dt)
+        return {**vars(r), **{k: getattr(meta, k) for k in _META}}
+
+    def frozen_step(audit):
+        def seg(b):
+            meta = FrozenGridMeta(**{k: b[k] for k in _META})
+            r, n_stale = _frozen_step(_rows(b), frozen, meta, dt, audit)
+            return {**vars(r), **({"n_stale": n_stale} if audit else {})}
+        return seg
+
+    return {"sort": sort, "frozen": frozen_step(False),
+            "frozen_audit": frozen_step(True)}
+
+
+def _row_readout(g: SegmentGraphs) -> ParticleState:
+    """The carry in original row order, sharing no buffer."""
+    return to_particle_state(dataclasses.replace(_rows(g.buffers),
+                                                 time=g.get("time")))
+
+
 def make_resort_multi_step(sorted_force_fn: SortedForceFn, dt: float,
-                           n_steps: int, resort_every: int):
+                           n_steps: int, resort_every: int, *,
+                           graphs: SegmentGraphs | None = None):
     """``n_steps`` Verlet steps that re-sort once every ``resort_every``.
 
     The steps go in chunks of ``resort_every`` (⌊n/c⌋ chunks, then a
@@ -206,27 +249,32 @@ def make_resort_multi_step(sorted_force_fn: SortedForceFn, dt: float,
     ``frozen(..., with_audit=True)`` or step with
     ``make_adaptive_multi_step``). ``resort_every=1`` is
     ``make_sorted_multi_step``. Needs the engine's frozen-grid contract
-    (the Barnes-Hut and hash tiles factories). Returns ``multi(state) ->
-    state``, original row order in and out; the int32 row tag takes any N.
+    (the Barnes-Hut and hash tiles factories). The steps are the segments
+    ``sort`` and ``frozen`` of ``graphs`` (captured CUDA graphs, replayed
+    with no host read), or run eagerly without it. Returns ``multi(state)
+    -> state``, original row order in and out; the int32 row tag takes any
+    N.
     """
     if resort_every < 1:
         raise ValueError("resort_every must be >= 1")
-    with_meta, frozen = _frozen_contract(sorted_force_fn)
+    segs = _row_segments(sorted_force_fn, dt)
 
     def multi(state: ParticleState) -> ParticleState:
-        r = sorted_state_from(state)
+        g = graphs if graphs is not None else SegmentGraphs(graphed=False)
+        g.load(**vars(sorted_state_from(state)))
         for start in range(0, n_steps, resort_every):
-            r, (meta,) = _sorted_step(r, with_meta, dt)
+            g.run("sort", segs["sort"])
             for _ in range(min(resort_every, n_steps - start) - 1):
-                r, _ = _frozen_step(r, frozen, meta, dt)
-        return to_particle_state(r)
+                g.run("frozen", segs["frozen"])
+        return _row_readout(g)
 
     return multi
 
 
 def make_adaptive_multi_step(sorted_force_fn: SortedForceFn, dt: float,
                              n_steps: int, *, max_stale_frac: float = 0.01,
-                             max_cadence: int = 16, with_trace: bool = False):
+                             max_cadence: int = 16, with_trace: bool = False,
+                             graphs: SegmentGraphs | None = None):
     """``n_steps`` Verlet steps that re-sort when the scene asks.
 
     The first step sorts. Every frozen step audits itself
@@ -239,7 +287,9 @@ def make_adaptive_multi_step(sorted_force_fn: SortedForceFn, dt: float,
     only when a count could exceed the cap at all (the cap below N) and
     the cadence cap does not already decide. ``max_cadence=1`` is
     cadence-1 stepping and ``max_stale_frac=1`` the fixed ``max_cadence``
-    cadence, both bit for bit.
+    cadence, both bit for bit. The steps are the segments ``sort`` and
+    ``frozen_audit`` of ``graphs`` (captured CUDA graphs; the count read
+    between two replays), or run eagerly without it.
 
     Returns ``multi(state) -> state``, or with ``with_trace=True``
     ``multi(state) -> (state, (stale_counts, resorted))``: int32 and bool
@@ -249,33 +299,33 @@ def make_adaptive_multi_step(sorted_force_fn: SortedForceFn, dt: float,
         raise ValueError("max_stale_frac must be in [0, 1]")
     if max_cadence < 1:
         raise ValueError("max_cadence must be >= 1")
-    with_meta, frozen = _frozen_contract(sorted_force_fn)
+    segs = _row_segments(sorted_force_fn, dt)
 
     def multi(state: ParticleState):
         n = state.n
         stale_cap = int(max_stale_frac * n)
-        r, (meta,) = _sorted_step(sorted_state_from(state), with_meta, dt)
-        since, stale = 0, 0
+        g = graphs if graphs is not None else SegmentGraphs(graphed=False)
+        g.load(**vars(sorted_state_from(state)))
+        g.run("sort", segs["sort"])
+        since, audited = 0, False
         stales, resorted = [], []
         for _ in range(n_steps - 1):
+            # a count is read only after an audited (frozen) step
             resort = since >= max_cadence - 1 or (
-                stale_cap < n and int(stale) > stale_cap)
+                audited and stale_cap < n and g.read("n_stale") > stale_cap)
             if resort:
-                r, (meta,) = _sorted_step(r, with_meta, dt)
-                since, stale = 0, 0
+                g.run("sort", segs["sort"])
+                since, audited = 0, False
+                stales.append(0)
             else:
-                r, stale = _frozen_step(r, frozen, meta, dt, with_audit=True)
-                since += 1
-            stales.append(stale)
+                g.run("frozen_audit", segs["frozen_audit"])
+                since, audited = since + 1, True
+                stales.append(g.get("n_stale") if with_trace else 0)
             resorted.append(resort)
-        out = to_particle_state(r)
+        out = _row_readout(g)
         if not with_trace:
             return out
-        dev = state.pos.device
-        return out, (
-            torch.tensor([int(c) for c in stales], dtype=torch.int32,
-                         device=dev),
-            torch.tensor(resorted, dtype=torch.bool, device=dev))
+        return out, stack_trace(stales, resorted, state.pos.device)
 
     return multi
 

@@ -31,12 +31,18 @@ as sources and masked by cov as targets.
 Rows past the k-slot cap (the Poisson tail of dense cells) ride a side
 buffer rebuilt at each re-sort from K2's exact per-cell counts, integrate
 with the far expansion's A at their frozen cell centre (the row engines'
-overflow fallback) and add their mass to the finest moments. The buffer is
-sized at each re-sort to every such row, on one host read of the overflow
-count: a collapsing scene's overflow grows far past any static size (the 1M
+overflow fallback) and add their mass to the finest moments. Every such row
+gets a side row, on one host read of the overflow count at each re-sort: a
+collapsing scene's overflow grows far past any static size (the 1M
 Barnes-Hut cold collapse holds ~1.5·10⁵ rows past k = 16 by step 30), and
 the JAX package's static buffer lets the rows beyond it read the state of
-another row's slot.
+another row's slot. The drivers keep the buffer's length in a bucket, so
+its shapes stay put between re-sorts: a power of two of at least the
+count and at least ``SIDE_MIN`` rows, doubled when a re-sort's count
+exceeds it, never shrunk within a driver's graphs. ``side_valid`` marks
+the live rows; the padding rows have zero mass, stay still, feed no moment,
+are never audited and are never read out (no row's ``idx_ext`` points at
+one).
 
 Row identities never pass through floats. ``tag`` (N,) int32 holds each
 row's original index in the last re-sort's row order, ``idx_ext`` (N,)
@@ -57,7 +63,14 @@ cell changed through K2's dest form, stored in place so a repair costs what
 its movers cost, and rebuilds only past ``repair_cap`` movers or
 ``max_cadence`` steps). Each ``lax.cond`` of the JAX drivers is a
 host decision here, on at most one read of a device count per step (and one
-more on a re-sort, the side buffer's size).
+more on a re-sort, the side buffer's count). Their steps are segments of an
+``ops.step_graph.SegmentGraphs`` on the TableState as its carry (``entry``,
+``drift`` / ``drift_audit``, ``sort``, ``build`` per side bucket, ``tail``,
+``repair``): captured CUDA graphs replayed between the host reads when the
+caller hands one in (the facade on the card), else run eagerly. A drift
+leaves the drifted table and the half-kicked velocities in the carry's
+``pos_t`` and ``vel_t`` (the step's start is not needed again), and the
+next segment of the step finishes it.
 
 The TPU layout machinery of the JAX module (the lane padding L, chunk and
 mover bookkeeping for the one-hot placement, the plane relayout) has no
@@ -82,11 +95,13 @@ from nbody_tpu_torch.ops.barnes_hut import (
 from nbody_tpu_torch.ops.scatter import (
     SENTINEL_DEST,
     cell_centers,
+    segment_sum,
     tile_place,
     tile_scatter,
 )
 from nbody_tpu_torch.ops.sorted_window import build_sorted_grid, sorted_ranks
 from nbody_tpu_torch.ops.spatial_hash import tiles_bin
+from nbody_tpu_torch.ops.step_graph import SegmentGraphs, stack_trace
 from nbody_tpu_torch.ops.tile_near import tile_sweep_plane
 from nbody_tpu_torch.ops.tile_sweep import tile_engine_fused
 from nbody_tpu_torch.state import ParticleState
@@ -134,9 +149,21 @@ class TableState:
     side: torch.Tensor       # (cap, 7) [x, y, z, m, vx, vy, vz]
     side_cell: torch.Tensor  # (cap,) i32 frozen cell id
     side_acc: torch.Tensor   # (cap, 3) G-scaled
+    side_valid: torch.Tensor  # (cap,) bool a live side row (not padding)
     lo: torch.Tensor         # (3,) grid origin at the last re-sort
     cell: torch.Tensor       # () cell width at the last re-sort
     time: torch.Tensor       # ()
+
+
+# The side buffer's least bucket (rows)
+SIDE_MIN = 1024
+
+
+def side_bucket(total: int, cap: int = 0) -> int:
+    """The side buffer's length for ``total`` overflow rows: ``cap`` while
+    it holds them, else the least power of two ≥ max(total, SIDE_MIN)."""
+    need = max(total, SIDE_MIN)
+    return cap if cap >= need else 1 << (need - 1).bit_length()
 
 
 # ---------------------------------------------------------------------------
@@ -241,12 +268,14 @@ def _table_moments(pos_d_t, ts: TableState, side_pd, p: TableParams):
         x, y, z = sx[:, 0:1], sx[:, 1:2], sx[:, 2:3]
         svals = torch.cat([sm, sm * sx, sm * (sx * sx), sm * (x * y),
                            sm * (x * z), sm * (y * z)], dim=-1)
-        # per-cell sums in a fixed order (an index_add_ on the card adds
-        # with atomics in no fixed order, and the audit that picks the
-        # re-sort steps would then vary from run to run)
-        mom = mom + torch.segment_reduce(
-            svals[torch.argsort(sc, stable=True)], "sum",
-            lengths=torch.bincount(sc, minlength=nc), axis=0)
+        # per-cell sums in a fixed order, by kernel K6 on the rows sorted by
+        # cell (an index_add_ on the card adds with atomics in no fixed
+        # order, and the audit that picks the re-sort steps would then vary
+        # from run to run); padding rows go past every cell, adding nothing
+        dest = torch.where(ts.side_valid, ts.side_cell, SENTINEL_DEST)
+        order = torch.argsort(dest, stable=True)
+        mom = mom + segment_sum(svals[order].contiguous(), dest[order],
+                                nc).T
     return mom.reshape(d, d, d, 10)
 
 
@@ -269,13 +298,14 @@ def _sweep(pos_t, far_plane, lo, cell, live, p: TableParams):
         )  # (d, 3, k, d²) unscaled
 
 
-def _side_kick(side_pd, side_cell, far_a, dt, p: TableParams):
+def _side_kick(side_pd, side_cell, side_valid, far_a, dt, p: TableParams):
     """Side rows after the force: (side (cap, 7), side_acc (cap, 3)), with
-    G·A of their frozen cell (zero for the hash)."""
+    G·A of their frozen cell (zero for the hash and the padding rows)."""
     if far_a is None:
         sacc = torch.zeros_like(side_pd[:, 0:3])
     else:
-        sacc = p.G * far_a[side_cell.to(torch.int64)]
+        sacc = torch.where(side_valid[:, None],
+                           p.G * far_a[side_cell.to(torch.int64)], 0.0)
     svel = side_pd[:, 4:7] + (0.5 * dt) * sacc
     return torch.cat([side_pd[:, 0:4], svel], dim=-1), sacc
 
@@ -398,15 +428,15 @@ def _audit(n_table, side_pd, ts: TableState, p: TableParams):
     with profile_phase("table.audit", device=side_pd.device):
         ids = _bin_ids(side_pd[:, 0], side_pd[:, 1], side_pd[:, 2], ts.lo,
                        ts.cell, p)
-        return n_table + (ids != ts.side_cell).sum()
+        return n_table + ((ids != ts.side_cell) & ts.side_valid).sum()
 
 
 def _extract(ts: TableState, pos_d_t, vel_h, side_pd, p: TableParams):
     """Drifted table + side → the rows in the last re-sort's row order:
     (pos4 (N, 4) [pos_d, m], vel_h (N, 3)). Paid on re-sort steps only."""
     with profile_phase("table.extract", device=pos_d_t.device):
-        rows = _read_rows(ts, [pos_d_t[:, 0:3], vel_h],
-                          side_pd[:, [0, 1, 2, 4, 5, 6]], p)
+        rows = _read_rows(ts, [pos_d_t[:, 0:3], vel_h], torch.cat(
+            [side_pd[:, 0:3], side_pd[:, 4:7]], dim=1), p)
         pos4 = torch.cat([rows[:, 0:3], ts.mass[:, None]], dim=-1)
         return pos4, rows[:, 3:6].contiguous()
 
@@ -422,108 +452,128 @@ def _frozen_force_and_kick(ts: TableState, pos_d_t, vel_h, side_pd, dt,
     far_plane, far_a = _far_grids(packed, ts.lo, ts.cell, p)
     raw = _sweep(pos_d_t, far_plane, ts.lo, ts.cell, ts.live, p)
     acc_t, vel_t = table_kick(raw, ts.cov_t, vel_h, p.G, dt)
-    side, sacc = _side_kick(side_pd, ts.side_cell, far_a, dt, p)
+    side, sacc = _side_kick(side_pd, ts.side_cell, ts.side_valid, far_a, dt,
+                            p)
     return dataclasses.replace(
         ts, pos_t=pos_d_t, vel_t=vel_t, acc_t=acc_t, side=side,
         side_acc=sacc, time=ts.time + dt,
     )
 
 
-def _sort_build(pos4, vel, tag, prev_time, dt, p: TableParams) -> TableState:
-    """Drifted rows ``pos4`` (N, 4) [pos_d, m] and half-kicked ``vel``
-    (N, 3), ``tag`` their original indices (N,) int32 → a fresh
-    TableState: the engine's binning, stable sort and payload gather, K2's
-    rank form with coverage and the velocities as extra channels, the side
-    buffer from the exact counts, far grids, sweep, second half-kick."""
+def _sort_rows(pos4, vel, tag, p: TableParams) -> dict:
+    """A re-sort up to its host read: drifted rows ``pos4`` (N, 4) [pos_d,
+    m] and half-kicked ``vel`` (N, 3), ``tag`` their original indices (N,)
+    int32 → the engine's binning, stable sort and payload gather, and K2's
+    rank form with coverage and the velocities as extra channels; with
+    ``total`` () the rows past the k cap, the count the side buffer is
+    sized by. Returns the values ``_build_table`` reads, by carry name."""
     d, k = p.d, p.k
     n = pos4.shape[0]
-    nc = d * d * d
     dev = pos4.device
     with profile_phase(p.sort_phase, device=dev):
         lo, cell, coords = _grid_geometry(pos4[:, 0:3], p)
         grid = build_sorted_grid(pos4[:, 0:3], pos4[:, 3], coords, d)
         vel_s = vel[grid.order]
         tag_s = tag[grid.order]
-        ids_s = grid.ids
         rank = (torch.arange(n, dtype=torch.int32, device=dev)
-                - grid.cell_start[ids_s])
+                - grid.cell_start[grid.ids])
 
     with profile_phase(f"{p.near}.placement", device=dev):
         pos_t, moments, cov_t, vel_h_t = tile_scatter(
             grid.psort, grid.cell_start, lo, cell, d=d, k=k,
             with_coverage=True, extra=vel_s,
         )
+        total = torch.clamp(moments[10] - float(k), min=0.0).to(
+            torch.int64).sum()
+    return dict(psort=grid.psort, vel_s=vel_s, tag=tag_s, ids=grid.ids,
+                rank=rank, cell_start=grid.cell_start, pos_t=pos_t,
+                moments=moments, cov_t=cov_t, vel_t=vel_h_t, lo=lo,
+                cell=cell, total=total)
+
+
+def _build_table(b, cap: int, dt, p: TableParams) -> TableState:
+    """A re-sort after its host read: ``_sort_rows``' values ``b`` (and
+    ``b["time"]``, the time before the step) → a fresh TableState with a
+    side buffer of ``cap`` rows (at least the overflow count ``total``):
+    side row j < total is the (j − before)-th overflow row of its cell
+    (from the exact counts), the rows past ``total`` are padding; then far
+    grids, sweep and the second half-kick."""
+    d, k = p.d, p.k
+    nc = d * d * d
+    psort, vel_s, cell_start = b["psort"], b["vel_s"], b["cell_start"]
+    ids_s, rank, moments = b["ids"], b["rank"], b["moments"]
+    n = psort.shape[0]
+    dev = psort.device
+    with profile_phase(f"{p.near}.placement", device=dev):
         counts = moments[10]
-        # rows past the k cap, cell by cell, from the exact counts: side
-        # row j is the (j − before)-th overflow row of cell cellj
         ovf = torch.clamp(counts - float(k), min=0.0).to(torch.int64)
         inc = torch.cumsum(ovf, dim=0)
-        total = inc[-1]
-        # the one host read of a re-sort: every overflow row gets a side row
-        cap = int(total)
         j = torch.arange(cap, dtype=torch.int64, device=dev)
-        cellj = torch.searchsorted(inc, j, right=True)
-        side_row = grid.cell_start[cellj].to(torch.int64) + k + (
-            j - (inc[cellj] - ovf[cellj]))
-        side_pd = torch.cat([grid.psort[side_row], vel_s[side_row]], dim=-1)
+        side_valid = j < inc[-1]
+        cellj = torch.clamp(torch.searchsorted(inc, j, right=True),
+                            max=nc - 1)
+        side_row = torch.where(side_valid, cell_start[cellj].to(torch.int64)
+                               + k + (j - (inc[cellj] - ovf[cellj])), 0)
+        side_pd = torch.where(side_valid[:, None], torch.cat(
+            [psort[side_row], vel_s[side_row]], dim=-1), 0.0)
         side_cell = cellj.to(torch.int32)
 
-        # a row's slot, or side row j at d³·k + j
+        # a row's slot, or side row j at d³·k + j (the padding rows' writes
+        # land on a spare entry past the N rows)
         within = rank < k
-        idx_ext = ids_s * k + rank
-        idx_ext[side_row] = (nc * k + j).to(torch.int32)
+        idx_ext = torch.cat([ids_s * k + rank, rank.new_zeros(1)])
+        idx_ext[torch.where(side_valid, side_row, n)] = (
+            nc * k + j).to(torch.int32)
         slot_row = torch.full((nc * k + 1,), -1, dtype=torch.int32,
                               device=dev)
         slot_row[torch.where(within, ids_s * k + rank, nc * k).long()] = (
             torch.arange(n, dtype=torch.int32, device=dev))
-        slot_row = slot_row[:nc * k]
         live = torch.clamp(counts, max=float(k))
 
     packed = moments[:10].T.reshape(d, d, d, 10) if p.mode == "bh" else None
+    lo, cell = b["lo"], b["cell"]
     far_plane, far_a = _far_grids(packed, lo, cell, p)
-    raw = _sweep(pos_t, far_plane, lo, cell, live, p)
-    acc_t, vel_t = table_kick(raw, cov_t, vel_h_t, p.G, dt)
-    side, sacc = _side_kick(side_pd, side_cell, far_a, dt, p)
+    raw = _sweep(b["pos_t"], far_plane, lo, cell, live, p)
+    acc_t, vel_t = table_kick(raw, b["cov_t"], b["vel_t"], p.G, dt)
+    side, sacc = _side_kick(side_pd, side_cell, side_valid, far_a, dt, p)
     return TableState(
-        pos_t=pos_t, vel_t=vel_t, acc_t=acc_t, cov_t=cov_t, live=live,
-        slot_row=slot_row, idx_ext=idx_ext.to(torch.int32), tag=tag_s,
-        mass=grid.psort[:, 3].contiguous(), side=side, side_cell=side_cell,
-        side_acc=sacc, lo=lo, cell=cell,
-        time=prev_time + dt,
+        pos_t=b["pos_t"], vel_t=vel_t, acc_t=acc_t, cov_t=b["cov_t"],
+        live=live, slot_row=slot_row[:nc * k], idx_ext=idx_ext[:n],
+        tag=b["tag"], mass=psort[:, 3].contiguous(), side=side,
+        side_cell=side_cell, side_acc=sacc, side_valid=side_valid, lo=lo,
+        cell=cell, time=b["time"] + dt,
     )
 
 
-def _entry(state: ParticleState, dt, p: TableParams) -> TableState:
-    """First step: drift in row space (``state.acc`` holds a(t)) then
-    sort + build, the arithmetic of the row steppers' sorted step."""
+def _row_drift(state: ParticleState, dt):
+    """Row-space drift and half-kick (``state.acc`` holds a(t)), the
+    arithmetic of the row steppers' sorted step → (pos4, vel_h, tag)."""
     pos_d = state.pos + state.vel * dt + (0.5 * dt * dt) * state.acc
     vel_h = state.vel + (0.5 * dt) * state.acc
     tag = torch.arange(state.n, dtype=torch.int32, device=state.pos.device)
-    return _sort_build(torch.cat([pos_d, state.mass[:, None]], dim=-1),
-                       vel_h, tag, state.time, dt, p)
+    return torch.cat([pos_d, state.mass[:, None]], dim=-1), vel_h, tag
 
 
-def _table_sorted_step(ts: TableState, dt, p: TableParams) -> TableState:
-    pos_d_t, vel_h, side_pd, _, _ = _drift(ts, dt, p)
-    pos4, vel = _extract(ts, pos_d_t, vel_h, side_pd, p)
-    return _sort_build(pos4, vel, ts.tag, ts.time, dt, p)
-
-
-def _table_frozen_step(ts: TableState, dt, p: TableParams) -> TableState:
-    pos_d_t, vel_h, side_pd, _, _ = _drift(ts, dt, p)
-    return _frozen_force_and_kick(ts, pos_d_t, vel_h, side_pd, dt, p)
+def _entry(state: ParticleState, dt, p: TableParams) -> TableState:
+    """First step: drift in row space then sort + build, with a side
+    buffer of exactly the overflow rows (one host read)."""
+    b = _sort_rows(*_row_drift(state, dt), p)
+    b["time"] = state.time
+    return _build_table(b, int(b["total"]), dt, p)
 
 
 def _repair_step(ts: TableState, pos_d_t, vel_h, side_pd, mover,
                  n_movers: int, dt, p: TableParams) -> TableState:
-    """EXACT-assignment incremental step: move only the ``n_movers`` rows
-    whose cell changed (``mover`` ≥ 0 holds their new cells, from
-    ``table_drift``'s audit), leave everything else in place, then the
-    frozen force and kick. Movers are compacted by a prefix sum and a binary
-    search (no second host read), sorted by target cell and ranked, and take
-    the slots above each target cell's high-water mark (``live``), so they
-    never land on a staying row; K2's dest form moves them inside the
-    drifted table, refills the slots they leave, updates the row
+    """EXACT-assignment incremental step: move only the rows whose cell
+    changed (``mover`` ≥ 0 holds their new cells, from ``table_drift``'s
+    audit), leave everything else in place, then the frozen force and kick.
+    The movers are compacted into a set of the static length ``n_movers``
+    (at least their count) by a prefix sum and a binary search, sorted by
+    target cell and ranked, and take the slots above each target cell's
+    high-water mark (``live``), so they never land on a staying row; the
+    entries past the count get a target beyond every cell, sort last and
+    move nothing (``SENTINEL_DEST``). K2's dest form moves the movers inside
+    the drifted table, refills the slots they leave, updates the row
     bookkeeping and recomputes the high-water marks of the cells they
     touched, in one call: work in the movers, not in the table.
 
@@ -536,9 +586,10 @@ def _repair_step(ts: TableState, pos_d_t, vel_h, side_pd, mover,
     mass-exact (Barnes-Hut only: nothing else reads it).
 
     ``ts``'s coverage, liveness and row bookkeeping (``cov_t``, ``live``,
-    ``slot_row``, ``idx_ext``) are updated in place; the drivers never read
-    a state twice."""
+    ``slot_row``, ``idx_ext``) and ``pos_d_t`` and ``vel_h`` are updated in
+    place; the drivers never read a state twice."""
     d, k = p.d, p.k
+    nc = d * d * d
     dev = pos_d_t.device
     with profile_phase("table.repair", device=dev):
         if p.mode == "bh" and ts.side.shape[0] > 0:
@@ -549,15 +600,18 @@ def _repair_step(ts: TableState, pos_d_t, vel_h, side_pd, mover,
         if n_movers > 0:
             # the j-th stale slot (plane order) is where the running count
             # first reaches j
-            csum = torch.cumsum((mover >= 0).reshape(-1), dim=0)
-            mov = torch.searchsorted(csum, torch.arange(
-                1, n_movers + 1, dtype=csum.dtype, device=dev))
-            tgt = mover.reshape(-1)[mov]
+            flat = mover.reshape(-1)
+            csum = torch.cumsum(flat >= 0, dim=0)
+            j = torch.arange(1, n_movers + 1, dtype=csum.dtype, device=dev)
+            mov = torch.clamp(torch.searchsorted(csum, j),
+                              max=flat.shape[0] - 1)
+            tgt = torch.where(j <= csum[-1], flat[mov], nc)
             ordm = torch.argsort(tgt, stable=True)
             mov, tgt = mov[ordm], tgt[ordm]
-            slot = ts.live[tgt.to(torch.int64)].to(torch.int32) + (
-                sorted_ranks(tgt))
-            dest = torch.where(slot < k, tgt * k + slot, SENTINEL_DEST)
+            slot = ts.live[torch.clamp(tgt, max=nc - 1).to(torch.int64)].to(
+                torch.int32) + sorted_ranks(tgt)
+            dest = torch.where((slot < k) & (tgt < nc), tgt * k + slot,
+                               SENTINEL_DEST)
             tile_place(pos_d_t, ts.cov_t, vel_h, ts.live, ts.slot_row,
                        ts.idx_ext, mov.to(torch.int32), dest.to(torch.int32),
                        ts.lo, ts.cell, d=d, k=k)
@@ -595,39 +649,124 @@ def _validate(p: TableParams, resort_every: int = 1) -> None:
         raise ValueError("resort_every must be >= 1")
 
 
-def _trace(counts, flags, device):
-    """(counts (S,) int32, flags (S,) bool) from per-step device or host
-    counts, read once at the end."""
-    c = torch.stack([torch.as_tensor(v, device=device).reshape(())
-                     .to(torch.int32) for v in counts]) if counts else (
-        torch.zeros((0,), dtype=torch.int32, device=device))
-    return c, torch.tensor(flags, dtype=torch.bool, device=device)
-
-
 # ---------------------------------------------------------------------------
 # step drivers
 # ---------------------------------------------------------------------------
 
 
+def _table(b) -> TableState:
+    return TableState(**{f.name: b[f.name]
+                         for f in dataclasses.fields(TableState)})
+
+
+class _Segments:
+    """The table drivers' segments on a ``SegmentGraphs`` carry (the
+    TableState's fields by name, ``_sort_rows``' values and the drift's
+    audit), and the steps made of them. The side bucket lives in the
+    carry's host state (``side_cap``; ``side_grows`` counts its growths)."""
+
+    def __init__(self, p: TableParams, dt: float, repair_cap: int = 0):
+        self.p, self.dt, self.repair_cap = p, dt, repair_cap
+
+    def entry(self, b):
+        st = ParticleState(pos=b["in_pos"], vel=b["in_vel"], acc=b["in_acc"],
+                           mass=b["in_mass"], time=b["in_time"])
+        return {**_sort_rows(*_row_drift(st, self.dt), self.p),
+                "time": b["in_time"]}
+
+    def drift(self, b):
+        return self._drift(b, False)
+
+    def drift_audit(self, b):
+        return self._drift(b, True)
+
+    def _drift(self, b, audit):
+        """The drifted table and side rows into the carry (+ the movers,
+        the table's stale count ``n_table`` and with the side rows'
+        ``n_stale``, with ``audit``)."""
+        ts = _table(b)
+        pos_d_t, vel_h, side_pd, mover, n_table = _drift(ts, self.dt, self.p,
+                                                         audit)
+        out = dict(pos_t=pos_d_t, vel_t=vel_h, side=side_pd)
+        if audit:
+            out.update(mover=mover, n_table=n_table,
+                       n_stale=_audit(n_table, side_pd, ts, self.p))
+        return out
+
+    def sort(self, b):
+        """A re-sort of the drifted carry up to its host read."""
+        ts = _table(b)
+        return _sort_rows(*_extract(ts, ts.pos_t, ts.vel_t, ts.side, self.p),
+                          ts.tag, self.p)
+
+    def tail(self, b):
+        """The frozen step's force and second half-kick."""
+        ts = _table(b)
+        return vars(_frozen_force_and_kick(ts, ts.pos_t, ts.vel_t, ts.side,
+                                           self.dt, self.p))
+
+    def repair(self, b):
+        ts = _table(b)
+        return vars(_repair_step(ts, ts.pos_t, ts.vel_t, ts.side, b["mover"],
+                                 self.repair_cap, self.dt, self.p))
+
+    def enter(self, g: SegmentGraphs, state: ParticleState) -> None:
+        g.load(in_pos=state.pos, in_vel=state.vel, in_acc=state.acc,
+               in_mass=state.mass, in_time=state.time)
+        g.run("entry", self.entry)
+        self.build(g)
+
+    def resort(self, g: SegmentGraphs) -> None:
+        g.run("sort", self.sort)
+        self.build(g)
+
+    def build(self, g: SegmentGraphs) -> None:
+        """The re-sort after its host read of the overflow count: the side
+        buffer at the bucket, grown (and every segment captured again on
+        its next use) when the count exceeds it."""
+        cap = g.state.get("side_cap", 0)
+        new = side_bucket(g.read("total"), cap)
+        if new != cap:
+            if cap:
+                g.state["side_grows"] = g.state.get("side_grows", 0) + 1
+            g.state["side_cap"] = new
+        g.run(("build", new),
+              lambda b: vars(_build_table(b, new, self.dt, self.p)))
+
+    def readout(self, g: SegmentGraphs) -> ParticleState:
+        out = table_to_particle_state(_table(g.buffers), self.p)
+        return dataclasses.replace(out, time=g.get("time"))
+
+
+def _carry(graphs: SegmentGraphs | None) -> SegmentGraphs:
+    return graphs if graphs is not None else SegmentGraphs(graphed=False)
+
+
 def make_table_multi_step(p: TableParams, dt: float, n_steps: int,
-                          resort_every: int = 1):
+                          resort_every: int = 1, *,
+                          graphs: SegmentGraphs | None = None):
     """``n_steps`` Verlet steps, table-resident between re-sorts at a FIXED
     cadence: step s (from 0) re-sorts when s is a multiple of
     ``resort_every`` (the chunks of ``integrator.make_resort_multi_step``),
-    the others are frozen. Returns ``multi(state) -> state``, original row
+    the others are frozen. The steps are segments of ``graphs`` (captured
+    CUDA graphs; the one host read is a re-sort's overflow count), or run
+    eagerly without it. Returns ``multi(state) -> state``, original row
     order in and out; ``state.acc`` must hold a(t)."""
     _validate(p, resort_every)
+    seg = _Segments(p, dt)
 
     def multi(state: ParticleState) -> ParticleState:
         if n_steps < 1:
             return state
-        ts = _entry(state, dt, p)
+        g = _carry(graphs)
+        seg.enter(g, state)
         for s in range(1, n_steps):
+            g.run("drift", seg.drift)
             if s % resort_every == 0:
-                ts = _table_sorted_step(ts, dt, p)
+                seg.resort(g)
             else:
-                ts = _table_frozen_step(ts, dt, p)
-        return table_to_particle_state(ts, p)
+                g.run("tail", seg.tail)
+        return seg.readout(g)
 
     return multi
 
@@ -635,6 +774,7 @@ def make_table_multi_step(p: TableParams, dt: float, n_steps: int,
 def make_table_adaptive_multi_step(
     p: TableParams, dt: float, n_steps: int, *, max_stale_frac: float = 0.01,
     max_cadence: int = 16, with_trace: bool = False,
+    graphs: SegmentGraphs | None = None,
 ):
     """``n_steps`` Verlet steps that re-sort when the scene asks: after the
     first (sorted) step, each step audits its DRIFTED positions against the
@@ -643,41 +783,46 @@ def make_table_adaptive_multi_step(
     last sort (``since ≥ max_cadence − 1``), so no frozen step above the
     threshold is taken. The count is read on the host, once per step and
     only when the cadence cap does not already decide and a count could
-    exceed the cap at all. ``with_trace=True`` also returns the per-step
-    ``(stale_counts, resorted)`` tensors (n_steps − 1,), first step
-    excluded."""
+    exceed the cap at all. ``graphs``: as ``make_table_multi_step``.
+    ``with_trace=True`` also returns the per-step ``(stale_counts,
+    resorted)`` tensors (n_steps − 1,), first step excluded."""
     _validate(p)
     if not 0.0 <= max_stale_frac <= 1.0:
         raise ValueError("max_stale_frac must be in [0, 1]")
     if max_cadence < 1:
         raise ValueError("max_cadence must be >= 1")
+    seg = _Segments(p, dt)
 
     def multi(state: ParticleState):
         n = state.n
         stale_cap = int(max_stale_frac * n)
         stales, flags = [], []
-        ts = _entry(state, dt, p) if n_steps >= 1 else None
+        g = _carry(graphs)
+        if n_steps >= 1:
+            seg.enter(g, state)
         since = 0
         for _ in range(n_steps - 1):
             by_cadence = since >= max_cadence - 1
             by_audit = not by_cadence and stale_cap < n
             audit = with_trace or by_audit
-            pos_d_t, vel_h, side_pd, _, n_table = _drift(ts, dt, p, audit)
-            stale = _audit(n_table, side_pd, ts, p) if audit else 0
-            resort = by_cadence or (by_audit and int(stale) > stale_cap)
+            if audit:
+                g.run("drift_audit", seg.drift_audit)
+                stale = g.read("n_stale") if by_audit else g.get("n_stale")
+            else:
+                g.run("drift", seg.drift)
+                stale = 0
+            resort = by_cadence or (by_audit and stale > stale_cap)
             if resort:
-                pos4, vel = _extract(ts, pos_d_t, vel_h, side_pd, p)
-                ts = _sort_build(pos4, vel, ts.tag, ts.time, dt, p)
+                seg.resort(g)
                 since = 0
             else:
-                ts = _frozen_force_and_kick(ts, pos_d_t, vel_h, side_pd, dt,
-                                            p)
+                g.run("tail", seg.tail)
                 since += 1
             stales.append(stale)
             flags.append(resort)
-        out = table_to_particle_state(ts, p) if ts is not None else state
+        out = seg.readout(g) if n_steps >= 1 else state
         if with_trace:
-            return out, _trace(stales, flags, state.pos.device)
+            return out, stack_trace(stales, flags, state.pos.device)
         return out
 
     return multi
@@ -686,48 +831,52 @@ def make_table_adaptive_multi_step(
 def make_table_repair_multi_step(
     p: TableParams, dt: float, n_steps: int, *, repair_cap: int = 32768,
     max_cadence: int = 64, with_trace: bool = False,
+    graphs: SegmentGraphs | None = None,
 ):
     """``n_steps`` Verlet steps with EXACT cell assignments at incremental
     cost: every step re-homes the rows whose cell changed
-    (``_repair_step``); a full rebuild runs only when the mover count
-    exceeds ``repair_cap`` or ``max_cadence`` expires (bounding the
-    fragmentation and the frozen grid geometry). The count is read on the
-    host once per step (the repair sizes its mover set by it), except on a
-    step the cadence cap rebuilds. The physics matches re-sort-every-step
-    up to slot summation order, the frozen grid geometry between rebuilds
-    and the audited denials. ``with_trace=True`` also returns the per-step
-    ``(stale_counts, rebuilt)`` tensors (n_steps − 1,), first step
-    excluded; a count is the table rows that left their cell."""
+    (``_repair_step``, on a mover set of ``repair_cap`` entries); a full
+    rebuild runs only when the mover count exceeds ``repair_cap`` or
+    ``max_cadence`` expires (bounding the fragmentation and the frozen grid
+    geometry). The count is read on the host once per step, except on a
+    step the cadence cap rebuilds. ``graphs``: as ``make_table_multi_step``.
+    The physics matches re-sort-every-step up to slot summation order, the
+    frozen grid geometry between rebuilds and the audited denials.
+    ``with_trace=True`` also returns the per-step ``(stale_counts,
+    rebuilt)`` tensors (n_steps − 1,), first step excluded; a count is the
+    table rows that left their cell."""
     _validate(p)
     if repair_cap < 128:
         raise ValueError("repair_cap must be >= 128")
     if max_cadence < 1:
         raise ValueError("max_cadence must be >= 1")
+    seg = _Segments(p, dt, repair_cap)
 
     def multi(state: ParticleState):
         stales, flags = [], []
-        ts = _entry(state, dt, p) if n_steps >= 1 else None
+        g = _carry(graphs)
+        if n_steps >= 1:
+            seg.enter(g, state)
         since = 0
         for _ in range(n_steps - 1):
-            pos_d_t, vel_h, side_pd, mover, n_stale = _drift(ts, dt, p,
-                                                             audit=True)
+            g.run("drift_audit", seg.drift_audit)
             rebuild = since >= max_cadence - 1
-            if not rebuild:
-                n_stale = int(n_stale)
+            if rebuild:
+                n_stale = g.get("n_table")
+            else:
+                n_stale = g.read("n_table")
                 rebuild = n_stale > repair_cap
             if rebuild:
-                pos4, vel = _extract(ts, pos_d_t, vel_h, side_pd, p)
-                ts = _sort_build(pos4, vel, ts.tag, ts.time, dt, p)
+                seg.resort(g)
                 since = 0
             else:
-                ts = _repair_step(ts, pos_d_t, vel_h, side_pd, mover, n_stale,
-                                  dt, p)
+                g.run("repair", seg.repair)
                 since += 1
             stales.append(n_stale)
             flags.append(rebuild)
-        out = table_to_particle_state(ts, p) if ts is not None else state
+        out = seg.readout(g) if n_steps >= 1 else state
         if with_trace:
-            return out, _trace(stales, flags, state.pos.device)
+            return out, stack_trace(stales, flags, state.pos.device)
         return out
 
     return multi

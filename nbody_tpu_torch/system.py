@@ -19,12 +19,15 @@ JAX facade's jitted step and fused n-step program are: ONE Verlet step
 captured as a CUDA graph and replayed once a step (``ops/step_graph.py``),
 the plain step for ``update()`` and for engines without the sorted
 contract, the cell-sorted step (``sorted_verlet_step`` on a
-``SortedState``) for ``run_steps`` on the others. A strategy's graph is
-captured on its first call and kept for every n; it is dropped whenever
-what it closes over changes: a live setter, ``reset``, ``set_time_step``,
-``set_state`` and ``load_state``. The frozen-grid drivers, the table
-drivers and the sharded mesh step eagerly (see ``_multi_step``); so does
-every path on the CPU.
+``SortedState``) for ``run_steps`` on the others; the frozen-grid drivers
+(the fixed cadence, the audited re-sort and the repair, in row space or
+table-resident) replay their captured segments (``SegmentGraphs``) in the
+order their schedule picks, with their few host reads between replays. A
+strategy's graphs are captured on their first call and kept for every n;
+they are dropped whenever what they close over changes: a live setter,
+``reset``, ``set_time_step``, ``set_state`` and ``load_state``. Only the
+sharded mesh steps eagerly (see ``_multi_step``); so does every path on
+the CPU.
 
 With ``shard_devices`` P > 1 the state is padded with zero-mass rows to a
 multiple of P and sharded over a mesh of P positions
@@ -79,7 +82,7 @@ from nbody_tpu_torch.ops.integrator import (
     sorted_verlet_step,
     to_particle_state,
 )
-from nbody_tpu_torch.ops.step_graph import StepGraph
+from nbody_tpu_torch.ops.step_graph import SegmentGraphs, StepGraph
 from nbody_tpu_torch.ops.table_step import (
     make_table_adaptive_multi_step,
     make_table_multi_step,
@@ -110,14 +113,15 @@ from nbody_tpu_torch.utils.serialization import Serializer
 
 
 # The (engine, knob) pairs that step table-resident on the card: those
-# whose table driver beat the row-space driver there in every call of
-# chip_smoke.py's routing comparison (PERF.md §5-6; the 1M sparse hash and
-# 1M Barnes-Hut tiles scenes). The hash's audited re-sort and repair win;
-# its fixed cadence ties, and Barnes-Hut, host-bound and re-sorted every
-# step on its cold collapse, loses or ties on all three knobs, so those
-# keep the row-space choice. The JAX facade sends every pair to its table
-# drivers on its accelerator.
-TABLE_ROUTES = frozenset({("hash", "stale_frac"), ("hash", "repair")})
+# whose table driver beat the row-space driver there, both on captured
+# graphs, by more than the spread of the turns (the larger interquartile
+# range of their runs) in chip_smoke.py's routing comparison (PERF.md §5-6;
+# the 1M sparse hash and 1M Barnes-Hut tiles scenes). Only the hash's
+# repair wins; its audited re-sort and fixed cadence tie, and Barnes-Hut,
+# re-sorted every step on its cold collapse, loses on all three knobs, so
+# those keep the row-space choice. The JAX facade sends every pair to its
+# table drivers on its accelerator.
+TABLE_ROUTES = frozenset({("hash", "repair")})
 
 
 def _resort_knob(config: SimulationConfig) -> Optional[str]:
@@ -163,7 +167,7 @@ class ParticleSystem:
         self._table_params = None
         self._step = None
         self._sorted_step = None
-        # the captured steps on the card, by kind ("plain", "sorted")
+        # the captured steps on the card, by kind (``step_graphs``)
         self._graphs: dict = {}
         self._paused = False
         self._initialized = False
@@ -274,12 +278,24 @@ class ParticleSystem:
             self._graphs[kind] = g
         return g
 
+    def _segments(self, kind: str, graphed: bool):
+        """The card's captured segments of the frozen-grid driver ``kind``
+        when ``graphed``, made on first use; else None (eager)."""
+        if not graphed:
+            return None
+        return self._graphs.setdefault(kind, SegmentGraphs())
+
     @property
     def step_graphs(self) -> dict:
         """The captured steps made so far for the current strategy and dt,
-        by kind ("plain": ``update()`` and plain ``run_steps``; "sorted":
-        cell-sorted ``run_steps``), each an ``ops.step_graph.StepGraph``
-        (captured once its first call has run). Empty off the card."""
+        by kind: "plain" (``update()`` and plain ``run_steps``) and
+        "sorted" (cell-sorted ``run_steps``), each an
+        ``ops.step_graph.StepGraph`` (captured once its first call has
+        run); "cadence" and "adaptive" (the row-space frozen-grid
+        drivers), "table cadence", "table adaptive" and "table repair",
+        each an ``ops.step_graph.SegmentGraphs`` (its ``segments``,
+        ``host_reads``, ``pool_bytes`` and side bucket ``state``). Empty
+        off the card."""
         return dict(self._graphs)
 
     def _graphed(self) -> bool:
@@ -337,30 +353,35 @@ class ParticleSystem:
         fixed cadence when ``resort_every > 1``; else a sort every step
         (``resort_repair`` alone included).
 
-        On the card (``graphed`` None or True) the plain steps and the
-        sort every step replay the strategy's captured step
-        (``StepGraph``: n replays, the first call's first step eager and
-        the capture after it); ``graphed=False`` gives the eager
-        multi-step function of the same force, the reference the graph is
-        held to. The frozen-grid drivers (the fixed cadence, the audited
-        re-sort and repair, in row space or table-resident) and the
-        sharded mesh step eagerly: their graphs are still to come."""
+        On the card (``graphed`` None or True) every one of them replays
+        the strategy's captured graphs: the plain steps and the sort every
+        step one captured step (``StepGraph``: n replays, the first call's
+        first step eager and the capture after it), the frozen-grid
+        drivers their captured segments (``SegmentGraphs``: each
+        segment's first use eager, then captured), with their host reads
+        between replays; ``graphed=False`` gives the eager multi-step
+        function of the same force and driver, the reference the graphs
+        are held to. Only the sharded mesh steps eagerly."""
         cfg, sf, tp = self._config, self._sorted_force, self._table_params
         if self._mesh is not None:
             return sharded_multi_step(self._force_fn, cfg.dt, n_steps)
+        if graphed is None:
+            graphed = self._graphed()
         cadence = cfg.resort_every
         if tp is not None:
             if cfg.resort_repair:
                 return make_table_repair_multi_step(
                     tp, cfg.dt, n_steps,
-                    max_cadence=cadence if cadence > 1 else 64)
+                    max_cadence=cadence if cadence > 1 else 64,
+                    graphs=self._segments("table repair", graphed))
             if cfg.resort_stale_frac > 0.0:
                 return make_table_adaptive_multi_step(
                     tp, cfg.dt, n_steps, max_stale_frac=cfg.resort_stale_frac,
-                    max_cadence=cadence if cadence > 1 else 16)
-            return make_table_multi_step(tp, cfg.dt, n_steps, cadence)
-        if graphed is None:
-            graphed = self._graphed()
+                    max_cadence=cadence if cadence > 1 else 16,
+                    graphs=self._segments("table adaptive", graphed))
+            return make_table_multi_step(
+                tp, cfg.dt, n_steps, cadence,
+                graphs=self._segments("table cadence", graphed))
         if sf is None:
             if graphed:
                 g = self._graph("plain")
@@ -370,9 +391,12 @@ class ParticleSystem:
         if frozen and cfg.resort_stale_frac > 0.0:
             return make_adaptive_multi_step(
                 sf, cfg.dt, n_steps, max_stale_frac=cfg.resort_stale_frac,
-                max_cadence=cadence if cadence > 1 else 16)
+                max_cadence=cadence if cadence > 1 else 16,
+                graphs=self._segments("adaptive", graphed))
         if frozen and cadence > 1:
-            return make_resort_multi_step(sf, cfg.dt, n_steps, cadence)
+            return make_resort_multi_step(
+                sf, cfg.dt, n_steps, cadence,
+                graphs=self._segments("cadence", graphed))
         if graphed:
             g = self._graph("sorted")
             return lambda state: to_particle_state(

@@ -11,10 +11,11 @@ sparse hash, 1M Barnes-Hut window engine, 100K direct, and the six
 frozen-grid paths: the re-sort cadence, the audited re-sort and repair on
 the sparse hash and Barnes-Hut tiles, each as the facade routes it), through
 the facade's eager multi-step function (``ParticleSystem._multi_step(...,
-graphed=False)``, what ``run_steps`` ran before it replayed a captured
-step) and, on the paths whose ``run_steps`` replays one captured step
-(``ops/step_graph.py``), through that function as well (label
-"... (graphed)"), the 1M Barnes-Hut monopole path
+graphed=False)``, what ``run_steps`` ran before it replayed captured
+graphs) and through the graphed ``run_steps`` function as well (label
+"... (graphed)": one captured step, or on the frozen-grid paths the
+driver's captured segments, ``ops/step_graph.py``), the 1M Barnes-Hut
+monopole path
 (``chip_smoke.monopole_forces`` under ``make_sorted_multi_step``) and the
 4M flagship's two step paths (``scripts/flagship_4m_torch.py``'s scenes
 and configs under ``make_sorted_multi_step``, and each of these three on a
@@ -30,7 +31,9 @@ it takes a warm run of ``steps`` steps from the initial state, then:
     each kernel name per step;
   * reports the idle share as 1 − busy / unprofiled ms/step;
   * on a graphed path, also the kernel nodes of the captured step
-    (``chip_smoke.kernel_nodes``), the kernels a replay launches.
+    (``chip_smoke.kernel_nodes``), the kernels a replay launches; on a
+    frozen-grid path those of each captured segment, and the host reads
+    of a run.
 
 Prints one summary line per path and writes everything as JSON to
 ``--out`` (the trace is written beside it and removed). Needs a card;
@@ -101,7 +104,7 @@ def main() -> None:
         sorted_verlet_step,
         to_particle_state,
     )
-    from nbody_tpu_torch.ops.step_graph import StepGraph
+    from nbody_tpu_torch.ops.step_graph import SegmentGraphs, StepGraph
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -147,15 +150,21 @@ def main() -> None:
             "idle_share": 1.0 - (busy / steps) / step_ms,
             "top_kernels_ms_per_step": {k: v / steps for k, v in top},
         }
-        if graph is not None:
+        note = ""
+        if isinstance(graph, SegmentGraphs):
+            rec["segment_kernels"] = {str(k): kernel_nodes(g.graph)
+                                      for k, g in graph.segments.items()}
+            rec["host_reads_per_run"] = graph.host_reads / 3
+            note = (f", segments' kernels {rec['segment_kernels']}, "
+                    f"{rec['host_reads_per_run']:g} host reads a run")
+        elif graph is not None:
             rec["graph_kernels_per_step"] = kernel_nodes(graph.graph)
+            note = f", {rec['graph_kernels_per_step']} kernels in the graph"
         report["paths"][label] = rec
         print(f"{label}: {step_ms:.3f} ms/step unprofiled "
               f"({prof_ms:.3f} profiled), {count / steps:.1f} kernels/step, "
               f"device busy {busy / steps:.3f} ms/step, idle share "
-              f"{rec['idle_share']:.3f}"
-              + (f", {rec['graph_kernels_per_step']} kernels in the graph"
-                 if graph is not None else "") + f" ({smi})")
+              f"{rec['idle_share']:.3f}{note} ({smi})")
         for k, v in top:
             print(f"    {v / steps:8.4f} ms/step  {k[:90]}")
 

@@ -1178,7 +1178,7 @@ def test_table_drivers_on_card_match_row_space(dev):
 def test_table_slot_row_marks_coverage(dev):
     """The invariant K2's dest form reads its high-water marks by: a table
     slot is occupied (cov 1) exactly where its ``slot_row`` entry is ≥ 0,
-    after a build (``_sort_build``) and after each of four repair steps of
+    after a build (``_entry``) and after each of four repair steps of
     the hot scene (movers every step, holes left behind); and ``live`` is
     the high-water mark of cov wherever a repair touched a cell (min(count,
     k) after the build)."""
@@ -1841,3 +1841,189 @@ def test_step_graph_capture_failure_raises(dev):
     assert g.graph is None
     torch.cuda.synchronize()
     assert float((p * 2).sum()) == pytest.approx(2 * float(p.sum()))
+
+
+# ---- the frozen-grid drivers as captured segments (SegmentGraphs) -------
+
+# (space, engine, knob): the ten frozen-grid drivers the facade can pick
+FROZEN_DRIVERS = [(space, engine, knob) for engine in ("bh", "hash")
+                  for space, knob in (("row", "cadence"),
+                                      ("row", "stale_frac"),
+                                      ("table", "cadence"),
+                                      ("table", "stale_frac"),
+                                      ("table", "repair"))]
+
+
+def _frozen_scene(dev, engine):
+    """(sorted force, table parameters, state with a(t)): the hot BH cube
+    of ``_table_case`` (movers every step), or 16384 rows of the hash
+    tiles scene at 30·N(0, 1) velocities."""
+    if engine == "bh":
+        return _table_case(dev, 30.0, cube=True)
+    from nbody_tpu_torch import ParticleSystem
+
+    ps = ParticleSystem()
+    ps.initialize(SimulationConfig(particle_count=16384, dt=1e-3,
+                                   **GRAPH_ENGINES["hash tiles"][0]),
+                  device=dev)
+    st = ps.state
+    rng = np.random.default_rng(33)
+    vel = torch.from_numpy((30.0 * rng.normal(size=(st.n, 3))).astype(
+        np.float32)).to(dev)
+    tp = make_table_step_params(ps.config, device=dev, pos_hint=st.pos)
+    assert tp is not None and tp.mode == "hash"
+    return ps._sorted_force, tp, ParticleState(
+        pos=st.pos, vel=vel, acc=st.acc, mass=st.mass, time=st.time)
+
+
+def _frozen_driver(space, knob, sf, tp, steps, graphs):
+    """The driver of ``knob`` in ``space``, traced where it has a trace;
+    cadence 4, audit 0.01 with cap 16, repair with its defaults."""
+    dt = 1e-3
+    if space == "row":
+        if knob == "cadence":
+            return tint.make_resort_multi_step(sf, dt, steps, 4, graphs=graphs)
+        return tint.make_adaptive_multi_step(
+            sf, dt, steps, max_stale_frac=0.01, max_cadence=16,
+            with_trace=True, graphs=graphs)
+    if knob == "cadence":
+        return T.make_table_multi_step(tp, dt, steps, 4, graphs=graphs)
+    if knob == "stale_frac":
+        return T.make_table_adaptive_multi_step(
+            tp, dt, steps, max_stale_frac=0.01, max_cadence=16,
+            with_trace=True, graphs=graphs)
+    return T.make_table_repair_multi_step(tp, dt, steps, with_trace=True,
+                                          graphs=graphs)
+
+
+def _same_run(got, want, what):
+    """States (and traces) bit for bit."""
+    if isinstance(want, tuple):
+        (got, gtrace), (want, wtrace) = got, want
+        for g, w in zip(gtrace, wtrace):
+            assert torch.equal(g, w), f"{what}: trace differs"
+    _same_state(got, want, what)
+
+
+@pytest.mark.parametrize("space,engine,knob", FROZEN_DRIVERS)
+def test_frozen_graph_equals_eager(dev, space, engine, knob):
+    """Each frozen-grid driver on captured segments (a first call: each
+    segment's first use eager, then captured; a second call: replays
+    only) equals the same driver run eagerly from the same state, state
+    and trace bit for bit, with as many host reads and launches; the
+    fixed cadence reads the host only at a table re-sort (the side
+    buffer's count)."""
+    from nbody_tpu_torch.ops.step_graph import SegmentGraphs
+
+    sf, tp, st = _frozen_scene(dev, engine)
+    steps = 9
+    eager = SegmentGraphs(graphed=False)
+    before = {f: f.launches for f in _build.COUNTED}
+    want = _frozen_driver(space, knob, sf, tp, steps, eager)(st)
+    eager_launches = {f: f.launches - n for f, n in before.items()}
+    graphs = SegmentGraphs()
+    _same_run(_frozen_driver(space, knob, sf, tp, steps, graphs)(st), want,
+              f"{space} {engine} {knob} first call")
+    assert graphs.host_reads == eager.host_reads
+    caps = {k: s.captures for k, s in graphs.segments.items()}
+    assert caps and set(caps.values()) == {1}
+    before = {f: f.launches for f in _build.COUNTED}
+    _same_run(_frozen_driver(space, knob, sf, tp, steps, graphs)(st), want,
+              f"{space} {engine} {knob} replays")
+    torch.cuda.synchronize()
+    assert {f: f.launches - n for f, n in before.items()} == eager_launches
+    assert {k: s.captures for k, s in graphs.segments.items()} == caps
+    assert graphs.host_reads == 2 * eager.host_reads
+    if knob == "cadence":
+        sorts = 1 + (steps - 1) // 4
+        assert eager.host_reads == (sorts if space == "table" else 0)
+
+
+def test_side_bucket_growth_recaptures(dev, monkeypatch):
+    """The hash table cadence on a collapsing cube (the CPU test's scene,
+    least bucket cut to 16): the side buffer grows once (32 → 256) inside
+    the first graphed call, every segment is captured again after it, the
+    run equals the eager one bit for bit; a second call keeps the bucket
+    and captures only the entry (dropped at the growth, after its use), a
+    third nothing."""
+    from nbody_tpu_torch.ops.step_graph import SegmentGraphs
+
+    monkeypatch.setattr(T, "SIDE_MIN", 16)
+    n = 256
+    rng = np.random.default_rng(13)
+    pos = rng.uniform(-4.0, 4.0, (n, 3)).astype(np.float32)
+    st = ParticleState(
+        pos=torch.from_numpy(pos).to(dev),
+        vel=torch.from_numpy((-150.0 * pos).astype(np.float32)).to(dev),
+        acc=torch.zeros(n, 3, device=dev), mass=torch.ones(n, device=dev),
+        time=torch.zeros((), device=dev))
+    tp = T.hash_table_params(cutoff=2.0, cell_size=2.0, d=8, k=8)
+    want = T.make_table_multi_step(tp, 1e-3, 5, 2)(st)
+    graphs = SegmentGraphs()
+    multi = T.make_table_multi_step(tp, 1e-3, 5, 2, graphs=graphs)
+    _same_state(multi(st), want, "across the growth")
+    assert graphs.state == {"side_cap": 256, "side_grows": 1}
+    assert graphs.buffers["side"].shape[0] == 256
+    segs = dict(graphs.segments)
+    assert ("build", 32) not in segs and ("build", 256) in segs
+    _same_state(multi(st), want, "after the growth")
+    assert set(graphs.segments) == set(segs) | {"entry"}
+    assert all(graphs.segments[k] is s for k, s in segs.items())
+    captures = graphs.captures
+    _same_state(multi(st), want, "replays only")
+    assert graphs.captures == captures
+    assert graphs.state == {"side_cap": 256, "side_grows": 1}
+
+
+def test_segment_capture_failure_raises(dev):
+    """A segment that reads the host runs eagerly at its first use, then
+    cannot be captured: the call raises (no eager fallback), nothing is
+    kept, and the card stays usable."""
+    from nbody_tpu_torch.ops.step_graph import SegmentGraphs
+
+    g = SegmentGraphs()
+    x = torch.arange(8.0, device=dev)
+    g.load(x=x)
+    with pytest.raises(Exception):
+        g.run("bad", lambda b: {"x": b["x"] + 0.0 * float(b["x"].sum())})
+    assert "bad" not in g.segments
+    torch.cuda.synchronize()
+    assert float((x * 2).sum()) == 56.0
+
+
+@pytest.mark.parametrize("knob,kind", [
+    (dict(resort_every=4), "cadence"),
+    (dict(resort_stale_frac=0.01), "adaptive"),
+    (dict(resort_repair=True), "table repair")])
+def test_frozen_graph_facade_hands_out_no_buffer(dev, monkeypatch, knob,
+                                                 kind):
+    """Through the facade (BH tiles; repair routed to the table): run_steps
+    replays the driver's captured segments (``step_graphs[kind]``), equal
+    to ``_multi_step(..., graphed=False)`` bit for bit; a state handed out
+    is unchanged after later calls and shares no buffer."""
+    import nbody_tpu_torch.system as system
+
+    monkeypatch.setattr(system, "TABLE_ROUTES",
+                        system.TABLE_ROUTES | {("bh", "repair")})
+    from nbody_tpu_torch import ParticleSystem
+
+    ps = ParticleSystem()
+    ps.initialize(SimulationConfig(particle_count=4096, dt=1e-3,
+                                   **GRAPH_ENGINES["bh tiles"][0], **knob),
+                  device=dev)
+    state0 = ps.state
+    want = ps._multi_step(5, graphed=False)(state0)
+    ps.run_steps(5)
+    _same_state(ps.state, want, kind)
+    g = ps.step_graphs[kind]
+    assert g.segments and all(s.captures == 1 for s in g.segments.values())
+    held = ps.state
+    copy = {k: getattr(held, k).clone() for k in STATE_FIELDS}
+    ps.run_steps(3)
+    ps.run_steps(2)
+    torch.cuda.synchronize()
+    for k in STATE_FIELDS:
+        assert torch.equal(getattr(held, k), copy[k]), k
+    bufs = {t.untyped_storage().data_ptr() for t in g.buffers.values()}
+    assert not {getattr(ps.state, k).untyped_storage().data_ptr()
+                for k in STATE_FIELDS} & bufs

@@ -163,7 +163,7 @@ def _plane(tiles_cm, nch, p, g):
 def forms(both):
     """K2's two table forms on the shared scene, JAX and port: the rank
     form with moments, coverage and E extra channels (as
-    ``table_step._sort_build`` calls it) and the dest form with coverage
+    ``table_step._sort_rows`` calls it) and the dest form with coverage
     and E extra channels on a mover set built as ``_repair_step`` builds
     it (targets concentrated on 64 cells, so arrivals above k are denied
     and their sentinel ids interleave with the placed ones)."""

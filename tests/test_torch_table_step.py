@@ -24,6 +24,7 @@ import torch
 from nbody_tpu.ops import barnes_hut as jbh
 from nbody_tpu.ops import integrator as jint
 from nbody_tpu.ops import spatial_hash as jsh
+from nbody_tpu.ops import table_step as jts
 from nbody_tpu.state import ParticleState as JState
 from nbody_tpu_torch import ParticleSystem
 from nbody_tpu_torch.ops import barnes_hut as tbh
@@ -31,6 +32,7 @@ from nbody_tpu_torch.ops import integrator as tint
 from nbody_tpu_torch.ops import table_step as T
 from nbody_tpu_torch.ops.forces import make_table_step_params
 from nbody_tpu_torch.ops.spatial_hash import make_spatial_hash_forces_sorted
+from nbody_tpu_torch.ops.step_graph import SegmentGraphs
 from nbody_tpu_torch.state import ParticleState
 from nbody_tpu_torch.types import ForceMethod, SimulationConfig
 
@@ -351,6 +353,47 @@ def test_exact_side_buffer_holds_every_overflow_row():
     sf = _bh_engine()
     _same_physics(T.make_table_multi_step(p, DT, 5, 3)(st),
                   tint.make_resort_multi_step(sf, DT, 5, 3)(st))
+
+
+def test_side_bucket_grows_and_drivers_match_jax_tables(monkeypatch):
+    """A collapsing cube (256 rows in [-4, 4]³ at velocity −150·x) whose
+    rows past k = 8 grow from 22 at entry to 139 and 248 at the re-sorts:
+    with the least bucket cut to 16 rows the side buffer starts at 32 and
+    grows once, to 256, between re-sorts (padding rows at entry and after
+    the growth). The port's fixed cadence (2, 5 steps) and audited re-sort
+    (0.05, cap 4, 5 steps, with its trace) equal the JAX package's table
+    drivers run with a static ``side_cap`` of 256 (every overflow row a
+    side row) within the facade tests' tolerance, the traces equal."""
+    monkeypatch.setattr(T, "SIDE_MIN", 16)
+    n = 256
+    rng = np.random.default_rng(13)
+    pos = rng.uniform(-4.0, 4.0, (n, 3)).astype(np.float32)
+    vel = (-150.0 * pos).astype(np.float32)
+    st = ParticleState(pos=torch.from_numpy(pos), vel=torch.from_numpy(vel),
+                       acc=torch.zeros(n, 3), mass=torch.ones(n),
+                       time=torch.tensor(0.0))
+    js = JState(pos=jnp.asarray(pos), vel=jnp.asarray(vel),
+                acc=jnp.zeros((n, 3), jnp.float32),
+                mass=jnp.ones((n,), jnp.float32), time=jnp.float32(0.0))
+    jp = jts.hash_table_params(cutoff=2.0, cell_size=2.0, d=8, k=8,
+                               side_cap=256, impl="pallas_interpret")
+
+    g = SegmentGraphs(graphed=False)
+    tab = T.make_table_multi_step(HASH_P, DT, 5, 2, graphs=g)(st)
+    assert g.state == {"side_cap": 256, "side_grows": 1}
+    assert g.host_reads == 3
+    _close_to_jax(tab, jax.jit(jts.make_table_multi_step(jp, DT, 5, 2))(js))
+
+    g = SegmentGraphs(graphed=False)
+    ada, (stale, resorted) = T.make_table_adaptive_multi_step(
+        HASH_P, DT, 5, max_stale_frac=0.05, max_cadence=4, with_trace=True,
+        graphs=g)(st)
+    assert g.state["side_grows"] >= 1
+    jout, (jstale, jresorted) = jax.jit(jts.make_table_adaptive_multi_step(
+        jp, DT, 5, max_stale_frac=0.05, max_cadence=4, with_trace=True))(js)
+    _close_to_jax(ada, jout)
+    assert stale.tolist() == np.asarray(jstale).tolist()
+    assert resorted.tolist() == np.asarray(jresorted).tolist()
 
 
 def test_make_table_step_params():
