@@ -174,8 +174,16 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
      on ``make_mesh(4, devices=[card] * 4)``: four virtual shards of the
      one card, NOT a scaling number (the card does every position's work
      in turn, 4x the replicated far field, and the collectives are
-     device-local copies). Each timed run is counted as the paths of 3
-     are, after one warm step:
+     device-local copies). s1-s3 each step through
+     ``sharded_multi_step`` on the step's captured segments (one a stage,
+     each captured after its first eager use, the collectives run between
+     replays, ``parallel/program.py``) and through the same stages
+     eagerly, 10 steps from one state: after an eager warm run the graphed
+     first call is counted as the paths of 3 are (one capture a segment,
+     its replays adding the launches), it and a replay-only call are held
+     to two eager runs bit for bit (and those to each other), and both
+     are timed in turns (median of 3), with the segments and collectives
+     a step, the capture ms and the pool:
        s1. 100K direct through the ring (K1's ``targets=`` form, P² = 16
            launches a force call, 4 on each position): a(0) within
            2e-4·max|a| of single-device K1, then 10 steps;
@@ -185,7 +193,8 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
            equal to the single-device ``audit_short_range()``, the rows
            within k within 1e-4·max|a| of the single-device tiles engine,
            and the 0.05 accuracy gate against K1 (``bh_vs_direct``); then
-           10 steps (K3 6 × 4 and K4's slab form 4 a force call);
+           10 steps (K3 6 × 4, K4's slab form 4 and K6 4 a force call: each
+           position's finest moments over its cell-sorted rows);
        s4. ``sharded_energy`` on s2's state after its steps: K5's main
            form 4 times and its cross form 6 (each block pair once), KE
            and PE within 1e-6 relative of
@@ -201,8 +210,12 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
            its bound;
        s6. ``shard_devices=2`` on one card raises ``ValidationError``
            naming both counts and ``cli.main([... "--devices", "2",
-           "--benchmark"])`` returns 2; with 2 or more cards, the 1M BH
-           benchmark through ``--devices min(4, count)`` instead.
+           "--benchmark"])`` returns 2, and the cross-card graphed run is
+           reported skipped; with 2 or more cards instead, the facade on
+           ``shard_devices=min(4, count)`` (a segment set a card, the
+           cross-card copies between replays) graphed against eager on
+           1M BH, bit for bit and timed, then the 1M BH benchmark through
+           ``--devices min(4, count)``.
   9. the mesh across processes (``rank_phase``): after the parent built
      the kernels, 4 ranks on the one card (``python3 chip_smoke.py --rank
      OUT gloo``, started by ``parallel.distributed.run_ranks`` with a
@@ -210,13 +223,16 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
      a gloo group on a free loopback port, each rank running
      ``ParticleSystem`` with ``shard_devices=4`` on a mesh across them,
      one position a rank — 4 ranks on one card: not a scaling number.
-     Each timed run's launches are counted and checked on every rank;
-     rank 0 prints steps/s, ms a step and each rank's launches; this
-     process then checks the ranks' outputs (in a temporary directory,
-     removed afterwards):
-       m1. 100K direct, ring: a(0) against phase 8's s1 (recorded, bit-
-           equal expected) and within 2e-4·max|a| of single-device K1,
-           then 10 steps;
+     m1-m3 run ``run_steps`` on the facade's captured segments on every
+     rank, the collectives (through host memory on gloo) between replays;
+     the first call's launches are counted and checked on every rank, it
+     and a replay-only call are held to an eager run of the same ranks
+     bit for bit, and both are timed in turns (median of 3); rank 0
+     prints graphed / eager steps/s, ms a step and each rank's launches;
+     this process then checks the ranks' outputs (in a temporary
+     directory, removed afterwards):
+       m1. 100K direct, ring: a(0) bit-equal to phase 8's s1 and within
+           2e-4·max|a| of single-device K1, then 10 steps;
        m2. the 1M BH headline scene: at step 0 routing overflow 0, the
            tile overflow equal to the single-device audit, the rows within
            k within 1e-4·max|a| of the tiles engine, the 0.05 gate against
@@ -258,9 +274,8 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
      1M dense and sparse hash, 1M BH window and 100K direct, 10 steps of
      the graphed function (its first call: an eager step, the capture,
      replays; then a replay-only call) against the eager multi-step
-     function of the same force from one state, bit for bit (BH window,
-     whose pyramid sums with ``index_add_``'s float atomics, within the
-     spread of three eager runs); both timed in turns (median of 3); the
+     function of the same force from one state and two eager runs, all
+     bit for bit; both timed in turns (median of 3); the
      capture time and memory pool; the graph's kernel nodes equal to an
      eager step's kernels plus the copy-back's. Then ``update()`` x10 on
      1M BH tiles (bit-equal, ms an update: the render loop's step), the
@@ -1137,61 +1152,72 @@ def k5_check(res, pos, mass, cfg):
 
 
 def k6_check(res, pos, mass, cfg):
-    """K6 (the segment sum) against its plain twin at the monopole path's
-    shapes: the sorted rows' [m, m·x] (1M, 4) into the d³ = 262144 finest
-    cells, max |diff| <= 1e-6·max|out| against the twin on float64 copies
+    """K6 (the segment sum) against its plain twin at the shapes its paths
+    give it: the monopole path's sorted rows' [m, m·x] (1M, 4) into the
+    d³ = 262144 finest cells, and the BH window engine's order-2 rows
+    [m, m·xr, m·xr⊗xr] (1M, 10) into its 32768 (``bh_max_level`` 5).
+    Each within max |diff| <= 1e-6·max|out| of the twin on float64 copies
     of the rows (the float32 twin's ``index_add_`` adds with atomics in no
-    fixed order; its difference is printed beside), and two calls
-    bit-equal; ``index_add_`` of the same rows is the library yardstick."""
+    fixed order; its difference is printed beside), two calls bit-equal;
+    ``index_add_`` of the same rows is the library yardstick."""
     import torch
 
-    from nbody_tpu_torch.ops.barnes_hut import bh_engine_params, bin_particles
+    from nbody_tpu_torch.ops.barnes_hut import (
+        _moment_rows,
+        bh_engine_params,
+        bin_particles,
+    )
     from nbody_tpu_torch.ops.scatter import segment_sum, segment_sum_plain
     from nbody_tpu_torch.ops.sorted_window import build_sorted_grid
 
-    levels = bh_engine_params(cfg)["levels"]
-    d = 1 << levels
-    nc = d ** 3
-    _lo, _cell, coords = bin_particles(pos, levels)
-    g = build_sorted_grid(pos, mass, coords, d, with_csort=True)
-    m = g.psort[:, 3:4]
-    vals = torch.cat([m, m * g.psort[:, :3]], dim=-1).contiguous()
-    ids = g.ids
-    got = segment_sum(vals, ids, nc)
-    want = segment_sum_plain(vals.double(), ids, nc)
-    e = float((got.double() - want).abs().max())
-    tol = 1e-6 * float(want.abs().max())
-    check(e <= tol, f"K6 segment_sum: max|diff| {e} > {tol}")
-    e32 = float((got - segment_sum_plain(vals, ids, nc)).abs().max())
-    check(torch.equal(got, segment_sum(vals, ids, nc)),
-          "K6 segment_sum: two calls differ")
-    ids64 = ids.to(torch.int64)
+    for label, levels, order in (
+            (MONOPOLE, bh_engine_params(cfg)["levels"], 1),
+            ("1M BH window", 5, 2)):
+        d = 1 << levels
+        nc = d ** 3
+        lo, cell, coords = bin_particles(pos, levels)
+        g = build_sorted_grid(pos, mass, coords, d, with_csort=True)
+        ctr = lo + (g.csort.to(pos.dtype) + 0.5) * cell
+        vals = _moment_rows(g.psort[:, :3], g.psort[:, 3], ctr,
+                            order).contiguous()
+        ch = vals.shape[1]
+        ids = g.ids
+        got = segment_sum(vals, ids, nc)
+        want = segment_sum_plain(vals.double(), ids, nc)
+        e = float((got.double() - want).abs().max())
+        tol = 1e-6 * float(want.abs().max())
+        check(e <= tol, f"K6 segment_sum {label}: max|diff| {e} > {tol}")
+        e32 = float((got - segment_sum_plain(vals, ids, nc)).abs().max())
+        check(torch.equal(got, segment_sum(vals, ids, nc)),
+              f"K6 segment_sum {label}: two calls differ")
+        ids64 = ids.to(torch.int64)
 
-    def library():
-        return torch.zeros((nc, 4), device=pos.device).index_add_(
-            0, ids64, vals)
+        def library():
+            return torch.zeros((nc, ch), device=pos.device).index_add_(
+                0, ids64, vals)
 
-    n = vals.shape[0]
-    rec = dict(
-        max_abs_err=e,
-        ms=time_ms(lambda: segment_sum(vals, ids, nc)),
-        device_ms=graph_ms(lambda: segment_sum(vals, ids, nc), reps=20),
-        plain_ms=time_ms(lambda: segment_sum_plain(vals, ids, nc)),
-        # ~4 adds per row; vals + dest in, (4, d³) out
-        **bound(4 * n, 16 * n + 4 * n + 16 * nc),
-        library_ms=time_ms(library),
-        library_device_ms=graph_ms(library, reps=20),
-    )
-    add_shape(res, "segment_sum", MONOPOLE, rec)
-    print(f"K6 segment_sum {MONOPOLE} ({n}, 4) -> (4, {nc}): max|diff| "
-          f"{e:.3e} against the float64 twin (tol 1e-6*max|out| = "
-          f"{tol:.3e}), {e32:.3e} against the float32 twin; two calls "
-          f"bit-equal; kernel "
-          f"{rec['ms']:.4f} ms a call ({rec['device_ms']:.4f} ms of device "
-          f"time, CUDA graph replay), plain {rec['plain_ms']:.4f} ms, library "
-          f"(zeros + index_add_) {rec['library_ms']:.4f} ms a call "
-          f"({rec['library_device_ms']:.4f} ms of device time), bound "
-          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+        n = vals.shape[0]
+        rec = dict(
+            max_abs_err=e,
+            ms=time_ms(lambda: segment_sum(vals, ids, nc)),
+            device_ms=graph_ms(lambda: segment_sum(vals, ids, nc), reps=20),
+            plain_ms=time_ms(lambda: segment_sum_plain(vals, ids, nc)),
+            # ~ch adds per row; vals + dest in, (ch, d³) out
+            **bound(ch * n, 4 * ch * n + 4 * n + 4 * ch * nc),
+            library_ms=time_ms(library),
+            library_device_ms=graph_ms(library, reps=20),
+        )
+        add_shape(res, "segment_sum", label, rec)
+        print(f"K6 segment_sum {label} ({n}, {ch}) -> ({ch}, {nc}): "
+              f"max|diff| {e:.3e} against the float64 twin (tol "
+              f"1e-6*max|out| = {tol:.3e}), {e32:.3e} against the float32 "
+              f"twin; two calls bit-equal; kernel {rec['ms']:.4f} ms a call "
+              f"({rec['device_ms']:.4f} ms of device time, CUDA graph "
+              f"replay), plain {rec['plain_ms']:.4f} ms, library (zeros + "
+              f"index_add_) {rec['library_ms']:.4f} ms a call "
+              f"({rec['library_device_ms']:.4f} ms of device time), bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+        del g, vals, got, want
 
 
 def sort_inputs(pos, cfg):
@@ -2674,15 +2700,54 @@ def sharded_phase(res, cfgs, scene, sparse, wrappers, plains, none, keep,
     readings = {}
 
     def timed(label, cfg, force_fn, state0, steps, want):
-        multi = sharded_multi_step(force_fn, cfg.dt, steps)
-        sharded_multi_step(force_fn, cfg.dt, 1)(state0)  # warm
-        launches, out, _ = counted_run(
-            f"{label} [{SHARD_NOTE}]", steps, lambda: multi(state0),
-            {**none, **want}, wrappers, plains, smi)
+        """The step's captured segments (``sharded_multi_step``) against
+        the same stages eagerly, ``steps`` steps from ``state0``: the
+        graphed first call (each stage eager at its first use, then
+        captured; replays after) counted, it and a replay-only call held
+        to two eager runs bit for bit, then both timed in turns."""
+        graphed = sharded_multi_step(force_fn, cfg.dt, steps)
+        eager = sharded_multi_step(force_fn, cfg.dt, steps, graphed=False)
+        eager(state0)  # warm
+        launches, first, _ = counted_run(
+            f"{label} [{SHARD_NOTE}], graphed first call", steps,
+            lambda: graphed(state0), {**none, **want}, wrappers, plains,
+            smi)
         keep(label, launches)
-        check_finite(label, out)
-        readings[label] = RATES[f"{label} [{SHARD_NOTE}]"]
-        return out
+        g = graphed.graphs
+        check(g.captures == g.segments
+              and g.replays == g.segments * (steps - 1),
+              f"{label}: {g.captures} captures, {g.replays} replays of "
+              f"{g.segments} segments after the first call")
+        again = graphed(state0)
+        check(g.captures == g.segments, f"{label}: a second call captured")
+        eagers = [eager(state0) for _ in range(2)]
+        for what, out in (("second eager run", eagers[1]),
+                          ("graphed first call", first),
+                          ("graphed replay-only call", again)):
+            check_finite(f"{label} {what}", M.gather_state(out))
+            same = all(torch.equal(getattr(a, f), getattr(b, f))
+                       for a, b in zip(out.shards, eagers[0].shards)
+                       for f in STATE_FIELDS)
+            check(same, f"{label}: the {what} differs from the eager run")
+        del again, eagers
+        tg, te = [], []
+        for _ in range(GRAPH_TURNS):
+            tg.append(wall_s(lambda: graphed(state0)))
+            te.append(wall_s(lambda: eager(state0)))
+        rec = {"steps/s graphed": steps / statistics.median(tg),
+               "steps/s eager": steps / statistics.median(te),
+               "segments a step": g.segments,
+               "collectives a step": g.collectives,
+               "capture ms": g.capture_ms, "pool MiB": g.pool_bytes / 2**20}
+        readings[label] = rec
+        print(f"{label}: graphed {rec['steps/s graphed']:.3f} / eager "
+              f"{rec['steps/s eager']:.3f} steps/s ({steps} steps a run, "
+              f"median of {GRAPH_TURNS} in turns; {SHARD_NOTE}; {smi}); "
+              f"{g.segments} segments and {g.collectives} collectives a "
+              f"step; capture {g.capture_ms:.1f} ms, pool "
+              f"{rec['pool MiB']:.1f} MiB; graph == eager bit for bit (two "
+              f"eager runs bit-equal)")
+        return first
 
     # s1: the ring, 100K direct
     cfg = cfgs["100K direct"]
@@ -2749,7 +2814,7 @@ def sharded_phase(res, cfgs, scene, sparse, wrappers, plains, none, keep,
     sh = sharded_initialize_forces(M.shard_state(scene, mesh), force)
     sh = timed("s2 1M BH tree-slabs", cfg, force, sh, 10,
                {"far_taps": 10 * levels * SHARDS,
-                "tile_sweep_slab": 10 * SHARDS})
+                "tile_sweep_slab": 10 * SHARDS, "segment_sum": 10 * SHARDS})
 
     # s4: energy on s2's state after its timed steps (at step 0 every
     # velocity is 0)
@@ -2836,8 +2901,39 @@ def sharded_phase(res, cfgs, scene, sparse, wrappers, plains, none, keep,
               f"{err_buf.getvalue().strip()[:160]!r}")
         check(rc == 2 and "devices" in err_buf.getvalue().lower(),
               f"s6 cli rc {rc}")
+        print("s6 the facade's --devices path graphed against eager across "
+              "cards needs 2 cards: skipped")
     else:
         p = min(4, count)
+        ps = ParticleSystem()
+        ps.initialize(cfgs["1M BH tiles"].replace(shard_devices=p),
+                      device=dev)
+        check(len({str(d) for d in ps.mesh.devices}) == p,
+              f"s6 mesh devices {ps.mesh.devices}")
+        state0, steps = ps.state, 10
+        graphed = ps._multi_step(steps)
+        eager = ps._multi_step(steps, graphed=False)
+        want = eager(state0)
+        got = graphed(state0)
+        g = ps.step_graphs["sharded"]
+        check(len(g.sets) == p and g.captures == g.segments * p,
+              f"s6: {len(g.sets)} segment sets, {g.captures} captures")
+        for a, b in zip(got.shards, want.shards):
+            for f in STATE_FIELDS:
+                check(torch.equal(getattr(a, f), getattr(b, f)),
+                      f"s6 --devices {p}: the graphed {f} differs")
+        tg, te = [], []
+        for _ in range(GRAPH_TURNS):
+            tg.append(wall_s(lambda: graphed(state0)))
+            te.append(wall_s(lambda: eager(state0)))
+        readings[f"s6 facade 1M BH on {p} cards"] = {
+            "steps/s graphed": steps / statistics.median(tg),
+            "steps/s eager": steps / statistics.median(te)}
+        print(f"s6 facade 1M BH on {p} cards (a segment set a card): "
+              f"graphed {steps / statistics.median(tg):.3f} / eager "
+              f"{steps / statistics.median(te):.3f} steps/s, bit for bit "
+              f"({smi})")
+        del ps, state0, got, want
         rc, text = captured(lambda: cli_main(
             ["--particles", str(N), "--method", "barnes-hut", "--devices",
              str(p), "--benchmark", "--benchmark-steps", "10"]))
@@ -2996,6 +3092,50 @@ def rank_body(out_dir: str, dev) -> None:
         rec["rates"][label] = {"steps_per_s": steps / wall,
                                "ms_per_step": 1e3 * wall / steps}
 
+    def wall(run) -> float:
+        distributed.barrier()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        distributed.barrier()
+        return time.perf_counter() - t0
+
+    def stepped(label, ps, steps, want):
+        """``run_steps`` on the facade's captured segments, the first call
+        (each stage eager at its first use, then captured) counted by
+        ``timed``; it and a replay-only call held to an eager run of the
+        same steps from the same state, bit for bit on this rank's
+        position; then the replay-only call and the eager run timed in
+        turns (median of GRAPH_TURNS; barriers around each)."""
+        state0 = ps.state
+        graphed = ps._multi_step(steps)
+        eager = ps._multi_step(steps, graphed=False)
+        ref = eager(state0)
+        timed(label, steps, lambda: ps.run_steps(steps), want)
+        g = ps.step_graphs["sharded"]
+        check(g.captures == g.segments
+              and g.replays == g.segments * (steps - 1),
+              f"rank {rank} {label}: {g.captures} captures, {g.replays} "
+              f"replays of {g.segments} segments")
+        for what, out in (("first call", ps.state),
+                          ("replay-only call", graphed(state0))):
+            check(all(torch.equal(getattr(out.shards[0], f),
+                                  getattr(ref.shards[0], f))
+                      for f in RANK_FIELDS),
+                  f"rank {rank} {label}: the graphed {what} differs from "
+                  "the eager run")
+        tg, te = [], []
+        for _ in range(GRAPH_TURNS):
+            tg.append(wall(lambda: graphed(state0)))
+            te.append(wall(lambda: eager(state0)))
+        r = rec["rates"][label]
+        r.update(first_call_steps_per_s=r["steps_per_s"],
+                 steps_per_s=steps / statistics.median(tg),
+                 ms_per_step=1e3 * statistics.median(tg) / steps,
+                 eager_steps_per_s=steps / statistics.median(te),
+                 segments=g.segments, collectives=g.collectives,
+                 capture_ms=g.capture_ms, pool_mib=g.pool_bytes / 2**20)
+
     def system(cfg, distribution):
         ps = ParticleSystem()
         ps.initialize(cfg.replace(shard_devices=RANKS), device=dev)
@@ -3010,7 +3150,7 @@ def rank_body(out_dir: str, dev) -> None:
     acc0 = ps.state.acc
     if rank == 0:
         tensors["m1_acc0"] = acc0.cpu()
-    timed(M1, 10, lambda: ps.run_steps(10), {"direct_forces": 10 * RANKS})
+    stepped(M1, ps, 10, {"direct_forces": 10 * RANKS})
     del ps, acc0
 
     # m2: tree-slabs; the step-0 overflows from the path's own call
@@ -3034,8 +3174,8 @@ def rank_body(out_dir: str, dev) -> None:
     if rank == 0:
         tensors["m2_pos0"], tensors["m2_acc0"] = pos.cpu(), acc0.cpu()
     del st, pos_l, mass_l, pos, dest, acc0
-    timed(M2, 5, lambda: ps.run_steps(5),
-          {"far_taps": 5 * eng["levels"], "tile_sweep_slab": 5})
+    stepped(M2, ps, 5, {"far_taps": 5 * eng["levels"],
+                        "tile_sweep_slab": 5, "segment_sum": 5})
 
     # m4: the energy of m2's state after its steps
     got = {}
@@ -3082,7 +3222,7 @@ def rank_body(out_dir: str, dev) -> None:
     if rank == 0:
         tensors["m3_pos0"], tensors["m3_acc0"] = pos.cpu(), acc0.cpu()
     del st, pos, acc0
-    timed(M3, 5, lambda: ps.run_steps(5), {"tile_sweep_slab": 5})
+    stepped(M3, ps, 5, {"tile_sweep_slab": 5})
     del ps
 
     recs = [None] * RANKS
@@ -3090,8 +3230,19 @@ def rank_body(out_dir: str, dev) -> None:
     if rank == 0:
         for label, r in recs[0]["rates"].items():
             note = rank_note(dist.get_backend())
-            print(f"{label} [{note}]: {r['steps_per_s']:.3f} steps/s, "
-                  f"{r['ms_per_step']:.4f} ms/step (rank 0)")
+            if "eager_steps_per_s" in r:
+                print(f"{label} [{note}]: graphed {r['steps_per_s']:.3f} / "
+                      f"eager {r['eager_steps_per_s']:.3f} steps/s (median "
+                      f"of {GRAPH_TURNS} in turns; first graphed call "
+                      f"{r['first_call_steps_per_s']:.3f}), "
+                      f"{r['ms_per_step']:.4f} ms/step graphed; "
+                      f"{r['segments']} segments and {r['collectives']} "
+                      f"collectives a step, capture {r['capture_ms']:.1f} "
+                      f"ms, pool {r['pool_mib']:.1f} MiB; graph == eager "
+                      "bit for bit on every rank (rank 0)")
+            else:
+                print(f"{label} [{note}]: {r['steps_per_s']:.3f} steps/s, "
+                      f"{r['ms_per_step']:.4f} ms/step (rank 0)")
             for other in recs:
                 print(f"  rank {other['rank']} launches: "
                       f"{other['launches'][label]}")
@@ -3154,8 +3305,11 @@ def rank_checks(out_dir, backend, cfgs, scene, sparse, keep, smi, dev):
                 total[name] = total.get(name, 0) + c
         keep(f"{label} [{backend}]", total)
         if label != M4:
-            readings[f"{label} [{tag}]"] = recs[0]["rates"][label][
-                "steps_per_s"]
+            r = recs[0]["rates"][label]
+            readings[f"{label} [{tag}]"] = {
+                "steps/s graphed": r["steps_per_s"],
+                "steps/s eager": r["eager_steps_per_s"],
+                "steps/s graphed first call": r["first_call_steps_per_s"]}
 
     # m1 against phase 8's s1 (4 virtual shards, the same hop order) and
     # against single-device K1
@@ -3169,6 +3323,7 @@ def rank_checks(out_dir, backend, cfgs, scene, sparse, keep, smi, dev):
     print(f"m1 a(0) vs phase 8's s1 (4 virtual shards of the card): "
           f"{'bit-equal' if torch.equal(got, s1) else 'NOT bit-equal'}, "
           f"max|diff| {d:.4e}")
+    check(torch.equal(got, s1), "m1 a(0) is not bit-equal to s1's")
     want = direct_forces_kernel(st.pos, st.mass, cfg.G, cfg.softening)
     err, scale = float((got - want).abs().max()), float(want.abs().max())
     print(f"m1 a(0) vs single-device K1: max|diff| {err:.4e}, max|a| "
@@ -3518,46 +3673,28 @@ def state_diff(a, b) -> dict:
             for k in STATE_FIELDS}
 
 
-def hold_to_eager(label, outs, eagers) -> dict:
-    """Each of ``outs`` against the eager runs ``eagers`` (≥ 2, from the
-    same state): bit for bit where the eager runs agree bit for bit;
-    where they differ, each out within their spread (its nearest eager
-    run no farther than the farthest two eager runs). Returns the
-    spread."""
+def hold_to_eager(label, outs, eagers) -> None:
+    """The eager runs ``eagers`` (≥ 2, from the same state) bit-equal to
+    each other, and each of ``outs`` bit-equal to them."""
     import torch
 
-    spread = {k: 0.0 for k in STATE_FIELDS}
-    for i, a in enumerate(eagers):
-        for b in eagers[i + 1:]:
-            spread = {k: max(v, d) for (k, v), d in
-                      zip(spread.items(), state_diff(a, b).values())}
-    exact = all(torch.equal(getattr(e, k), getattr(eagers[0], k))
-                for e in eagers[1:] for k in STATE_FIELDS)
-    for what, out in outs:
+    for what, out in [(f"eager run {i + 2}", e)
+                      for i, e in enumerate(eagers[1:])] + list(outs):
         check_finite(f"{label} {what}", out)
-        if exact:
-            same = [k for k in STATE_FIELDS
-                    if torch.equal(getattr(out, k), getattr(eagers[0], k))]
-            check(len(same) == len(STATE_FIELDS),
-                  f"{label}: the graph's {what} differs from the eager run "
-                  f"in {set(STATE_FIELDS) - set(same)}: "
-                  f"{state_diff(out, eagers[0])}")
-            continue
-        near = {k: min(state_diff(out, e)[k] for e in eagers)
-                for k in STATE_FIELDS}
-        check(all(near[k] <= spread[k] for k in STATE_FIELDS),
-              f"{label}: the graph's {what} is {near} from the nearest "
-              f"eager run, outside the eager runs' spread {spread}")
-    return spread
+        same = [k for k in STATE_FIELDS
+                if torch.equal(getattr(out, k), getattr(eagers[0], k))]
+        check(len(same) == len(STATE_FIELDS),
+              f"{label}: the {what} differs from the first eager run in "
+              f"{set(STATE_FIELDS) - set(same)}: "
+              f"{state_diff(out, eagers[0])}")
 
 
 def graph_path(label, graph, graphed, eager, step_kernels, state0, steps,
-               smi, eager_runs=2):
+               smi):
     """One path: ``graphed`` (through the captured step ``graph``) and
     ``eager`` (the multi-step function of the same force), ``steps``
     steps each from ``state0``. The graph's first call (its eager step,
-    the capture, replays) and a replay-only call held to ``eager_runs``
-    eager runs (``hold_to_eager``); both timed in turns (host clock to a
+    the capture, replays) and a replay-only call held to two eager runs (``hold_to_eager``); both timed in turns (host clock to a
     synchronize, median of ``GRAPH_TURNS``); the graph's kernel nodes held
     to one eager step's kernels (``step_kernels()``) plus the copy-back's.
     Returns the readings."""
@@ -3570,9 +3707,9 @@ def graph_path(label, graph, graphed, eager, step_kernels, state0, steps,
           f"after the first call of {steps} steps")
     again = graphed(state0)
     check(graph.captures == 1, f"{label}: a second call captured again")
-    eagers = [eager(state0) for _ in range(eager_runs)]
-    spread = hold_to_eager(label, [("first call", first),
-                                   ("replay-only call", again)], eagers)
+    eagers = [eager(state0) for _ in range(2)]
+    hold_to_eager(label, [("first call", first),
+                          ("replay-only call", again)], eagers)
     del first, again, eagers
     tg, te = [], []
     for _ in range(GRAPH_TURNS):
@@ -3591,14 +3728,12 @@ def graph_path(label, graph, graphed, eager, step_kernels, state0, steps,
         "eager kernels a step": per_step,
         "copy-back kernels": graph.copy_kernels,
     }
-    held = ("bit for bit" if not any(spread.values()) else
-            f"within the eager runs' spread {spread} (two eager runs differ)")
     print(f"g {label}: graphed {rec['steps/s graphed']:.3f} steps/s, eager "
           f"{rec['steps/s eager']:.3f} steps/s ({steps} steps a run, median "
           f"of {GRAPH_TURNS} in turns; {smi}); capture {graph.capture_ms:.1f}"
           f" ms, pool {rec['pool MiB']:.1f} MiB; {nodes} kernels a step in "
           f"the graph = {per_step} of an eager step + {graph.copy_kernels} "
-          f"copy-back; graph == eager {held}")
+          "copy-back; graph == eager bit for bit")
     return rec
 
 
@@ -3620,11 +3755,9 @@ def facade_graph_path(label, cfg, steps, smi, dev):
         s0, step = sorted_state_from(state0), ps._sorted_step
     else:
         s0, step = state0, ps._step
-    # BH window: build_pyramid's index_add_ sums with float atomics
-    runs = 3 if label == "1M BH window" else 2
     rec = graph_path(label, graph, graphed, eager,
                      lambda: graph_kernels(lambda: step(s0)), state0, steps,
-                     smi, runs)
+                     smi)
     rec["step"] = kind
     return rec, ps
 
@@ -3799,9 +3932,9 @@ def frozen_graph_path(label, space, cfg, state0, sf, tp, steps, smi):
                                                       again)):
             check(all(torch.equal(a, b) for a, b in zip(tr, eagers[0][1])),
                   f"{label}: the graph's {what} trace differs from eager")
-    spread = hold_to_eager(label, [("first call", first[0]),
-                                   ("replay-only call", again[0])],
-                           [e[0] for e in eagers])
+    hold_to_eager(label, [("first call", first[0]),
+                          ("replay-only call", again[0])],
+                  [e[0] for e in eagers])
     del first, again, eagers
     tg, te = [], []
     for _ in range(GRAPH_TURNS):
@@ -3819,13 +3952,11 @@ def frozen_graph_path(label, space, cfg, state0, sf, tp, steps, smi):
         "side bucket": graphs.state.get("side_cap"),
         "side grows": graphs.state.get("side_grows", 0),
     }
-    held = ("bit for bit" if not any(spread.values()) else
-            f"within the eager runs' spread {spread}")
     print(f"g {label}, {space} driver: graphed {rec['steps/s graphed']:.3f} "
           f"steps/s, eager {rec['steps/s eager']:.3f} ({steps} steps a run, "
           f"median of {GRAPH_TURNS} in turns; {smi}); "
           f"{describe_graphs(graphs)}"
-          f"; graph == eager {held}"
+          "; graph == eager bit for bit"
           + (", traces equal" if traced else ""))
     return rec, graphs
 
@@ -4083,7 +4214,8 @@ def main() -> None:
     drive("1M sparse hash", 30, tile_scatter=30, tile_sweep_plane=30)
     check(bh_engine_params(bhw_cfg)["near_engine"] == "window",
           "bh_max_level 5 at 1M must select the window engine")
-    drive("1M BH window", 10, window_sweep=10, far_taps=10 * 5)
+    drive("1M BH window", 10, window_sweep=10, far_taps=10 * 5,
+          segment_sum=10)
     drive("100K direct", 10, direct_forces=10)
     keep(MONOPOLE, run_monopole(
         bh_cfg, scene, 10,

@@ -21,8 +21,9 @@ The fused TILES path (finest cells hold ≤ 24 particles on average) runs:
      their cell (``tile_sweep._slot_pickup_raw``).
 
 The WINDOW path (denser cells) is the JAX package's non-fast branch: the
-finest moments by one scatter-add (``build_pyramid``), the same far field,
-the exact near field over the (2ws+1)³ cell ball by the sorted-window
+finest moments (``build_pyramid``: the rows sorted by cell through the
+segment sum, kernel K6, where the JAX package scatter-adds), the same far
+field, the exact near field over the (2ws+1)³ cell ball by the sorted-window
 sweep (kernel K7, ``_near_field``), and the far pickup in original order.
 It has no sorted-stepping contract.
 
@@ -180,18 +181,18 @@ def _moment_rows(pos, mass, ctr, order: int):
 
 def scatter_finest_moments(pos, mass, coords, lo, cell, d: int,
                            order: int = 2):
-    """Packed finest moments by ONE scatter-add (``index_add_``; the JAX
-    package leaves this scatter to XLA): order 2 → (d, d, d, 10)
-    [m, m·xr, m·xr⊗xr] about each cell centre; order 1 → (d, d, d, 4)
-    [m, m·x] absolute."""
-    cid = ((coords[:, 0] * d + coords[:, 1]) * d + coords[:, 2]).to(
-        torch.int64)
+    """Packed finest moments, order 2 → (d, d, d, 10) [m, m·xr, m·xr⊗xr]
+    about each cell centre, order 1 → (d, d, d, 4) [m, m·x] absolute: the
+    rows stably sorted by cell and summed by the segment sum (kernel K6),
+    which writes every cell once in row order. The JAX package scatter-
+    adds; float atomics (``index_add_``) would make two runs of the same
+    step differ in the last bits."""
+    cid = (coords[:, 0] * d + coords[:, 1]) * d + coords[:, 2]
+    srt = torch.argsort(cid, stable=True)
     ctr = lo + (coords.to(pos.dtype) + 0.5) * cell if order >= 2 else None
-    vals = _moment_rows(pos, mass, ctr, order)
-    out = torch.zeros((d * d * d, vals.shape[1]), dtype=pos.dtype,
-                      device=pos.device)
-    out.index_add_(0, cid, vals)
-    return out.reshape(d, d, d, vals.shape[1])
+    vals = _moment_rows(pos, mass, ctr, order)[srt].contiguous()
+    packed = segment_sum(vals, cid[srt].to(torch.int32), d ** 3)
+    return packed.T.reshape(d, d, d, vals.shape[1])
 
 
 def _sorted_finest_moments(grid, d: int):
@@ -205,8 +206,9 @@ def _sorted_finest_moments(grid, d: int):
 
 
 def build_pyramid(pos, mass, levels: int, order: int = 2) -> Pyramid:
-    """Scatter-add the finest level, then 2× reductions up to the root
-    (order 2: quadrupole pyramid; order 1: monopoles [m, Σ m·x])."""
+    """The finest level (``scatter_finest_moments``), then 2× reductions
+    up to the root (order 2: quadrupole pyramid; order 1: monopoles
+    [m, Σ m·x])."""
     lo, cell, coords = bin_particles(pos, levels)
     packed = scatter_finest_moments(pos, mass, coords, lo, cell, 1 << levels,
                                     order)
@@ -705,9 +707,9 @@ def _far_pickup(far_cells, delta):
 
 def _window_bh_forces(pos, mass, G, softening, ws, *, levels, window,
                       order=2):
-    """The window engine: pyramid by scatter-add, far expansion (K3 per
-    level at order 2, COM monopoles at order 1), near field (K7), and the
-    far pickup in original row order."""
+    """The window engine: pyramid (finest moments by K6), far expansion
+    (K3 per level at order 2, COM monopoles at order 1), near field (K7),
+    and the far pickup in original row order."""
     dev = pos.device
     with profile_phase("bh.pyramid", device=dev):
         pyr = build_pyramid(pos, mass, levels, order)

@@ -222,6 +222,12 @@ class SegmentGraphs:
                 self._allocate(k, t.clone())
 
     def _allocate(self, name: str, t: torch.Tensor) -> None:
+        if self.buffers:
+            dev = next(iter(self.buffers.values())).device
+            if t.device != dev:
+                # a capture on one card cannot launch on another
+                raise ValueError(f"buffer {name} on {t.device}, the "
+                                 f"others on {dev}")
         if name in self.buffers:
             # every captured segment may read the old buffer
             self.segments = {}

@@ -14,7 +14,10 @@ them (``mesh.py``):
     with chained-ppermute halos, swept by kernel K4's slab form
     (``tree.py``);
   * ``torch.distributed`` initialization and a launcher of local ranks
-    (``distributed.py``).
+    (``distributed.py``);
+  * each force and step as a fixed sequence of stages split at those
+    collectives, on the card each stage a captured CUDA graph replayed
+    with the collectives between replays (``program.py``).
 """
 
 from nbody_tpu_torch.parallel.mesh import (

@@ -10,6 +10,16 @@ single-device program replicated on every position; energies reduce with
 cross form on each pair of blocks once, over a ring. Each process
 runs its own positions; on a mesh across processes every process calls
 these functions together and gets the same energies.
+
+Each force is a program of stages split at its collectives
+(``parallel/program.py``); a step is that program with the drift fused
+into its first stage and the kick into its last (``verlet_ops``). Where
+the JAX package jits the step and scans n of them in one SPMD program,
+``sharded_multi_step`` on the card runs the step's stages as captured
+CUDA graphs (``program.ShardedGraphs``), replayed with the collectives
+between them; on the CPU, and with ``graphed=False``, the same stages run
+eagerly. ``sharded_energy`` stays eager: its P(P+1)/2 K5 launches and two
+``psum``s are ~14 launches a call at P = 4.
 """
 
 from __future__ import annotations
@@ -31,7 +41,15 @@ from nbody_tpu_torch.parallel.mesh import (
     ppermute,
     psum,
 )
-from nbody_tpu_torch.parallel.ring import ring_direct_forces
+from nbody_tpu_torch.parallel.program import (
+    Collective,
+    ShardedGraphs,
+    Stage,
+    fuse_first,
+    fuse_last,
+    run_forces,
+)
+from nbody_tpu_torch.parallel.ring import ring_ops
 from nbody_tpu_torch.state import ParticleState
 from nbody_tpu_torch.types import ForceMethod, SimulationConfig
 
@@ -51,11 +69,37 @@ class ReplicatedFallbackWarning(RuntimeWarning):
     hash_max_grid_dim % n_devices == 0)."""
 
 
-def _tag(force_fn, distribution: str):
-    """Name the selected strategy on the closure (read by
+def _tag(ops, mesh: Mesh, distribution: str) -> ShardedForceFn:
+    """``force_fn(pos blocks, mass blocks) -> acc blocks``, the force
+    program ``ops`` run eagerly, carrying ``ops`` and the selected
+    strategy's name ``distribution`` (read by
     ``ParticleSystem.diagnostics``)."""
+
+    def force_fn(pos, mass):
+        return run_forces(ops, pos, mass, mesh)[0]
+
+    force_fn.ops = ops
     force_fn.distribution = distribution
     return force_fn
+
+
+def _fallback_ops(inner) -> tuple:
+    """The replicated fallback as a force program: every position's rows
+    gathered, the single-device force ``inner`` on all of them, the
+    position's own rows kept."""
+
+    def gather(cs, mesh):
+        full_pos = all_gather([c["pos"] for c in cs], mesh)
+        full_mass = all_gather([c["mass"] for c in cs], mesh)
+        return [{"full_pos": a, "full_mass": b}
+                for a, b in zip(full_pos, full_mass)]
+
+    def force(i, q, c):
+        n_l = c["pos"].shape[0]
+        acc = inner(c["full_pos"], c["full_mass"])
+        return {"force": acc[q * n_l:(q + 1) * n_l]}
+
+    return (Collective("all_gather", gather), Stage("force", force))
 
 
 def make_sharded_force_fn(config: SimulationConfig, mesh: Mesh,
@@ -64,47 +108,34 @@ def make_sharded_force_fn(config: SimulationConfig, mesh: Mesh,
     tagged ``distribution``: ``"ring"`` (direct), ``"tree-slabs"`` (BH,
     2^bh_max_level % P == 0), ``"hash-slabs"`` (hash, hash_max_grid_dim %
     P == 0) or ``"replicated-fallback"``, which issues
-    ``ReplicatedFallbackWarning``. ``pos_hint`` feeds the fallback's
-    engine choice, as in the single-device factory."""
+    ``ReplicatedFallbackWarning``; its force program is ``force_fn.ops``.
+    ``pos_hint`` feeds the fallback's engine choice, as in the
+    single-device factory."""
     G, eps = config.G, config.softening
     if config.force_method == ForceMethod.DIRECT_N2:
-
-        def force_fn(pos, mass):
-            return ring_direct_forces(pos, mass, mesh, G, eps)
-
-        return _tag(force_fn, "ring")
+        return _tag(ring_ops(mesh, G, eps), mesh, "ring")
 
     n_dev = mesh.size
     if config.force_method == ForceMethod.BARNES_HUT:
         d = 1 << config.bh_max_level
         if d % n_dev == 0:
-            from nbody_tpu_torch.parallel.tree import sharded_barnes_hut_forces
+            from nbody_tpu_torch.parallel.tree import tree_slab_ops
 
             occ = config.particle_count / float(d**3)
             raw = occ + 5.0 * math.sqrt(occ + 1.0)
             near_k = int(min(64, max(8, -(-raw // 8) * 8)))
-
-            def force_fn(pos, mass):
-                return sharded_barnes_hut_forces(
-                    pos, mass, mesh, G, eps, config.barnes_hut_theta,
-                    levels=config.bh_max_level, near_k=near_k)
-
-            return _tag(force_fn, "tree-slabs")
+            return _tag(tree_slab_ops(mesh, G, eps, config.barnes_hut_theta,
+                                      levels=config.bh_max_level,
+                                      near_k=near_k), mesh, "tree-slabs")
     elif config.force_method == ForceMethod.SPATIAL_HASH:
         if config.hash_max_grid_dim % n_dev == 0:
-            from nbody_tpu_torch.parallel.tree import (
-                sharded_spatial_hash_forces,
-            )
+            from nbody_tpu_torch.parallel.tree import hash_slab_ops
 
-            def force_fn(pos, mass):
-                return sharded_spatial_hash_forces(
-                    pos, mass, mesh, G, eps,
-                    cutoff=config.spatial_hash_cutoff,
-                    cell_size=config.spatial_hash_cell_size,
-                    cap=config.hash_max_grid_dim,
-                    max_per_cell=config.hash_max_per_cell)
-
-            return _tag(force_fn, "hash-slabs")
+            return _tag(hash_slab_ops(
+                mesh, G, eps, cutoff=config.spatial_hash_cutoff,
+                cell_size=config.spatial_hash_cell_size,
+                cap=config.hash_max_grid_dim,
+                max_per_cell=config.hash_max_per_cell), mesh, "hash-slabs")
 
     warnings.warn(
         f"sharded {config.force_method.cli_name}: grid does not divide the "
@@ -123,35 +154,44 @@ def make_sharded_force_fn(config: SimulationConfig, mesh: Mesh,
     if isinstance(pos_hint, torch.Tensor):
         pos_hint = pos_hint.detach().cpu().numpy()
     inner = make_force_fn(config, pos_hint=pos_hint)
+    return _tag(_fallback_ops(inner), mesh, "replicated-fallback")
 
-    def force_fn(pos, mass):
-        full_pos, full_mass = all_gather(pos, mesh), all_gather(mass, mesh)
-        out = []
-        for i, q in enumerate(mesh.local):
-            n_l = pos[i].shape[0]
-            out.append(inner(full_pos[i], full_mass[i])[q * n_l:(q + 1) * n_l])
-        return out
 
-    return _tag(force_fn, "replicated-fallback")
+def verlet_ops(force_fn: ShardedForceFn, dt) -> tuple:
+    """One Verlet step as a program: the drift fused into the force
+    program's first stage, the kick into its last (carries ``pos``,
+    ``vel``, ``acc``, ``mass``, ``time``)."""
+    def drift(i, q, c):
+        return {"pos": c["pos"] + c["vel"] * dt + (0.5 * dt * dt) * c["acc"]}
+
+    def kick(i, q, c):
+        a = c["force"]
+        return {"vel": c["vel"] + (0.5 * dt) * (c["acc"] + a), "acc": a,
+                "time": c["time"] + dt}
+
+    ops = list(force_fn.ops)
+    if isinstance(ops[0], Stage):
+        ops[0] = fuse_first(ops[0], drift)
+    else:
+        ops.insert(0, Stage("drift", drift))
+    if isinstance(ops[-1], Stage):
+        ops[-1] = fuse_last(ops[-1], kick)
+    else:
+        ops.append(Stage("kick", kick))
+    return tuple(ops)
 
 
 def sharded_verlet_step(state: ShardedState, force_fn: ShardedForceFn,
                         dt) -> ShardedState:
     """``ops.integrator.verlet_step`` on every position's rows, the force
-    through the sharded closure."""
-    sh = state.shards
-    pos = [s.pos + s.vel * dt + (0.5 * dt * dt) * s.acc for s in sh]
-    acc = force_fn(pos, [s.mass for s in sh])
-    return ShardedState([
-        ParticleState(pos=p, vel=s.vel + (0.5 * dt) * (s.acc + a), acc=a,
-                      mass=s.mass, time=s.time + dt)
-        for s, p, a in zip(sh, pos, acc)
-    ], state.mesh)
+    through the sharded program, eagerly."""
+    return ShardedGraphs(verlet_ops(force_fn, dt), state.mesh,
+                         graphed=False)(state, 1)
 
 
 def sharded_initialize_forces(state: ShardedState,
                               force_fn: ShardedForceFn) -> ShardedState:
-    """a(t=0) of a sharded state."""
+    """a(t=0) of a sharded state (eager)."""
     sh = state.shards
     acc = force_fn([s.pos for s in sh], [s.mass for s in sh])
     return ShardedState([
@@ -160,31 +200,42 @@ def sharded_initialize_forces(state: ShardedState,
     ], state.mesh)
 
 
-def sharded_multi_step(force_fn: ShardedForceFn, dt: float, n_steps: int):
-    """``n_steps`` sharded Verlet steps with ``force_fn``."""
+def sharded_multi_step(force_fn: ShardedForceFn, dt: float, n_steps: int,
+                       graphed=None):
+    """``multi(state) -> state``: ``n_steps`` sharded Verlet steps with
+    ``force_fn``. On the card (``graphed`` None or True) the step's stages
+    are captured CUDA graphs, made at the first call and replayed at every
+    later one (``multi.graphs``), the collectives between replays; a
+    failed capture raises. ``graphed=False`` (and every state on the CPU)
+    runs the same stages eagerly: the reference the graphs are held to."""
+    ops = verlet_ops(force_fn, dt)
 
     def multi(state: ShardedState) -> ShardedState:
-        for _ in range(n_steps):
-            state = sharded_verlet_step(state, force_fn, dt)
-        return state
+        on_card = state.device.type == "cuda"
+        if graphed is False or not on_card:
+            return ShardedGraphs(ops, state.mesh, graphed=False)(state,
+                                                                 n_steps)
+        if multi.graphs is None:
+            multi.graphs = ShardedGraphs(ops, state.mesh)
+        return multi.graphs(state, n_steps)
 
+    multi.graphs = None
     return multi
 
 
 def make_sharded_step(config: SimulationConfig, mesh: Mesh, pos_hint=None):
-    """``step(ShardedState) -> ShardedState``: one Verlet step."""
+    """``step(ShardedState) -> ShardedState``: one Verlet step
+    (``sharded_multi_step`` of one step: its captured segments on the
+    card, where the JAX package jits the step)."""
     force_fn = make_sharded_force_fn(config, mesh, pos_hint=pos_hint)
-
-    def step(state: ShardedState) -> ShardedState:
-        return sharded_verlet_step(state, force_fn, config.dt)
-
-    return step
+    return sharded_multi_step(force_fn, config.dt, 1)
 
 
 def make_sharded_multi_step(config: SimulationConfig, mesh: Mesh,
                             n_steps: int, pos_hint=None):
-    """``n_steps`` sharded Verlet steps (the JAX package fuses them into
-    one program; here they queue on the devices without a host read)."""
+    """``n_steps`` sharded Verlet steps (``sharded_multi_step``: the JAX
+    package fuses them into one program; here on the card each step
+    replays its captured stages, the collectives between them)."""
     force_fn = make_sharded_force_fn(config, mesh, pos_hint=pos_hint)
     return sharded_multi_step(force_fn, config.dt, n_steps)
 

@@ -22,12 +22,17 @@ contract, the cell-sorted step (``sorted_verlet_step`` on a
 ``SortedState``) for ``run_steps`` on the others; the frozen-grid drivers
 (the fixed cadence, the audited re-sort and the repair, in row space or
 table-resident) replay their captured segments (``SegmentGraphs``) in the
-order their schedule picks, with their few host reads between replays. A
-strategy's graphs are captured on their first call and kept for every n;
-they are dropped whenever what they close over changes: a live setter,
-``reset``, ``set_time_step``, ``set_state`` and ``load_state``. Only the
-sharded mesh steps eagerly (see ``_multi_step``); so does every path on
-the CPU.
+order their schedule picks, with their few host reads between replays; on
+a mesh, ``update()`` and ``run_steps`` replay the sharded step's captured
+stages, one segment set per card, with the collectives (device-local
+copies, gloo's host staging, NCCL calls) run between replays
+(``parallel/program.ShardedGraphs``). A strategy's graphs are captured on
+their first call and kept for every n; they are dropped whenever what
+they close over changes: a live setter, ``reset``, ``set_time_step``,
+``set_state`` and ``load_state``. Every path on the CPU steps eagerly. On
+the card a(t) (once a strategy), the energies and the audit stay eager:
+``sharded_energy`` is ~14 launches a call at P = 4, with no host overhead
+a graph would remove.
 
 With ``shard_devices`` P > 1 the state is padded with zero-mass rows to a
 multiple of P and sharded over a mesh of P positions
@@ -99,12 +104,14 @@ from nbody_tpu_torch.parallel.mesh import (
     pad_to_devices,
     shard_state,
 )
+from nbody_tpu_torch.parallel.program import ShardedGraphs
 from nbody_tpu_torch.parallel.step import (
     make_sharded_force_fn,
     sharded_energy,
     sharded_initialize_forces,
     sharded_multi_step,
     sharded_verlet_step,
+    verlet_ops,
 )
 from nbody_tpu_torch.state import ParticleState, SimulationState
 from nbody_tpu_torch.types import ForceMethod, SimulationConfig
@@ -278,6 +285,16 @@ class ParticleSystem:
             self._graphs[kind] = g
         return g
 
+    def _sharded_graphs(self) -> ShardedGraphs:
+        """The card's captured stages of the sharded step, made on first
+        use (each stage captured after its first eager use)."""
+        g = self._graphs.get("sharded")
+        if g is None:
+            g = ShardedGraphs(verlet_ops(self._force_fn, self._config.dt),
+                              self._mesh)
+            self._graphs["sharded"] = g
+        return g
+
     def _segments(self, kind: str, graphed: bool):
         """The card's captured segments of the frozen-grid driver ``kind``
         when ``graphed``, made on first use; else None (eager)."""
@@ -294,12 +311,16 @@ class ParticleSystem:
         run); "cadence" and "adaptive" (the row-space frozen-grid
         drivers), "table cadence", "table adaptive" and "table repair",
         each an ``ops.step_graph.SegmentGraphs`` (its ``segments``,
-        ``host_reads``, ``pool_bytes`` and side bucket ``state``). Empty
-        off the card."""
+        ``host_reads``, ``pool_bytes`` and side bucket ``state``); on a
+        mesh "sharded" (``update()`` and ``run_steps``), a
+        ``parallel.program.ShardedGraphs`` (``segments`` and
+        ``collectives`` a step, ``captures``, ``replays``, ``capture_ms``,
+        ``pool_bytes``, a ``SegmentGraphs`` a card in ``sets``). Empty off
+        the card."""
         return dict(self._graphs)
 
     def _graphed(self) -> bool:
-        return self._device.type == "cuda" and self._mesh is None
+        return self._device.type == "cuda"
 
     def _initialize_forces(self) -> None:
         """a(t) of the current state with the current strategy."""
@@ -323,7 +344,9 @@ class ParticleSystem:
         with profile_phase("simulation.update", device=self._device):
             if dt is not None and dt != self._config.dt:
                 self.set_time_step(dt)
-            if self._graphed():
+            if self._graphed() and self._mesh is not None:
+                self._state = self._sharded_graphs()(self._state, 1)
+            elif self._graphed():
                 self._state = self._graph("plain")(self._state, 1)
             else:
                 self._state = self._step(self._state)
@@ -359,14 +382,19 @@ class ParticleSystem:
         first step eager and the capture after it), the frozen-grid
         drivers their captured segments (``SegmentGraphs``: each
         segment's first use eager, then captured), with their host reads
-        between replays; ``graphed=False`` gives the eager multi-step
-        function of the same force and driver, the reference the graphs
-        are held to. Only the sharded mesh steps eagerly."""
+        between replays; on a mesh the sharded step's captured stages
+        (``_sharded_graphs``), the collectives between replays;
+        ``graphed=False`` gives the eager multi-step function of the same
+        force and driver, the reference the graphs are held to."""
         cfg, sf, tp = self._config, self._sorted_force, self._table_params
-        if self._mesh is not None:
-            return sharded_multi_step(self._force_fn, cfg.dt, n_steps)
         if graphed is None:
             graphed = self._graphed()
+        if self._mesh is not None:
+            if graphed:
+                g = self._sharded_graphs()
+                return lambda state: g(state, n_steps)
+            return sharded_multi_step(self._force_fn, cfg.dt, n_steps,
+                                      graphed=False)
         cadence = cfg.resort_every
         if tp is not None:
             if cfg.resort_repair:

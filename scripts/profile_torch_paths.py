@@ -19,8 +19,12 @@ monopole path
 (``chip_smoke.monopole_forces`` under ``make_sorted_multi_step``) and the
 4M flagship's two step paths (``scripts/flagship_4m_torch.py``'s scenes
 and configs under ``make_sorted_multi_step``, and each of these three on a
-``StepGraph`` of its sorted step as well, "... (graphed)"; ``--paths``
-picks labels) —
+``StepGraph`` of its sorted step as well, "... (graphed)") and the sharded
+paths of ``chip_smoke.py`` phase 8 on 4 virtual shards of the card
+(``SHARDED_PATHS``: s1 the ring, s2 tree-slabs, s3 hash-slabs, through
+``parallel.step.sharded_multi_step`` eagerly and on its captured
+segments, "... (graphed)"; not scaling numbers); ``--paths`` picks
+labels —
 it takes a warm run of ``steps`` steps from the initial state, then:
 
   * times ``steps`` steps from the initial state with no profiler (host
@@ -33,7 +37,8 @@ it takes a warm run of ``steps`` steps from the initial state, then:
   * on a graphed path, also the kernel nodes of the captured step
     (``chip_smoke.kernel_nodes``), the kernels a replay launches; on a
     frozen-grid path those of each captured segment, and the host reads
-    of a run.
+    of a run; on a sharded path those of each captured segment, and the
+    segments and collectives a step.
 
 Prints one summary line per path and writes everything as JSON to
 ``--out`` (the trace is written beside it and removed). Needs a card;
@@ -52,6 +57,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 FLAGSHIP_BH = "4M BH tiles (flagship bh-4m)"
 FLAGSHIP_GALAXY = "4M galaxy collision (flagship galaxy-4m)"
+# label -> chip_smoke.path_configs() key, run on 4 virtual shards of the card
+SHARDED_PATHS = {"s1 100K direct, ring (4 virtual shards)": "100K direct",
+                 "s2 1M BH tree-slabs (4 virtual shards)": "1M BH tiles",
+                 "s3 1M sparse hash-slabs (4 virtual shards)":
+                     "1M sparse hash"}
 
 
 def busy_ms(trace_path: str) -> tuple[float, int, dict]:
@@ -105,6 +115,13 @@ def main() -> None:
         to_particle_state,
     )
     from nbody_tpu_torch.ops.step_graph import SegmentGraphs, StepGraph
+    from nbody_tpu_torch.parallel import make_mesh, mesh as M
+    from nbody_tpu_torch.parallel.program import ShardedGraphs
+    from nbody_tpu_torch.parallel.step import (
+        make_sharded_force_fn,
+        sharded_initialize_forces,
+        sharded_multi_step,
+    )
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -151,7 +168,15 @@ def main() -> None:
             "top_kernels_ms_per_step": {k: v / steps for k, v in top},
         }
         note = ""
-        if isinstance(graph, SegmentGraphs):
+        if isinstance(graph, ShardedGraphs):
+            rec["segment_kernels"] = {
+                str(k): kernel_nodes(seg.graph)
+                for g in graph.sets.values() for k, seg in g.segments.items()}
+            rec["segments_a_step"] = graph.segments
+            rec["collectives_a_step"] = graph.collectives
+            note = (f", segments' kernels {rec['segment_kernels']}, "
+                    f"{graph.collectives} collectives a step")
+        elif isinstance(graph, SegmentGraphs):
             rec["segment_kernels"] = {str(k): kernel_nodes(g.graph)
                                       for k, g in graph.segments.items()}
             rec["host_reads_per_run"] = graph.host_reads / 3
@@ -219,6 +244,24 @@ def main() -> None:
         state0 = F.with_forces(state, sf)
         sorted_paths(label, sf, config.dt, state0)
         del state, state0, sf
+        torch.cuda.empty_cache()
+    mesh = make_mesh(4, devices=[torch.device("cuda")] * 4)
+    for label, key in SHARDED_PATHS.items():
+        if not wanted(label) and not wanted(f"{label} (graphed)"):
+            continue
+        cfg = paths[key]
+        force = make_sharded_force_fn(cfg, mesh)
+        state0 = sharded_initialize_forces(
+            M.shard_state(init_from_config(cfg, device="cuda"), mesh), force)
+        eager = sharded_multi_step(force, cfg.dt, steps, graphed=False)
+        graphed = sharded_multi_step(force, cfg.dt, steps)
+        if wanted(label):
+            measure(label, lambda: eager(state0), lambda: None)
+        if wanted(f"{label} (graphed)"):
+            graphed(state0)  # the captures, before measure reads the graphs
+            measure(f"{label} (graphed)", lambda: graphed(state0),
+                    lambda: None, graphed.graphs)
+        del force, state0, eager, graphed
         torch.cuda.empty_cache()
     if os.path.exists(trace):
         os.remove(trace)

@@ -7,13 +7,12 @@ Verlet step, or a frozen-grid driver's captured segments
 hold a host read: a ``.item()``, a ``nonzero``, boolean-mask indexing (a
 ``nonzero`` inside) or a tensor made from host data. Here, for each step
 engine, the step the facade would capture runs once more after a warm step
-under two guards, ``torch.tensor`` / ``torch.as_tensor`` /
-``torch.from_numpy`` patched to raise and a dispatch mode that fails on
-``aten._local_scalar_dense``, ``aten.nonzero`` and indexing by a boolean
-mask, with the kernels' plain twins exempt (they never run on the card),
-and must give the unguarded step's state bit for bit (one intra-op
-thread). So must every segment of the row-space and table drivers
-(``test_segment_is_capture_safe``), on the carry the eager drivers give it.
+under the guards of ``tests/capture_guards.py`` (host data, host reads
+and boolean-mask indexing refused, the kernels' plain twins exempt: they
+never run on the card), and must give the unguarded step's state bit for
+bit (one intra-op thread). So must every segment of the row-space and
+table drivers (``test_segment_is_capture_safe``), on the carry the eager
+drivers give it.
 
 That the same CPU facade still agrees with the JAX facade is held by
 ``tests/test_torch_system.py`` (BH tiles, both hash engines, the BH window
@@ -22,20 +21,14 @@ steps themselves are held to the eager ones on the card
 (``tests/test_torch_cuda.py -k step_graph``, ``chip_smoke.py`` phase 11).
 """
 
-import contextlib
 import functools
 
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import (
-    TorchDispatchMode,
-    _disable_current_modes,
-)
 
+from capture_guards import guards, one_thread  # noqa: F401 (a fixture)
 from nbody_tpu_torch import ParticleSystem
-from nbody_tpu_torch.ops import direct, far_taps, scatter, table_step
-from nbody_tpu_torch.ops import tile_near, window_sweep
 from nbody_tpu_torch.ops.barnes_hut import barnes_hut_forces_sorted
 from nbody_tpu_torch.ops.integrator import (
     sorted_state_from,
@@ -43,25 +36,6 @@ from nbody_tpu_torch.ops.integrator import (
 )
 from nbody_tpu_torch.state import ParticleState, SimulationState
 from nbody_tpu_torch.types import ForceMethod, SimulationConfig
-
-aten = torch.ops.aten
-# (a tensor made from host data, as a list index, is lifted into the graph
-# by aten.lift_fresh: a host-to-device copy on the card)
-HOST_READS = (aten._local_scalar_dense.default, aten.nonzero.default,
-              aten.lift_fresh.default)
-# indexing ops whose boolean index takes a nonzero inside the kernel,
-# below the dispatch mode
-INDEXING = (aten.index.Tensor, aten.index_put.default,
-            aten.index_put_.default)
-# (module, name) of the plain twin each CPU wrapper calls
-PLAIN_TWINS = ((scatter, "tile_scatter_plain"), (scatter, "segment_sum_plain"),
-               (tile_near, "tile_sweep_plane_plain"),
-               (far_taps, "far_taps_plain"),
-               (window_sweep, "window_sweep_plain"),
-               (direct, "direct_forces"), (scatter, "tile_place_plain"),
-               (table_step, "table_drift_plain"),
-               (table_step, "table_kick_plain"))
-HOST_DATA = ("tensor", "as_tensor", "from_numpy")
 
 BH = dict(force_method=ForceMethod.BARNES_HUT, bh_max_level=3,
           barnes_hut_theta=1.0)
@@ -82,51 +56,6 @@ ENGINES = {
 }
 
 
-class _NoHostReads(TorchDispatchMode):
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func in HOST_READS:
-            raise AssertionError(f"host read in the step: {func}")
-        if func in INDEXING and any(
-                t is not None and t.dtype in (torch.bool, torch.uint8)
-                for t in args[1]):
-            raise AssertionError(f"boolean-mask indexing in the step: {func}")
-        return func(*args, **(kwargs or {}))
-
-
-@contextlib.contextmanager
-def _guards(monkeypatch):
-    """The two guards, with every plain twin exempt from both."""
-    exempt = [0]
-
-    def refuse(name, real):
-        def call(*args, **kwargs):
-            if exempt[0]:
-                return real(*args, **kwargs)
-            raise AssertionError(f"torch.{name} in the step")
-        return call
-
-    def twin(real):
-        def call(*args, **kwargs):
-            exempt[0] += 1
-            try:
-                with _disable_current_modes():
-                    return real(*args, **kwargs)
-            finally:
-                exempt[0] -= 1
-        call.calls = 0
-        return call
-
-    for name in HOST_DATA:
-        monkeypatch.setattr(torch, name, refuse(name, getattr(torch, name)))
-    for module, name in PLAIN_TWINS:
-        monkeypatch.setattr(module, name, twin(getattr(module, name)))
-    try:
-        with _NoHostReads():
-            yield
-    finally:
-        monkeypatch.undo()
-
-
 def _system(n, kw):
     rng = np.random.default_rng(17)
     pos = rng.uniform(-6.0, 6.0, (n, 3)).astype(np.float32)
@@ -139,14 +68,6 @@ def _system(n, kw):
                                  force_method=cfg.force_method, dt=cfg.dt,
                                  G=cfg.G, softening=cfg.softening))
     return ps
-
-
-@pytest.fixture
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("engine", list(ENGINES))
@@ -177,7 +98,7 @@ def test_step_is_capture_safe(engine, monkeypatch, one_thread):
         assert p["engine"] == engine.split()[1]
     state = step(state)  # the warm step: fills the device tables
     want = step(state)
-    with _guards(monkeypatch):
+    with guards(monkeypatch):
         got = step(state)
     for k, v in vars(want).items():
         assert torch.equal(getattr(got, k), v), f"{engine}: {k} differs"
@@ -282,7 +203,7 @@ def test_segment_is_capture_safe(engine, segment, monkeypatch, one_thread):
 
     run()
     want = run()
-    with _guards(monkeypatch):
+    with guards(monkeypatch):
         got = run()
     assert set(got) == set(want)
     for k, v in want.items():
