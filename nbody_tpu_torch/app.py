@@ -39,7 +39,9 @@ from nbody_tpu_torch.utils.profiling import (
     BenchmarkRunRecord,
     consume_global_phase_snapshot,
     profile_phase,
+    profiling_enabled,
     serialize_benchmark_run_records,
+    set_profiling_enabled,
 )
 
 # Key → action: Space pause/resume, r reset, 1/2/3 force method, c color
@@ -197,8 +199,22 @@ class Application:
         a chunk, so the run stops at the first chunk that produced a NaN,
         not at the operation (the JAX package's ``jax_debug_nans`` stops
         at the operation). ``--trace DIR`` writes a ``torch.profiler``
-        Chrome trace of the timed chunks to ``DIR/trace.json``."""
+        Chrome trace of the timed chunks to ``DIR/trace.json``, with the
+        profiling switch at "trace" from the start (before the warm-up
+        chunk captures the step): the trace holds each phase's span and,
+        on the card, its marks inside every replay
+        (``utils/profiling.py``)."""
         o = self.options
+        setting = profiling_enabled()
+        if o.trace_dir:
+            set_profiling_enabled("trace")
+        try:
+            return self._benchmark(o)
+        finally:
+            set_profiling_enabled(setting)
+
+    def _benchmark(self, o) -> int:
+        """``run_benchmark_mode`` under the switch it set."""
         self._initialize_system()
         consume_global_phase_snapshot()
 
@@ -297,8 +313,7 @@ class Application:
         copied."""
         st, out = self.system.state, []
         if self.renderer is not None:
-            with profile_phase("render.frame", device=st.pos.device):
-                image = self.renderer.frame(st.pos, st.vel)
+            image = self.renderer.frame(st.pos, st.vel)
             if self.options.render_output:
                 out.append(image)
         if self.live_view is not None:

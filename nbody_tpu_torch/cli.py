@@ -405,8 +405,9 @@ Diagnostics:
   --debug-nans           Raise at the first benchmark chunk (loop step)
                          whose state is not finite
   --trace DIR            Write a device trace of the benchmark loop to
-                         DIR (torch.profiler Chrome trace; open in
-                         Perfetto)
+                         DIR/trace.json (torch.profiler Chrome trace;
+                         open in Perfetto), each phase a span and, on
+                         the card, marked inside the graph replays
   --help                 Print this usage text
 """
 

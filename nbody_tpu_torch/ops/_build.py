@@ -28,6 +28,8 @@ from pathlib import Path
 
 import torch
 
+from nbody_tpu_torch.utils.profiling import host_span
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "nbody_tpu_torch"
@@ -91,6 +93,9 @@ SIGNATURES = {
     # chunks, img, u8, pts, key, rgb, rec, meta, list, tmp, stream
     "nbt_render_points": (_P, _P, _I, _P, _D, _D, _I, _I, _I, _I, _P, _P,
                           _P, _P, _P, _P, _P, _P, _P, _P),
+    # phase (an index of utils.profiling.PHASES), edge (0 entry, 1 exit),
+    # stream
+    "nbt_phase_mark": (_I, _I, _P),
 }
 
 # Entry points that launch nothing: name -> (argument types, result type).
@@ -116,6 +121,9 @@ QUERIES = {
     # a sprite makes at most (field 0), meta ints (1); -1 for chunks
     # outside 1-64 or another field
     "nbt_render_scratch": ((_I, _I, _I), _I),
+    # phases -> 0 once the marks of the first `phases` phases are loaded
+    # in the current context, else a CUDA error (nbt_phase_mark's marks)
+    "nbt_phase_mark_load": ((_I,), _I),
 }
 
 # Every kernel wrapper, registered by ``counted``. A wrapper adds one to
@@ -210,11 +218,13 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call; the build and load
+    in the span ``kernels.build``)."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            with host_span("kernels.build"):
+                lib = ctypes.CDLL(str(build()))
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)

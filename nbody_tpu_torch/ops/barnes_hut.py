@@ -659,8 +659,9 @@ def _fused_bh_force_from_grid(grid, lo, cell, *, d, levels, ws, near_k, G,
     with profile_phase("bh.placement", device=dev):
         tb = tile_build(grid, lo, cell, d=d, k=near_k,
                         rank_sorted=rank_sorted)
-    far_plane = far_plane_grid(tb.moments[:10].T.reshape(d, d, d, 10), lo,
-                               cell, levels=levels, ws=ws, eps=softening)
+        packed = tb.moments[:10].T.reshape(d, d, d, 10)
+    far_plane = far_plane_grid(packed, lo, cell, levels=levels, ws=ws,
+                               eps=softening)
     acc = tile_sweep_pick(
         tb, grid, lo, cell, far_plane, d=d, ws=ws, k=near_k, G=G,
         eps=softening, sorted_output=sorted_output,
@@ -833,7 +834,8 @@ def barnes_hut_forces_frozen(psort, meta: FrozenGridMeta, G: float = 1.0,
         softening=softening, sorted_output=True, rank_sorted=meta.rank)
     if not with_audit:
         return acc
-    return acc, stale_count(psort, meta, d)
+    with profile_phase("bh.audit", device=psort.device, timed=False):
+        return acc, stale_count(psort, meta, d)
 
 
 def barnes_hut_forces(pos, mass, G: float = 1.0, softening: float = 0.1,

@@ -20,6 +20,7 @@ from nbody_tpu_torch.ops.direct import pairwise_potential
 from nbody_tpu_torch.ops.sorted_window import FrozenGridMeta
 from nbody_tpu_torch.ops.step_graph import SegmentGraphs, stack_trace
 from nbody_tpu_torch.state import ParticleState
+from nbody_tpu_torch.utils.profiling import profile_phase
 
 # force_fn(pos (N,3), mass (N,)) -> acc (N,3)
 ForceFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -34,12 +35,17 @@ def verlet_step(state: ParticleState, force_fn: ForceFn, dt) -> ParticleState:
       x(t+dt) = x(t) + v(t)·dt + ½·a(t)·dt²
       a(t+dt) = F(x(t+dt)) / m
       v(t+dt) = v(t) + ½·(a(t) + a(t+dt))·dt
+
+    The force's phases lie between ``step.drift`` and ``step.kick``.
     """
-    pos = state.pos + state.vel * dt + (0.5 * dt * dt) * state.acc
+    dev = state.pos.device
+    with profile_phase("step.drift", device=dev, timed=False):
+        pos = state.pos + state.vel * dt + (0.5 * dt * dt) * state.acc
     acc = force_fn(pos, state.mass)
-    vel = state.vel + (0.5 * dt) * (state.acc + acc)
-    return ParticleState(pos=pos, vel=vel, acc=acc, mass=state.mass,
-                         time=state.time + dt)
+    with profile_phase("step.kick", device=dev, timed=False):
+        vel = state.vel + (0.5 * dt) * (state.acc + acc)
+        return ParticleState(pos=pos, vel=vel, acc=acc, mass=state.mass,
+                             time=state.time + dt)
 
 
 def make_verlet_step(force_fn: ForceFn, dt: float):
@@ -87,9 +93,12 @@ class SortedState:
 
 def sorted_state_from(state: ParticleState) -> SortedState:
     """ParticleState → SortedState with the identity permutation
-    (``state.acc`` must already hold a(t), see ``initialize_forces``)."""
-    to_orig = torch.arange(state.n, dtype=torch.int32,
-                           device=state.pos.device)
+    (``state.acc`` must already hold a(t), see ``initialize_forces``); the
+    tag is made in the phase ``graph.copy_in``, the carry's set-up."""
+    with profile_phase("graph.copy_in", device=state.pos.device,
+                       timed=False):
+        to_orig = torch.arange(state.n, dtype=torch.int32,
+                               device=state.pos.device)
     return SortedState(pos=state.pos, vel=state.vel, acc=state.acc,
                        mass=state.mass, to_orig=to_orig, time=state.time)
 
@@ -97,15 +106,18 @@ def sorted_state_from(state: ParticleState) -> SortedState:
 def to_particle_state(s: SortedState) -> ParticleState:
     """SortedState → ParticleState in ORIGINAL row order, restored with one
     index store per field (``out[to_orig] = rows``; the JAX package
-    gathers by ``argsort(to_orig)``, since TPU scatters are slow)."""
+    gathers by ``argsort(to_orig)``, since TPU scatters are slow), in the
+    phase ``graph.readout``."""
 
     def unsort(rows):
         out = torch.empty_like(rows)
         out[s.to_orig] = rows
         return out
 
-    return ParticleState(pos=unsort(s.pos), vel=unsort(s.vel),
-                         acc=unsort(s.acc), mass=unsort(s.mass), time=s.time)
+    with profile_phase("graph.readout", device=s.pos.device, timed=False):
+        return ParticleState(pos=unsort(s.pos), vel=unsort(s.vel),
+                             acc=unsort(s.acc), mass=unsort(s.mass),
+                             time=s.time)
 
 
 # Row tags ride a float32 column exactly below 2²⁴ rows; above, the routed
@@ -120,18 +132,28 @@ def _sorted_step(s: SortedState, force, dt, route_extra: bool = False):
     with ``route_extra`` (and fewer than 2²⁴ rows), ride the force's sort
     gather as a 4-column ``extra`` [vel_h | tag as float32]: the same
     values, so both routes give the same state bit for bit. Returns
-    ``(state, rest)``."""
-    pos_d = s.pos + s.vel * dt + (0.5 * dt * dt) * s.acc
-    vel_h = s.vel + (0.5 * dt) * s.acc
-    if route_extra and s.pos.shape[0] < _F32_EXACT_ROWS:
-        ext = torch.cat([vel_h, s.to_orig.to(vel_h.dtype)[:, None]], dim=-1)
+    ``(state, rest)``. The drift, the half-kick and the payload are the
+    phase ``step.drift``; the payload's own gathers, the kick and the
+    state's assembly ``step.kick``."""
+    dev = s.pos.device
+    routed = route_extra and s.pos.shape[0] < _F32_EXACT_ROWS
+    with profile_phase("step.drift", device=dev, timed=False):
+        pos_d = s.pos + s.vel * dt + (0.5 * dt * dt) * s.acc
+        vel_h = s.vel + (0.5 * dt) * s.acc
+        if routed:
+            ext = torch.cat([vel_h, s.to_orig.to(vel_h.dtype)[:, None]],
+                            dim=-1)
+    if routed:
         acc, psort, order, pay, *rest = force(pos_d, s.mass, ext)
-        vel_s, to_orig = pay[:, :3], pay[:, 3].to(torch.int32)
     else:
         acc, psort, order, *rest = force(pos_d, s.mass)
-        vel_s, to_orig = vel_h[order], s.to_orig[order]
-    return SortedState(psort[:, :3], vel_s + (0.5 * dt) * acc, acc,
-                       psort[:, 3], to_orig, s.time + dt), rest
+    with profile_phase("step.kick", device=dev, timed=False):
+        if routed:
+            vel_s, to_orig = pay[:, :3], pay[:, 3].to(torch.int32)
+        else:
+            vel_s, to_orig = vel_h[order], s.to_orig[order]
+        return SortedState(psort[:, :3], vel_s + (0.5 * dt) * acc, acc,
+                           psort[:, 3], to_orig, s.time + dt), rest
 
 
 def sorted_verlet_step(s: SortedState, sorted_force_fn: SortedForceFn, dt,
@@ -149,14 +171,18 @@ def sorted_verlet_step(s: SortedState, sorted_force_fn: SortedForceFn, dt,
 def _frozen_step(r: SortedState, frozen, meta, dt, with_audit: bool = False):
     """One Verlet step on a frozen cell assignment: the rows stay in place
     (no permutation, no gather), with the sorted step's kick arithmetic.
-    Returns ``(rows, n_stale)`` (None without the audit)."""
-    pos_d = r.pos + r.vel * dt + (0.5 * dt * dt) * r.acc
-    vel_h = r.vel + (0.5 * dt) * r.acc
-    psort = torch.cat([pos_d, r.mass[:, None]], dim=-1)
+    Returns ``(rows, n_stale)`` (None without the audit). Phases as the
+    sorted step's."""
+    dev = r.pos.device
+    with profile_phase("step.drift", device=dev, timed=False):
+        pos_d = r.pos + r.vel * dt + (0.5 * dt * dt) * r.acc
+        vel_h = r.vel + (0.5 * dt) * r.acc
+        psort = torch.cat([pos_d, r.mass[:, None]], dim=-1)
     out = frozen(psort, meta, with_audit=with_audit)
     acc, n_stale = out if with_audit else (out, None)
-    return SortedState(psort[:, :3], vel_h + (0.5 * dt) * acc, acc, r.mass,
-                       r.to_orig, r.time + dt), n_stale
+    with profile_phase("step.kick", device=dev, timed=False):
+        return SortedState(psort[:, :3], vel_h + (0.5 * dt) * acc, acc,
+                           r.mass, r.to_orig, r.time + dt), n_stale
 
 
 def make_sorted_multi_step(sorted_force_fn: SortedForceFn, dt: float,
@@ -228,7 +254,8 @@ def _row_segments(sorted_force_fn, dt):
 
 
 def _row_readout(g: SegmentGraphs) -> ParticleState:
-    """The carry in original row order, sharing no buffer."""
+    """The carry in original row order, sharing no buffer (the phases
+    ``graph.clone_out`` and ``graph.readout``)."""
     return to_particle_state(dataclasses.replace(_rows(g.buffers),
                                                  time=g.get("time")))
 

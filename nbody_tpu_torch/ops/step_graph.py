@@ -51,6 +51,11 @@ run.
 The kernel wrappers count their launches (``_build.COUNTED``); a replay
 calls no wrapper, so the launches a capture recorded are taken off the
 counters (the capture ran nothing) and added back once per replay.
+
+With the profiling switch at trace (``utils/profiling.py``) the copies are
+phases, ``graph.copy_in``, ``graph.copy_back`` (captured with its marks)
+and ``graph.clone_out``, and a capture, a call's replays and a host read
+are the spans ``graph.capture``, ``graph.replay`` and ``graph.read``.
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ from typing import Callable
 import torch
 
 from nbody_tpu_torch.ops import _build
+from nbody_tpu_torch.utils.profiling import host_span, profile_phase
 
 
 def _fields(state) -> dict:
@@ -70,10 +76,11 @@ def _fields(state) -> dict:
 
 def _copy_back(bufs: dict, out: dict) -> int:
     """Copy each output of ``out`` into the buffer of its name in ``bufs``
-    (an output that is its own buffer stays); returns the copies made by a
-    kernel (strided outputs; the others are memcpy nodes). An output that
-    views a buffer this copy-back writes would be overwritten before it
-    is copied: raises."""
+    (an output that is its own buffer stays), as the phase
+    ``graph.copy_back``; returns the copies made by a kernel (strided
+    outputs; the others are memcpy nodes). An output that views a buffer
+    this copy-back writes would be overwritten before it is copied:
+    raises."""
     pending = [(k, bufs[k], o) for k, o in out.items() if o is not bufs[k]]
     written = {buf.untyped_storage().data_ptr() for _, buf, _ in pending}
     for k, buf, o in pending:
@@ -82,8 +89,11 @@ def _copy_back(bufs: dict, out: dict) -> int:
                              f"its buffer {tuple(buf.shape)} {buf.dtype}")
         if o.untyped_storage().data_ptr() in written:
             raise ValueError(f"the step's {k} views a buffer it writes")
-    for _, buf, o in pending:
-        buf.copy_(o)
+    if pending:
+        with profile_phase("graph.copy_back", device=pending[0][1].device,
+                           timed=False):
+            for _, buf, o in pending:
+                buf.copy_(o)
     return sum(not o.is_contiguous() for _, _, o in pending)
 
 
@@ -106,22 +116,23 @@ class _Capture:
         # torch.cuda.graph releases the allocator's cache on entry, which
         # can take far longer than the capture: it counts in capture_ms
         t0 = time.perf_counter()
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        try:
-            with torch.cuda.graph(graph, pool=pool):
-                self.copy_kernels = _copy_back(bufs, fn(bufs))
-            graph.instantiate()
-        finally:
-            # the launches the capture recorded; it ran none of them
-            launches = []
-            for f, n in zip(_build.COUNTED, before):
-                if f.launches != n:
-                    launches.append((f, f.launches - n))
-                    f.launches = n
-        torch.cuda.synchronize(dev)
+        with host_span("graph.capture"):
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            try:
+                with torch.cuda.graph(graph, pool=pool):
+                    self.copy_kernels = _copy_back(bufs, fn(bufs))
+                graph.instantiate()
+            finally:
+                # the launches the capture recorded; it ran none of them
+                launches = []
+                for f, n in zip(_build.COUNTED, before):
+                    if f.launches != n:
+                        launches.append((f, f.launches - n))
+                        f.launches = n
+            torch.cuda.synchronize(dev)
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self._launches = tuple(launches)
@@ -129,8 +140,9 @@ class _Capture:
         self.captures += 1
 
     def replay(self, n: int = 1) -> None:
-        for _ in range(n):
-            self.graph.replay()
+        with host_span("graph.replay"):
+            for _ in range(n):
+                self.graph.replay()
         self.replays += n
         for f, count in self._launches:
             f.launches += count * n
@@ -167,22 +179,25 @@ class StepGraph(_Capture):
             else:
                 self._copy_in(state)
             self.replay(n_steps)
-            return self._kind(**{k: v.clone()
-                                 for k, v in self._static.items()})
+            with profile_phase("graph.clone_out", device=dev, timed=False):
+                return self._kind(**{k: v.clone()
+                                     for k, v in self._static.items()})
 
     def _copy_in(self, state) -> None:
         if type(state) is not self._kind:
             raise TypeError(f"StepGraph: a {type(state).__name__}, captured "
                             f"on a {self._kind.__name__}")
-        for k, t in _fields(state).items():
-            buf = self._static[k]
-            if (t.shape, t.dtype, t.device) != (buf.shape, buf.dtype,
-                                                buf.device):
-                raise ValueError(
-                    f"StepGraph: {k} {tuple(t.shape)} {t.dtype} on "
-                    f"{t.device}, captured on {tuple(buf.shape)} "
-                    f"{buf.dtype} on {buf.device}")
-            buf.copy_(t)
+        with profile_phase("graph.copy_in", device=state.pos.device,
+                           timed=False):
+            for k, t in _fields(state).items():
+                buf = self._static[k]
+                if (t.shape, t.dtype, t.device) != (buf.shape, buf.dtype,
+                                                    buf.device):
+                    raise ValueError(
+                        f"StepGraph: {k} {tuple(t.shape)} {t.dtype} on "
+                        f"{t.device}, captured on {tuple(buf.shape)} "
+                        f"{buf.dtype} on {buf.device}")
+                buf.copy_(t)
 
 
 class SegmentGraphs:
@@ -213,13 +228,15 @@ class SegmentGraphs:
         if not self.graphed:
             self.buffers.update(values)
             return
-        for k, t in values.items():
-            buf = self.buffers.get(k)
-            if buf is not None and (buf.shape, buf.dtype, buf.device) == (
-                    t.shape, t.dtype, t.device):
-                buf.copy_(t)
-            else:
-                self._allocate(k, t.clone())
+        dev = next(iter(values.values())).device if values else None
+        with profile_phase("graph.copy_in", device=dev, timed=False):
+            for k, t in values.items():
+                buf = self.buffers.get(k)
+                if buf is not None and (buf.shape, buf.dtype, buf.device) == (
+                        t.shape, t.dtype, t.device):
+                    buf.copy_(t)
+                else:
+                    self._allocate(k, t.clone())
 
     def _allocate(self, name: str, t: torch.Tensor) -> None:
         if self.buffers:
@@ -265,13 +282,17 @@ class SegmentGraphs:
     def read(self, name: str) -> int:
         """The () buffer ``name`` on the host: one device→host read."""
         self.host_reads += 1
-        return int(self.buffers[name])
+        with host_span("graph.read"):
+            return int(self.buffers[name])
 
     def get(self, name: str) -> torch.Tensor:
         """A copy of buffer ``name`` (graphed; eager: the value itself,
         which no later segment changes in place)."""
         t = self.buffers[name]
-        return t.clone() if self.graphed else t
+        if not self.graphed:
+            return t
+        with profile_phase("graph.clone_out", device=t.device, timed=False):
+            return t.clone()
 
 
 def stack_trace(counts, flags, device):

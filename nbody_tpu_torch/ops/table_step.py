@@ -734,7 +734,9 @@ class _Segments:
               lambda b: vars(_build_table(b, new, self.dt, self.p)))
 
     def readout(self, g: SegmentGraphs) -> ParticleState:
-        out = table_to_particle_state(_table(g.buffers), self.p)
+        with profile_phase("graph.readout", device=g.buffers["pos_t"].device,
+                           timed=False):
+            out = table_to_particle_state(_table(g.buffers), self.p)
         return dataclasses.replace(out, time=g.get("time"))
 
 

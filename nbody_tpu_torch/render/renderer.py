@@ -25,6 +25,7 @@ from nbody_tpu_torch.ops import render as render_ops
 from nbody_tpu_torch.render.camera import Camera
 from nbody_tpu_torch.render.color import ColorMapper
 from nbody_tpu_torch.types import ColorMode, RenderConfig
+from nbody_tpu_torch.utils.profiling import profile_phase
 
 
 def _as_points(a, device=None) -> torch.Tensor:
@@ -71,8 +72,11 @@ class PointRenderer:
 
     def frame(self, positions, velocities=None) -> torch.Tensor:
         """The uint8 image ``save_png`` writes for ``render``'s image,
-        (img·255) truncated, made on the points' device."""
-        return self._splat(positions, velocities, True).image_u8
+        (img·255) truncated, made on the points' device (the phase
+        ``render.frame``)."""
+        with profile_phase("render.frame",
+                           device=getattr(positions, "device", None)):
+            return self._splat(positions, velocities, True).image_u8
 
     @staticmethod
     def save_png(img, path: str) -> None:

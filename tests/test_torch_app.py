@@ -336,7 +336,9 @@ def test_application_needs_the_card(capsys):
 def test_debug_nans_and_trace(capsys, tmp_path):
     """``--debug-nans`` raises ``FloatingPointError`` at the first chunk
     whose state is not finite (here from an imported NaN); ``--trace DIR``
-    leaves a Chrome trace of the timed chunks in DIR."""
+    leaves a Chrome trace of the timed chunks in DIR, taken with the
+    profiling switch at trace (the step's phases are spans there) and the
+    switch restored after."""
     snap = tser.load_bytes(tser.save_bytes(tser.SimulationState(
         pos=np.zeros((3, 3)) + np.arange(3)[:, None], vel=np.zeros((3, 3)),
         mass=np.ones(3))))
@@ -349,7 +351,13 @@ def test_debug_nans_and_trace(capsys, tmp_path):
     with pytest.raises(FloatingPointError, match="warm-up chunk"):
         app.run()
     trace = tmp_path / "tr"
+    setting = tprof.profiling_enabled()
     rc, _, _ = _run("torch", ["--particles", "64", "--benchmark-steps", "2",
                               "--trace", str(trace), "--debug-nans"], capsys)
     assert rc == 0
-    assert json.loads((trace / "trace.json").read_text())["traceEvents"]
+    events = json.loads((trace / "trace.json").read_text())["traceEvents"]
+    spans = {e["name"] for e in events
+             if e.get("name", "").startswith(tprof.SPAN_PREFIX)}
+    assert {"nbody.simulation.run_steps", "nbody.step.drift",
+            "nbody.step.kick"} <= spans
+    assert tprof.profiling_enabled() == setting

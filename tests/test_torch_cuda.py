@@ -9,7 +9,9 @@ where JAX is not installed:
 (``--noconftest`` because the suite's conftest configures JAX.)
 """
 
+import collections
 import ctypes
+import json
 
 import numpy as np
 import pytest
@@ -1836,6 +1838,117 @@ def test_step_graph_capture_failure_raises(dev):
     assert g.graph is None
     torch.cuda.synchronize()
     assert float((p * 2).sum()) == pytest.approx(2 * float(p.sum()))
+
+
+# ---- phase marks inside the captured step (utils/profiling.py) ----------
+
+# The phases of one captured BH tiles sorted step, in order
+STEP_PHASES = ("step.drift", "bh.sort", "bh.placement", "bh.pyramid",
+               "bh.far", "bh.sweep", "bh.pickup", "step.kick",
+               "graph.copy_back")
+
+
+def _device_ops(fn, tmp_path, name) -> list:
+    """The device operations (Chrome-trace events: kernels, memcpys,
+    memsets) one call of ``fn`` queues, traced by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nbody_tpu_torch.utils.profiling import DEVICE_CATS
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # fn's first kernel starts on a busy card: the trace may leave out
+        # a kernel that starts on an idle one as the profiler starts
+        torch.cuda._sleep(1_000_000)
+        fn()
+        torch.cuda.synchronize()
+    path = tmp_path / f"{name}.json"
+    prof.export_chrome_trace(str(path))
+    return [e for e in json.loads(path.read_text())["traceEvents"]
+            if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS
+            and "spin_kernel" not in e.get("name", "")]
+
+
+def test_step_graph_phase_marks(dev, tmp_path):
+    """A captured BH tiles sorted step queues as many kernels a replay with
+    the profiling switch off or on as with the switch never touched: the
+    same graph. Captured at trace it queues that many plus an entry and an
+    exit mark for each of its nine phases, the trace names them
+    (``MARK_NAME``), every device operation of the replay lies in a phase,
+    and the phases sum to the replay's device time."""
+    from nbody_tpu_torch.ops.step_graph import StepGraph
+    from nbody_tpu_torch.utils import profiling as tprof
+
+    ps = _graph_system(dev, "bh tiles")
+    state = tint.sorted_state_from(ps.state)
+    before = tprof.profiling_enabled()
+    kernels = {}
+    # a first profiler session of the process may hold earlier kernels
+    _device_ops(torch.cuda.synchronize, tmp_path, "profiler")
+    try:
+        for name, value in (("untouched", before), ("off", False),
+                            ("on", True), ("trace", "trace")):
+            tprof.set_profiling_enabled(value)
+            g = StepGraph(ps._sorted_step)
+            g(state, 2)
+            ops = _device_ops(g.replay, tmp_path, name)
+            kernels[name] = collections.Counter(
+                e["name"] for e in ops if e["cat"] == "kernel")
+    finally:
+        tprof.set_profiling_enabled(before)
+    for name in ("off", "on"):
+        assert kernels[name] == kernels["untouched"], (
+            name, kernels[name] - kernels["untouched"],
+            kernels["untouched"] - kernels[name])
+    marks = kernels["trace"] - kernels["off"]
+    assert kernels["trace"] - marks == kernels["off"]
+    assert sum(marks.values()) == 2 * len(STEP_PHASES), marks
+    assert all(tprof.MARK_NAME.search(k) for k in marks), marks
+    got = tprof.phase_times(ops)
+    assert set(got) == set(STEP_PHASES), got
+    assert sum(got.values()) == pytest.approx(
+        sum(e["dur"] for e in ops) / 1e3)
+
+
+@pytest.mark.parametrize("call", ["run_steps", "update", "cadence"])
+def test_facade_phase_marks_cover_its_calls(dev, tmp_path, call):
+    """With the switch at trace before the first capture, every device
+    operation of a graphed facade call lies in an inner phase: the
+    copy-in, the replays' phases, the clone-out and the readout. The
+    facade's own phase (``simulation.run_steps``, ``simulation.update``)
+    holds its two marks and nothing else."""
+    from nbody_tpu_torch import ParticleSystem
+    from nbody_tpu_torch.utils import profiling as tprof
+
+    before = tprof.profiling_enabled()
+    try:
+        tprof.set_profiling_enabled("trace")
+        ps = ParticleSystem()
+        ps.initialize(SimulationConfig(
+            particle_count=4096, dt=1e-3,
+            resort_every=4 if call == "cadence" else 1,
+            **GRAPH_ENGINES["bh tiles"][0]), device=dev)
+        run = ps.update if call == "update" else (lambda: ps.run_steps(8))
+        run()
+        run()
+        ops = _device_ops(run, tmp_path, call)
+    finally:
+        tprof.set_profiling_enabled(before)
+    got = tprof.phase_times(ops)
+    outer = "simulation.update" if call == "update" else \
+        "simulation.run_steps"
+    inner = {"graph.copy_in", "graph.clone_out", *STEP_PHASES}
+    if call != "update":
+        inner |= {"graph.readout"}
+    assert None not in got, got
+    assert set(got) == inner | {outer}, got
+    index = tprof.PHASES.index(outer)
+    own = [e["dur"] for e in ops
+           if (m := tprof.MARK_NAME.search(e["name"])) is not None
+           and int(m.group(1)) == index]
+    assert len(own) == 2
+    assert got[outer] == pytest.approx(sum(own) / 1e3)
 
 
 # ---- the frozen-grid drivers as captured segments (SegmentGraphs) -------
