@@ -45,7 +45,9 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
      sort counted in a captured CUDA graph against ``launch_plan``;
      ``torch.sort`` is its library yardstick); K3 at p = 32 and 16 (two calls bit-equal too,
      ``conv3d`` with TF32 off its yardstick at both) and timed at every
-     level of a step, with their sum; then frozen(fresh meta) against the
+     level of a step, with their sum; the far field's downward pass on
+     those levels' outputs (``far_down``, bit-equal to its twin, both
+     timed with their device times by graph replay); then frozen(fresh meta) against the
      sorted step, bit for bit, at 1M for Barnes-Hut tiles and the sparse
      hash, and each audit against a host recount after a move;
      prints each kernel's bound (the larger of its operations over their
@@ -997,6 +999,7 @@ def kernel_checks(res, pos, mass, cfg):
     pyr = pyramid_from_packed(mk[:10].T.reshape(d, d, d, 10), lo, cell,
                               levels)
     k3_checks(res, label, pyr, cell, ws=ws, eps=eps, levels=levels)
+    far_down_check(res, label, pyr, cell, ws=ws, eps=eps, levels=levels)
 
     return overflow
 
@@ -1062,6 +1065,38 @@ def k3_checks(res, label, pyr, cell, *, ws, eps, levels):
               f"{fp32['bound_ms']:.4f} ms")
     print(f"K3 far_taps over the {levels} levels of one {label} step: "
           f"{k3_sum:.4f} ms (sum of per-level medians)")
+
+
+def far_down_check(res, label, pyr, cell, *, ws, eps, levels):
+    """The far field's downward pass on K3's outputs of every level of
+    one BH tiles step: the kernel against its plain twin (the torch
+    composition) bit for bit, two calls bit-equal; both timed, each with
+    its device time by graph replay; recorded as ``far_down``'s shape
+    ``label``. Bound: the finest level's K3 output read and the plane
+    written once."""
+    import torch
+
+    from nbody_tpu_torch.ops.barnes_hut import _far_taps_levels
+    from nbody_tpu_torch.ops.far_down import far_down, far_down_plain
+
+    outs = _far_taps_levels(pyr, ws, eps, levels)
+    got = far_down(outs, cell)
+    check(torch.equal(got, far_down_plain(outs, cell)),
+          "far_down: kernel and plain twin differ")
+    check(torch.equal(got, far_down(outs, cell)), "far_down: two calls differ")
+    rec = dict(
+        max_abs_err=0.0, ms=time_ms(lambda: far_down(outs, cell)),
+        device_ms=graph_ms(lambda: far_down(outs, cell)),
+        plain_ms=time_ms(lambda: far_down_plain(outs, cell)),
+        plain_device_ms=graph_ms(lambda: far_down_plain(outs, cell), reps=3),
+        **bound(0, 4 * (outs[-1].numel() + got.numel())), library_ms=None,
+    )
+    add_shape(res, "far_down", label, rec)
+    print(f"far_down levels={levels} d={got.shape[0]}: bit-equal to the "
+          f"plain twin, two calls bit-equal; kernel {rec['ms']:.4f} ms "
+          f"(device {rec['device_ms']:.4f} ms), plain {rec['plain_ms']:.4f} "
+          f"ms (device {rec['plain_device_ms']:.4f} ms), bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
 
 
 def k5_held(res, label, p, m, G, eps, plain_reps):
@@ -1723,6 +1758,7 @@ def table_launches(tp, cfg, knob, state0, steps, far):
     does not re-sort (the side rows' moments) → (want, (out, stale, flags)
     or None)."""
     want = dict(tile_sweep_plane=steps, far_taps=far * steps,
+                far_down=steps if far else 0,
                 table_drift=steps - 1, table_kick=steps)
     trace = None
     if knob == "cadence":
@@ -1854,7 +1890,7 @@ def frozen_grid_path(label, mode, steps, far, drive, drive_row, smi, dev):
     knob = _resort_knob(cfg)
     routed = (mode, knob) in TABLE_ROUTES
     row_want = dict(tile_scatter=steps, tile_sweep_plane=steps,
-                    far_taps=far * steps)
+                    far_taps=far * steps, far_down=steps if far else 0)
     info = {}
 
     def expect(ps, state0):
@@ -2149,7 +2185,7 @@ def cli_phase(res, wrappers, plains, none, keep, smi, dev, levels):
 
     def bh_want(evals):
         return {**none, "tile_scatter": evals, "far_taps": evals * levels,
-                "tile_sweep_plane": evals}
+                "far_down": evals, "tile_sweep_plane": evals}
 
     def bench(label, argv, want, via_main=False):
         return cli_bench(label, argv, want, wrappers, plains, smi, keep,
@@ -2435,7 +2471,7 @@ def render_phase(res, scene, wrappers, plains, none, keep, smi, dev, levels):
     r1_checks(res, scene)
     frames = [f"frame_{k:05d}.png" for k in range(29)]
     bh = {**none, "tile_scatter": 31, "far_taps": 31 * levels,
-          "tile_sweep_plane": 31, "pairwise_potential": 1}
+          "far_down": 31, "tile_sweep_plane": 31, "pairwise_potential": 1}
     readings = {}
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "cli"
@@ -2980,6 +3016,7 @@ def kernel_wrappers():
         pairwise_potential_cross,
         pairwise_potential_plain,
     )
+    from nbody_tpu_torch.ops.far_down import far_down, far_down_plain
     from nbody_tpu_torch.ops.far_taps import far_taps, far_taps_plain
     from nbody_tpu_torch.ops.render import render_points, render_points_plain
     from nbody_tpu_torch.ops.scatter import (
@@ -3009,6 +3046,7 @@ def kernel_wrappers():
         "tile_scatter": tile_scatter,
         "tile_place": tile_place,
         "far_taps": far_taps,
+        "far_down": far_down,
         "tile_sweep_plane": tile_sweep_plane,
         "window_sweep": window_sweep_kernel,
         "pairwise_potential": pairwise_potential,
@@ -3021,10 +3059,10 @@ def kernel_wrappers():
         "pairwise_potential_cross": pairwise_potential_cross,
     }
     plains = [direct_forces, tile_scatter_plain, tile_place_plain,
-              far_taps_plain, tile_sweep_plane_plain, window_sweep_plain,
-              pairwise_potential_plain, segment_sum_plain,
-              bitonic_sort_pairs_plain, T.table_drift_plain,
-              T.table_kick_plain, render_points_plain]
+              far_taps_plain, far_down_plain, tile_sweep_plane_plain,
+              window_sweep_plain, pairwise_potential_plain,
+              segment_sum_plain, bitonic_sort_pairs_plain,
+              T.table_drift_plain, T.table_kick_plain, render_points_plain]
     return wrappers, plains
 
 
@@ -3479,7 +3517,8 @@ def flagship_bh(res, F, wrappers, plains, none, keep, smi, dev, levels):
     launches, bh, _ = counted_run(
         label, 4 * F.BH_STEPS, lambda: F.run_bh(n, dev),
         {**none, "tile_scatter": forces, "far_taps": forces * levels,
-         "tile_sweep_plane": forces, "direct_forces": 1},
+         "far_down": forces, "tile_sweep_plane": forces,
+         "direct_forces": 1},
         wrappers, plains, smi)
     keep(label, launches)
     p = bh["params"]
@@ -3536,7 +3575,8 @@ def flagship_galaxy(res, F, wrappers, plains, none, keep, smi, dev, levels):
             label, frames * F.STEPS_PER_FRAME,
             lambda: F.run_galaxy(n, frames, out, dev),
             {**none, "tile_scatter": forces, "far_taps": forces * levels,
-             "tile_sweep_plane": forces, "direct_forces": 1,
+             "far_down": forces, "tile_sweep_plane": forces,
+             "direct_forces": 1,
              "render_points": frames + 1},
             wrappers, plains, smi)
         keep(label, launches)
@@ -4208,7 +4248,7 @@ def main() -> None:
 
     levels = bh_engine_params(bh_cfg)["levels"]
     bh_run = drive("1M BH tiles", 30, tile_scatter=30, far_taps=30 * levels,
-                   tile_sweep_plane=30)
+                   far_down=30, tile_sweep_plane=30)
     collapse_check(res, bh_run[2].state, bh_cfg, "1M BH tiles after 30 steps")
     drive("1M dense hash", 30, window_sweep=30)
     drive("1M sparse hash", 30, tile_scatter=30, tile_sweep_plane=30)
@@ -4293,7 +4333,8 @@ def main() -> None:
         steps, chunk,
         {**none, "pairwise_potential": 1 + steps // chunk,
          "tile_scatter": steps + 1, "far_taps": (steps + 1) * levels,
-         "tile_sweep_plane": steps + 1}, wrappers, plains, smi, dev))
+         "far_down": steps + 1, "tile_sweep_plane": steps + 1}, wrappers,
+        plains, smi, dev))
 
     # Phase 6 (k): the CLI entry point
     readings = cli_phase(res, wrappers, plains, none, keep, smi, dev, levels)
@@ -4332,6 +4373,10 @@ def main() -> None:
                        "nbody_tpu/ops/pallas_scatter.py:605"),
         "far_taps": ("nbody_tpu_torch/csrc/far_taps.cu",
                      "nbody_tpu/ops/pallas_far_taps.py:143"),
+        # no TPU kernel: XLA ops of the JAX far field's downward pass
+        "far_down": ("nbody_tpu_torch/csrc/far_down.cu",
+                     "nbody_tpu/ops/barnes_hut.py:549 (far_field_grid's "
+                     "level loop, XLA ops)"),
         "tile_sweep_plane": ("nbody_tpu_torch/csrc/tile_near.cu",
                              "nbody_tpu/ops/pallas_tile_near.py:473"),
         "window_sweep": ("nbody_tpu_torch/csrc/window_sweep.cu",

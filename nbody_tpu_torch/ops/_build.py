@@ -65,6 +65,9 @@ SIGNATURES = {
     "nbt_table_kick": (_P, _P, _P, _F, _F, _I, _I, _P),
     # mom, taps, out, p, ws, stream
     "nbt_far_taps": (_P, _P, _P, _I, _I, _P),
+    # outs (host array of device pointers, one a level), levels, cell,
+    # plane, stream
+    "nbt_far_down": (_P, _I, _P, _P, _P),
     # tiles, far, n_far, counts, lo, cell, out, d, k, ws, eps2,
     # cutoff2, use_cutoff, stream
     "nbt_tile_near": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I,

@@ -12,9 +12,10 @@ The fused TILES path (finest cells hold ≤ 24 particles on average) runs:
   2. slot placement + finest order-2 moments + exact counts (kernel K2,
      ``scatter.tile_scatter``);
   3. the pyramid by 2× reductions (``pyramid_from_packed``);
-  4. a far-field local expansion per finest cell (``far_field_grid``): per
-     level, the multipole-to-local tap sum (kernel K3, ``far_taps.far_taps``)
-     and the exact downward translation;
+  4. a far-field local expansion per finest cell (``far_plane_grid``): per
+     level, the multipole-to-local tap sum (kernel K3, ``far_taps.far_taps``),
+     then the exact downward translation to the finest cells in one launch
+     (``far_down.far_down``);
   5. the near sweep seeded with the far expansion (kernel K4,
      ``tile_near.tile_sweep_plane``);
   6. the pickup gather, with rows past the k-slot cap redirected to G·A of
@@ -55,6 +56,13 @@ import math
 import numpy as np
 import torch
 
+from nbody_tpu_torch.ops.far_down import (
+    down_pass,
+    far_down,
+    split_level,
+    sym3_matvec,
+    sym_matvec,
+)
 from nbody_tpu_torch.ops.far_taps import far_taps
 from nbody_tpu_torch.ops.scatter import segment_sum
 from nbody_tpu_torch.ops.sorted_window import (
@@ -419,45 +427,28 @@ def level_moments(pyr: Pyramid, lvl: int) -> torch.Tensor:
     ).reshape(80, p * p * p).contiguous()
 
 
-def _far_conv_level(pyr: Pyramid, lvl: int, ws: int, eps: float,
-                    levels: int, tap_mat=None):
+def _far_taps_level(pyr: Pyramid, lvl: int, ws: int, eps: float,
+                    levels: int, tap_mat=None) -> torch.Tensor:
     """One level's accepted far-field contributions through kernel K3:
-    (A (8, 3, p³), J (8, 6, p³), H (8, 10, p³)) per target child."""
+    (152, p³), row = kid·19 + [A3 | J6 | H10] per target child."""
     p = (1 << lvl) // 2
     if tap_mat is None:
         tap_mat = level_tap_matrices(pyr.cell, ws, eps, levels, [lvl])[0]
-    out = far_taps(level_moments(pyr, lvl), tap_mat.contiguous(), p=p, ws=ws)
-    out = out.reshape(8, 19, p * p * p)
-    return out[:, 0:3], out[:, 3:9], out[:, 9:19]
+    return far_taps(level_moments(pyr, lvl), tap_mat.contiguous(), p=p,
+                    ws=ws)
 
 
-def sym_matvec(j6: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """(…, 6) symmetric matrix [xx,yy,zz,xy,xz,yz] times (…, 3) vector."""
-    jx = j6[..., 0] * v[..., 0] + j6[..., 3] * v[..., 1] + j6[..., 4] * v[..., 2]
-    jy = j6[..., 3] * v[..., 0] + j6[..., 1] * v[..., 1] + j6[..., 5] * v[..., 2]
-    jz = j6[..., 4] * v[..., 0] + j6[..., 5] * v[..., 1] + j6[..., 2] * v[..., 2]
-    return torch.stack([jx, jy, jz], dim=-1)
+def _far_conv_level(pyr: Pyramid, lvl: int, ws: int, eps: float,
+                    levels: int, tap_mat=None):
+    """``_far_taps_level`` as (A (8, 3, p³), J (8, 6, p³), H (8, 10, p³))."""
+    return split_level(_far_taps_level(pyr, lvl, ws, eps, levels, tap_mat))
 
 
-def sym3_matvec(h10: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """(…, 10) symmetric 3-tensor [xxx,yyy,zzz,xxy,xxz,xyy,yyz,xzz,yzz,xyz]
-    contracted with (…, 3) → the (…, 6) symmetric matrix (H·v)_ij."""
-    vx, vy, vz = v[..., 0], v[..., 1], v[..., 2]
-    xxx, yyy, zzz = h10[..., 0], h10[..., 1], h10[..., 2]
-    xxy, xxz, xyy = h10[..., 3], h10[..., 4], h10[..., 5]
-    yyz, xzz, yzz = h10[..., 6], h10[..., 7], h10[..., 8]
-    xyz = h10[..., 9]
-    return torch.stack(
-        [
-            xxx * vx + xxy * vy + xxz * vz,  # xx
-            xyy * vx + yyy * vy + yyz * vz,  # yy
-            xzz * vx + yzz * vy + zzz * vz,  # zz
-            xxy * vx + xyy * vy + xyz * vz,  # xy
-            xxz * vx + xyz * vy + xzz * vz,  # xz
-            xyz * vx + yyz * vy + yzz * vz,  # yz
-        ],
-        dim=-1,
-    )
+def _far_taps_levels(pyr: Pyramid, ws: int, eps: float, levels: int):
+    """K3's outputs (152, p³) of levels 1..levels, one tap build."""
+    taps = level_tap_matrices(pyr.cell, ws, eps, levels)
+    return [_far_taps_level(pyr, lvl, ws, eps, levels, taps[lvl - 1])
+            for lvl in range(1, levels + 1)]
 
 
 # Pair terms (target child × offset × source child × cell) one chunk of
@@ -548,7 +539,7 @@ def _far_monopole_level(pyr: Pyramid, lvl: int, ws: int, eps: float,
 
 def far_field_grid(pyr: Pyramid, ws: int, G: float, eps: float, levels: int):
     """Far field as a LOCAL EXPANSION per finest cell about cell centres,
-    with the exact downward translation to child centres.
+    with the exact downward translation to child centres (``down_pass``).
 
     Order-2 pyramids → (A (d,d,d,3), J6 (d,d,d,6), H10 (d,d,d,10)): each
     level's taps through kernel K3; A_child = A + J·δ + ½δᵀHδ,
@@ -557,53 +548,13 @@ def far_field_grid(pyr: Pyramid, ws: int, G: float, eps: float, levels: int):
     (``_far_monopole_level``; the JAX package computes them outside any
     Pallas kernel too); A_child = A + J·δ, J_child = J."""
     quad = len(pyr.quads) > 0
-    taps = level_tap_matrices(pyr.cell, ws, eps, levels) if quad else None
-    dtype = pyr.masses[0].dtype
-    dev = pyr.masses[0].device
-    acc = jac = hes = hes_lvl = None
-    for lvl in range(1, levels + 1):
-        dl = 1 << lvl
-        p = dl // 2
-        s_l = pyr.cell * (1 << (levels - lvl))
-        if quad:
-            acc_pm, jac_pm, hes_pm = _far_conv_level(
-                pyr, lvl, ws, eps, levels, tap_mat=taps[lvl - 1]
-            )
-        else:
-            acc_pm, jac_pm = _far_monopole_level(pyr, lvl, ws, eps, levels)
-
-        def to_grid(a, c, p=p, dl=dl):
-            return (
-                a.reshape(2, 2, 2, c, p, p, p)
-                .permute(4, 0, 5, 1, 6, 2, 3)
-                .reshape(dl, dl, dl, c)
-            )
-
-        acc_lvl = to_grid(acc_pm, 3)
-        jac_lvl = to_grid(jac_pm, 6)
-        if quad:
-            hes_lvl = to_grid(hes_pm, 10)
-        if acc is not None:
-
-            def rep8(x):
-                return (
-                    x.repeat_interleave(2, 0).repeat_interleave(2, 1)
-                    .repeat_interleave(2, 2)
-                )
-
-            a_rep, j_rep = rep8(acc), rep8(jac)
-            par = (torch.arange(dl, device=dev) % 2).to(dtype) - 0.5
-            px, py, pz = torch.meshgrid(par, par, par, indexing="ij")
-            delta = torch.stack([px, py, pz], dim=-1) * s_l
-            acc_lvl = acc_lvl + a_rep + sym_matvec(j_rep, delta)
-            jac_lvl = jac_lvl + j_rep
-            if quad:
-                h_rep = rep8(hes)
-                hd6 = sym3_matvec(h_rep, delta)
-                acc_lvl = acc_lvl + 0.5 * sym_matvec(hd6, delta)
-                jac_lvl = jac_lvl + hd6
-                hes_lvl = hes_lvl + h_rep
-        acc, jac, hes = acc_lvl, jac_lvl, hes_lvl
+    if quad:
+        per_level = [split_level(o)
+                     for o in _far_taps_levels(pyr, ws, eps, levels)]
+    else:
+        per_level = [(*_far_monopole_level(pyr, lvl, ws, eps, levels), None)
+                     for lvl in range(1, levels + 1)]
+    acc, jac, hes = down_pass(per_level, pyr.cell)
     return G * acc, G * jac, (G * hes if quad else None)
 
 
@@ -636,17 +587,13 @@ def far_plane_grid(packed, lo, cell, *, levels: int, ws: int, eps: float):
     """Packed finest order-2 moments (d, d, d, 10) → the far expansion
     [A3 | J6 | H10] of every finest cell as the sweep's seed (d, 19, d²),
     unscaled by G: the pyramid (phase ``bh.pyramid``) and the far field
-    (``bh.far``)."""
-    d = 1 << levels
+    (``bh.far``: K3 on each level, then the downward pass in one launch of
+    ``far_down``)."""
     dev = packed.device
     with profile_phase("bh.pyramid", device=dev):
         pyr = pyramid_from_packed(packed, lo, cell, levels)
     with profile_phase("bh.far", device=dev):
-        a_far, j_far, h_far = far_field_grid(pyr, ws, 1.0, eps, levels)
-        return (
-            torch.cat([a_far, j_far, h_far], dim=-1)
-            .reshape(d, d * d, 19).permute(0, 2, 1).contiguous()
-        )
+        return far_down(_far_taps_levels(pyr, ws, eps, levels), cell)
 
 
 def _fused_bh_force_from_grid(grid, lo, cell, *, d, levels, ws, near_k, G,

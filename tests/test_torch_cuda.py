@@ -33,6 +33,7 @@ from nbody_tpu_torch.ops.direct import (
     pairwise_potential,
     pairwise_potential_plain,
 )
+from nbody_tpu_torch.ops.far_down import MAX_LEVELS, far_down, far_down_plain
 from nbody_tpu_torch.ops.far_taps import far_taps, far_taps_plain
 from nbody_tpu_torch.ops import integrator as tint
 from nbody_tpu_torch.ops import table_step as T
@@ -408,23 +409,115 @@ def _k40_scene(dev, d=32, ws=1):
     sphere; ``bh_engine_params`` gives near_k 40), its K2 tiles and
     moments at k 40, and K4's keyword arguments with a 19-channel far
     plane from the pyramid."""
-    from nbody_tpu_torch.ops.barnes_hut import (
-        far_field_grid,
-        pyramid_from_packed,
-    )
+    from nbody_tpu_torch.ops.barnes_hut import far_plane_grid
 
     k, levels = 40, d.bit_length() - 1
     p, m = (t.to(dev) for t in _sphere(15 * d ** 3, 10.0, seed=40))
     lo, cell, coords = bin_particles(p, levels)
     g = build_sorted_grid(p, m, coords, d)
     tk, mk = tile_scatter(g.psort, g.cell_start, lo, cell, d=d, k=k)
-    pyr = pyramid_from_packed(mk[:10].T.reshape(d, d, d, 10), lo, cell,
-                              levels)
-    far = torch.cat(far_field_grid(pyr, ws, 1.0, 0.1, levels), dim=-1)
-    far = far.reshape(d, d * d, 19).permute(0, 2, 1).contiguous()
+    far = far_plane_grid(mk[:10].T.reshape(d, d, d, 10), lo, cell,
+                         levels=levels, ws=ws, eps=0.1)
     kw = dict(k=k, d=d, ws=ws, eps=0.1, counts=mk[10], far_plane=far, lo=lo,
               cell=cell)
     return g, lo, cell, tk, kw
+
+
+def _far_scene(scene, dev):
+    """(packed finest moments (d, d, d, 10), lo, cell, levels): the
+    bh1m-sphere initial state (1M rows in a ball of radius 10 at rest,
+    masses 1/N; d 64, k 16) or ``_k40_scene``'s sphere (d 32, k 40)."""
+    if scene == "bh1m":
+        n, d, k = 1_000_000, 64, 16
+        p, _ = _sphere(n, 10.0, seed=42)
+        m = torch.full((n,), 1.0 / n)
+    else:
+        d, k = 32, 40
+        p, m = _sphere(15 * d ** 3, 10.0, seed=40)
+    p, m = p.to(dev), m.to(dev)
+    levels = d.bit_length() - 1
+    lo, cell, coords = bin_particles(p, levels)
+    g = build_sorted_grid(p, m, coords, d)
+    _, mk = tile_scatter(g.psort, g.cell_start, lo, cell, d=d, k=k)
+    return mk[:10].T.reshape(d, d, d, 10), lo, cell, levels
+
+
+@pytest.mark.parametrize("scene", ["bh1m", "k40"])
+def test_far_down_kernel(dev, scene):
+    """The far field's downward pass (one launch) vs its plain twin (the
+    torch composition) on K3's outputs of every level: bit-equal, since
+    the kernel rounds each product and sum once in the twin's order; two
+    calls bit-equal; ``far_plane_grid`` launches it once a call and
+    returns the same plane."""
+    from nbody_tpu_torch.ops.barnes_hut import (
+        _far_taps_levels,
+        far_plane_grid,
+        pyramid_from_packed,
+    )
+
+    packed, lo, cell, levels = _far_scene(scene, dev)
+    d = 1 << levels
+    pyr = pyramid_from_packed(packed, lo, cell, levels)
+    outs = _far_taps_levels(pyr, 1, 0.1, levels)
+    before = far_down.launches
+    got = far_down(outs, cell)
+    assert far_down.launches == before + 1
+    assert got.shape == (d, 19, d * d)
+    assert bool(torch.isfinite(got).all()) and bool((got != 0).any())
+    assert torch.equal(got, far_down_plain(outs, cell))
+    assert torch.equal(far_down(outs, cell), got)
+    before = far_down.launches
+    plane = far_plane_grid(packed, lo, cell, levels=levels, ws=1, eps=0.1)
+    assert far_down.launches == before + 1
+    assert torch.equal(plane, got)
+
+
+@pytest.mark.parametrize("levels", range(1, 8))
+def test_far_down_kernel_at_each_level(dev, levels):
+    """The kernel at each depth it is built for up to d 128 (the 4M
+    flagship takes its levels from ``bh_max_level``): random K3-shaped
+    outputs and edge, bit-equal to the plain twin, one launch."""
+    rng = np.random.default_rng(100 + levels)
+    outs = [torch.from_numpy(rng.normal(size=(152, 8 ** lvl // 8))
+                             .astype(np.float32)).to(dev)
+            for lvl in range(1, levels + 1)]
+    cell = torch.tensor(float(rng.uniform(0.01, 2.0)), dtype=torch.float32,
+                        device=dev)
+    before = far_down.launches
+    got = far_down(outs, cell)
+    assert far_down.launches == before + 1
+    d = 1 << levels
+    assert got.shape == (d, 19, d * d)
+    assert torch.equal(got, far_down_plain(outs, cell))
+
+
+def test_far_down_refuses_what_the_kernel_does_not_take(dev):
+    """The wrapper raises, launching nothing, on a level of the wrong
+    shape, a non-contiguous or float64 level, a CPU/CUDA mix, a cell of
+    more than one element and more levels than the kernel takes."""
+    rng = np.random.default_rng(9)
+
+    def level(p):
+        return torch.from_numpy(
+            rng.normal(size=(152, p ** 3)).astype(np.float32)).to(dev)
+
+    outs = [level(1 << i) for i in range(3)]
+    cell = torch.tensor(0.5, device=dev)
+    before = far_down.launches
+    bad = [
+        ([outs[0], level(1), outs[2]], cell),
+        ([outs[0], outs[1], level(4).T.contiguous().T], cell),
+        ([outs[0], outs[1].double(), outs[2]], cell),
+        (outs, cell.cpu()),
+        ([outs[0].cpu(), *outs[1:]], cell),
+        (outs, torch.full((2,), 0.5, device=dev)),
+        ([level(1)] * (MAX_LEVELS + 1), cell),
+    ]
+    for args in bad:
+        with pytest.raises((ValueError, TypeError)):
+            far_down(*args)
+    assert far_down.launches == before
+    assert far_down(outs, cell.reshape(1)).shape == (8, 19, 64)
 
 
 def test_scatter_kernel_at_k40(dev):

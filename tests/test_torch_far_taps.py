@@ -1,7 +1,8 @@
 """nbody_tpu_torch far field (kernel K3's plain twin, the tap matrices,
-the pyramid and the whole far_field_grid) against the JAX package (CPU).
+the pyramid and the whole far_field_grid) against the JAX package (CPU),
+and the downward pass's plain twin against the torch composition.
 
-Tolerance 2e-5·max|out| throughout: every quantity is an f32 sum of up to
+Tolerance 2e-5·max|out| against JAX: every quantity is an f32 sum of up to
 27·80 products taken in another order than XLA's HIGHEST-precision dots.
 """
 
@@ -14,6 +15,7 @@ import torch
 from nbody_tpu.ops import barnes_hut as jbh
 from nbody_tpu.ops.pallas_far_taps import far_taps_pallas
 from nbody_tpu_torch.ops import barnes_hut as tbh
+from nbody_tpu_torch.ops.far_down import far_down, far_down_plain
 from nbody_tpu_torch.ops.far_taps import far_taps
 
 LEVELS, WS, EPS = 3, 1, 0.1
@@ -102,3 +104,42 @@ def test_far_field_grid_matches_jax(pyramids):
     for g, w in zip(got, want):
         assert tuple(g.shape) == tuple(w.shape)
         _close(g, w)
+
+
+def _random_pyramid(levels, seed):
+    """A pyramid from random finest order-2 moments at d = 2^levels."""
+    rng = np.random.default_rng(seed)
+    d = 1 << levels
+    packed = rng.normal(0.0, 0.1, (d, d, d, 10)).astype(np.float32)
+    packed[..., 0] = rng.uniform(0.0, 1.0, (d, d, d))
+    packed = torch.from_numpy(packed)
+    lo, cell = torch.tensor([-1.0, -2.0, 0.5]), torch.tensor(0.37)
+    return packed, lo, cell, tbh.pyramid_from_packed(packed, lo, cell, levels)
+
+
+@pytest.mark.parametrize("levels", [2, 3, 4, 5, 6])
+def test_far_down_plain_equals_the_composition(levels):
+    """The downward pass's plain twin, on K3's outputs of every level, is
+    bit for bit the far plane of far_field_grid, cat, reshape, permute and
+    contiguous."""
+    _, _, cell, pyr = _random_pyramid(levels, 30 + levels)
+    d = 1 << levels
+    a_far, j_far, h_far = tbh.far_field_grid(pyr, WS, 1.0, EPS, levels)
+    want = (torch.cat([a_far, j_far, h_far], dim=-1)
+            .reshape(d, d * d, 19).permute(0, 2, 1).contiguous())
+    got = far_down_plain(tbh._far_taps_levels(pyr, WS, EPS, levels), cell)
+    assert got.shape == (d, 19, d * d) and got.is_contiguous()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("levels", [2, 3, 4, 5, 6])
+def test_far_plane_grid_takes_the_twin_on_cpu(levels):
+    """far_plane_grid on CPU tensors runs the twin once and launches
+    nothing."""
+    packed, lo, cell, pyr = _random_pyramid(levels, 40 + levels)
+    launches, calls = far_down.launches, far_down_plain.calls
+    got = tbh.far_plane_grid(packed, lo, cell, levels=levels, ws=WS, eps=EPS)
+    assert far_down.launches == launches
+    assert far_down_plain.calls == calls + 1
+    want = far_down_plain(tbh._far_taps_levels(pyr, WS, EPS, levels), cell)
+    assert torch.equal(got, want)
