@@ -2263,8 +2263,12 @@ def cli_phase(res, wrappers, plains, none, keep, smi, dev, levels):
     check_finite("k5 CLI 1M spatial hash", app.system.state)
     rate = rec["metrics"]["steps_per_sec"]
     readings["k5 CLI 1M spatial hash steps/s"] = rate
+    audit = app.system.audit_short_range()
+    check(audit["window_overflow_rows"] == 0,
+          f"k5 CLI 1M spatial hash dropped pairs: {audit}")
     print(f"k5 CLI 1M spatial hash: {rate:.3f} steps/s (its record) beside "
-          f"path b's facade {RATES['1M dense hash']:.3f} steps/s ({smi})")
+          f"path b's facade {RATES['1M dense hash']:.3f} steps/s; "
+          f"audit_short_range {audit} ({smi})")
     del app
 
     # k6: HDF5
@@ -4287,6 +4291,10 @@ def main() -> None:
 
     p = hash_engine_params(hash_cfg, pos0)
     check(p["engine"] == "window", f"dense hash engine {p['engine']}")
+    check((p["window"], p["block"]) == (N, 256),
+          f"dense hash window {p['window']} at block {p['block']}")
+    print(f"dense hash window: every row, {p['window']}, at block "
+          f"{p['block']} (the JAX package's default: 2048 at block 256)")
     acc = make_force_fn(hash_cfg, pos_hint=pos0)(pos0, mass0)
     coords = hash_bin(pos0, 1.0, 64)[2]
     # rows of target blocks whose windows overflowed miss pairs by
@@ -4306,6 +4314,8 @@ def main() -> None:
           f"excluded): max|diff| {err:.4e}, max|a| {scale:.4e}, median rel "
           f"err {med:.3e} (tol 1e-4*max|a|: f32 sums of ~10^4 terms)")
     check(err <= 1e-4 * scale, f"dense hash ground truth {err} > 1e-4*max")
+    check(int(over) == 0, f"dense hash: the window {p['window']} drops "
+          f"{int(over)} rows at step 0")
 
     p = hash_engine_params(sparse_cfg, sp_pos)
     check((p["engine"], p["tile_d"], p["tile_k"]) == ("tiles", 56, 16),

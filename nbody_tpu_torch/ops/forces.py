@@ -15,10 +15,13 @@ from nbody_tpu_torch.errors import ValidationError
 from nbody_tpu_torch.types import ForceMethod, SimulationConfig
 
 
-def make_force_fn(config: SimulationConfig, *, pos_hint=None):
+def make_force_fn(config: SimulationConfig, *, pos_hint=None,
+                  hash_overflow=None):
     """Build the force function for ``config.force_method``. ``pos_hint``
     (positions, read on the host once) lets the spatial hash's
-    ``hash_engine="auto"`` pick window or tiles from the scene's density."""
+    ``hash_engine="auto"`` pick window or tiles from the scene's density;
+    the hash's window engine adds its overflow to ``hash_overflow`` (a 0-d
+    int64 device tensor) when given."""
     method = config.force_method
     G, eps = config.G, config.softening
     if method == ForceMethod.DIRECT_N2:
@@ -35,15 +38,18 @@ def make_force_fn(config: SimulationConfig, *, pos_hint=None):
     if method == ForceMethod.SPATIAL_HASH:
         from nbody_tpu_torch.ops.spatial_hash import make_spatial_hash_forces
 
-        return make_spatial_hash_forces(config, pos_hint=pos_hint)
+        return make_spatial_hash_forces(config, pos_hint=pos_hint,
+                                        overflow_total=hash_overflow)
     raise ValidationError(f"Unknown force method: {method}")
 
 
-def make_sorted_force_fn(config: SimulationConfig, *, pos_hint=None):
+def make_sorted_force_fn(config: SimulationConfig, *, pos_hint=None,
+                         hash_overflow=None):
     """Sorted-pipeline force ``(pos, mass) -> (acc_sorted, psort, order)``,
     or None when the method has no sorted contract: direct N² (its row
     order never changes, so sorted stepping would only add gathers) and
-    the Barnes-Hut window engine. Both spatial-hash engines have it."""
+    the Barnes-Hut window engine. Both spatial-hash engines have it.
+    ``hash_overflow`` as in ``make_force_fn``."""
     if config.force_method == ForceMethod.BARNES_HUT:
         from nbody_tpu_torch.ops.barnes_hut import make_barnes_hut_forces_sorted
 
@@ -53,7 +59,8 @@ def make_sorted_force_fn(config: SimulationConfig, *, pos_hint=None):
             make_spatial_hash_forces_sorted,
         )
 
-        return make_spatial_hash_forces_sorted(config, pos_hint=pos_hint)
+        return make_spatial_hash_forces_sorted(config, pos_hint=pos_hint,
+                                               overflow_total=hash_overflow)
     return None
 
 

@@ -189,7 +189,8 @@ def xy_ball(ws: int):
 def window_sweep(grid: SortedGrid, *, d: int, xy_offsets, z_halfwidth: int,
                  window: int = 1024, block_size: int = 256,
                  eps: float | None = None, cutoff2: float | None = None,
-                 pair_weight=None, sorted_output: bool = False):
+                 pair_weight=None, sorted_output: bool = False,
+                 overflow_out=None):
     """Σ_j w(r², m_j)·(x_j − x_i) over the neighbour windows, with one of
     two weights:
 
@@ -206,7 +207,9 @@ def window_sweep(grid: SortedGrid, *, d: int, xy_offsets, z_halfwidth: int,
     Returns ``(acc (N, 3) un-scaled by G, overflow () int64)``, acc in
     ORIGINAL row order, or in the grid's CELL-SORTED order with
     ``sorted_output=True`` (the sorted-stepping contract). The grid needs
-    ``csort`` (``build_sorted_grid(..., with_csort=True)``)."""
+    ``csort`` (``build_sorted_grid(..., with_csort=True)``).
+    ``overflow_out`` (0-d int64, on the grid's device) has the overflow
+    added to it and comes back as ``overflow``."""
     if (eps is None) == (pair_weight is None):
         raise ValueError(
             "window_sweep: pass exactly one of eps= (gravity kernel) or "
@@ -217,10 +220,12 @@ def window_sweep(grid: SortedGrid, *, d: int, xy_offsets, z_halfwidth: int,
         acc, overflow = window_sweep_plain(
             grid.psort, grid.csort, grid.cell_start, eps=0.0,
             pair_weight=pair_weight, **kw)
+        if overflow_out is not None:
+            overflow = overflow_out.add_(overflow)
     else:
         acc, overflow = window_sweep_kernel(
             grid.psort, grid.csort, grid.cell_start, eps=eps,
-            cutoff2=cutoff2, **kw)
+            cutoff2=cutoff2, overflow_out=overflow_out, **kw)
     if sorted_output:
         return acc, overflow
     return unsort_rows(acc, grid.order), overflow

@@ -14,10 +14,16 @@ acceleration structures:
     (``tile_sweep.tile_near_field``).
 
 ``hash_engine_params`` picks between them with the JAX package's rule, so
-both packages run the same engine, d, k and window on the same positions.
-The binning stays on the device (``floor((pos − lo)/cell_size)`` clipped to
-``dims`` or d); only the engine choice reads positions on the host, once,
-when a strategy is built.
+both packages run the same engine, d, k and block on the same positions.
+The window engine's window is the one departure: at ``hash_window`` 0 it
+is every row, which K7 clips to and so drops no pair on any scene, where
+the JAX package's 1024 or 2048 rows drop pairs on dense ones
+(``hash_window_defaults``). The binning stays on the device
+(``floor((pos − lo)/cell_size)`` clipped to ``dims`` or d); only the
+engine choice reads positions on the host, once, when a strategy is built.
+The window engine's closures add each evaluation's overflow (non-zero only
+under an explicit ``hash_window``) to a device counter when given one, so
+a captured step counts what it drops without a host read.
 
 The tiles engine also has the frozen-grid contract of
 ``integrator.make_resort_multi_step`` (``with_grid_meta=True``,
@@ -139,7 +145,8 @@ def verify_cell_assignment(pos, grid: GridData, cap: int) -> bool:
 
 
 def _window_forces(pos, mass, G, softening, *, cutoff, cell_size, cap,
-                   window, block_size, sorted_output, extra=None):
+                   window, block_size, sorted_output, extra=None,
+                   overflow_total=None):
     dev = pos.device
     with profile_phase("hash.sort", device=dev):
         _lo, _dims, coords = hash_bin(pos, cell_size, cap)
@@ -149,7 +156,7 @@ def _window_forces(pos, mass, G, softening, *, cutoff, cell_size, cap,
         acc, overflow = window_sweep(
             grid, d=cap, xy_offsets=xy_ball(1), z_halfwidth=1, window=window,
             block_size=block_size, eps=softening, cutoff2=cutoff * cutoff,
-            sorted_output=sorted_output,
+            sorted_output=sorted_output, overflow_out=overflow_total,
         )
     return G * acc, overflow, grid
 
@@ -157,26 +164,31 @@ def _window_forces(pos, mass, G, softening, *, cutoff, cell_size, cap,
 def spatial_hash_forces(pos, mass, G: float = 1.0, softening: float = 0.1, *,
                         cutoff: float = 2.0, cell_size: float = 1.0,
                         cap: int = 64, window: int = 2048,
-                        block_size: int = 256, return_overflow: bool = False):
+                        block_size: int = 256, return_overflow: bool = False,
+                        overflow_total=None):
     """Window-engine short-range forces in original row order (9 xy
-    offsets × contiguous z-run windows, kernel K7)."""
+    offsets × contiguous z-run windows, kernel K7). ``overflow_total``
+    (a 0-d int64 tensor on the device) has the overflow added to it, by
+    the kernel itself, and is the overflow returned."""
     acc, overflow, _ = _window_forces(
         pos, mass, G, softening, cutoff=cutoff, cell_size=cell_size, cap=cap,
-        window=window, block_size=block_size, sorted_output=False)
+        window=window, block_size=block_size, sorted_output=False,
+        overflow_total=overflow_total)
     return (acc, overflow) if return_overflow else acc
 
 
 def spatial_hash_forces_window_sorted(pos, mass, G=1.0, softening=0.1, *,
                                       cutoff=2.0, cell_size=1.0, cap=64,
                                       window=2048, block_size=256,
-                                      extra=None):
+                                      extra=None, overflow_total=None):
     """The window engine in CELL-SORTED row order →
     ``(acc_sorted, psort, order)`` (the sorted-stepping contract), with
-    ``extra_sorted`` appended when ``extra`` (N, E) rides the sort."""
+    ``extra_sorted`` appended when ``extra`` (N, E) rides the sort;
+    ``overflow_total`` as in ``spatial_hash_forces``."""
     acc, _, grid = _window_forces(
         pos, mass, G, softening, cutoff=cutoff, cell_size=cell_size, cap=cap,
         window=window, block_size=block_size, sorted_output=True,
-        extra=extra)
+        extra=extra, overflow_total=overflow_total)
     return sorted_outputs(acc, grid, extra)
 
 
@@ -259,22 +271,28 @@ def spatial_hash_forces_tiles_frozen(psort, meta: FrozenGridMeta, G=1.0,
 
 
 def hash_window_defaults(config: SimulationConfig):
-    """(window, block) of the sorted-window sweep: (1024, 128) at ≤ 150K
-    particles, (2048, 256) above; an explicit ``hash_window`` takes block
-    512 from 1536 up. The windows, and so the overflow audit, depend on
-    the block, so it stays the JAX package's."""
+    """(window, block) of the sorted-window sweep. An explicit
+    ``hash_window`` is the JAX package's: block 512 from 1536 up, else
+    256. At ``hash_window`` 0 the window is every row, where the JAX
+    package takes 1024 at ≤ 150K particles and 2048 above: kernel K7 and
+    its twin clip each target's cell spans to the window and walk no row
+    past them, so a window of N costs nothing and drops no pair however
+    the scene crowds, where the JAX package's drops ~64K row-windows on
+    the 1M sphere of radius 10 at cell 1.0. The block stays the JAX
+    package's, 128 at ≤ 150K particles and 256 above."""
     if config.hash_window > 0:
         window = config.hash_window
         return window, (512 if window >= 1536 else 256)
     n = config.particle_count
-    return (1024, 128) if n <= 150_000 else (2048, 256)
+    return n, (128 if n <= 150_000 else 256)
 
 
 def hash_engine_params(config: SimulationConfig, pos=None) -> dict:
     """Engine selection — the JAX package's rule, so both packages pick the
-    same engine, ``tile_d``, ``tile_k``, window and block on the same
-    positions. ``pos`` (array-like, read on the host once) enables the
-    density probe; without it "auto" takes the window engine.
+    same engine, ``tile_d``, ``tile_k`` and block on the same positions;
+    the window is ``hash_window_defaults``' (the JAX package's where
+    ``hash_window`` is given). ``pos`` (array-like, read on the host once)
+    enables the density probe; without it "auto" takes the window engine.
 
     Returns engine ("window"/"tiles"), window, block, tile_d, tile_k,
     occupancy (mean rows per occupied cell, None without a probe)."""
@@ -322,10 +340,12 @@ def hash_engine_params(config: SimulationConfig, pos=None) -> dict:
     }
 
 
-def make_spatial_hash_forces(config: SimulationConfig, pos_hint=None):
+def make_spatial_hash_forces(config: SimulationConfig, pos_hint=None, *,
+                             overflow_total=None):
     """``force_fn(pos, mass) -> acc`` (original row order) for the engine
     ``hash_engine_params`` resolves; the resolved parameters ride on the
-    closure as ``engine_params`` (read by ``audit_short_range``)."""
+    closure as ``engine_params`` (read by ``audit_short_range``). The
+    window engine adds its overflow to ``overflow_total`` when given."""
     G, eps = config.G, config.softening
     cutoff, cell = config.spatial_hash_cutoff, config.spatial_hash_cell_size
     cap = config.hash_max_grid_dim
@@ -342,18 +362,20 @@ def make_spatial_hash_forces(config: SimulationConfig, pos_hint=None):
         def force_fn(pos, mass):
             return spatial_hash_forces(
                 pos, mass, G, eps, cutoff=cutoff, cell_size=cell, cap=cap,
-                window=p["window"], block_size=p["block"])
+                window=p["window"], block_size=p["block"],
+                overflow_total=overflow_total)
 
     force_fn.engine_params = p
     return force_fn
 
 
-def make_spatial_hash_forces_sorted(config: SimulationConfig, pos_hint=None):
+def make_spatial_hash_forces_sorted(config: SimulationConfig, pos_hint=None,
+                                    *, overflow_total=None):
     """``sorted_force_fn(pos, mass, extra=None) -> (acc_sorted, psort,
     order[, extra_sorted])``; both engines have the sorted contract. The
     tiles engine's closure carries the frozen-grid contract (``with_meta``,
     ``frozen``) where ``tile_engine_fused`` holds, as the JAX factory
-    does."""
+    does. ``overflow_total`` as in ``make_spatial_hash_forces``."""
     G, eps = config.G, config.softening
     cutoff, cell = config.spatial_hash_cutoff, config.spatial_hash_cell_size
     cap = config.hash_max_grid_dim
@@ -384,7 +406,8 @@ def make_spatial_hash_forces_sorted(config: SimulationConfig, pos_hint=None):
         def sorted_force_fn(pos, mass, extra=None):
             return spatial_hash_forces_window_sorted(
                 pos, mass, G, eps, cutoff=cutoff, cell_size=cell, cap=cap,
-                window=p["window"], block_size=p["block"], extra=extra)
+                window=p["window"], block_size=p["block"], extra=extra,
+                overflow_total=overflow_total)
 
     sorted_force_fn.engine_params = p
     # the integrator's payload takes its own gather by default, as the JAX

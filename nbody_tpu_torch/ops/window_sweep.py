@@ -203,16 +203,21 @@ def _offsets_on(offsets, dev) -> torch.Tensor:
 @_build.counted
 def window_sweep_kernel(psort, csort, cell_start, *, d: int, offsets,
                         z_hw: int, window: int, block_size: int, eps: float,
-                        cutoff2: float | None = None):
+                        cutoff2: float | None = None, overflow_out=None):
     """Kernel K7 (``csrc/window_sweep.cu``, one CUDA block per
     ``block_size`` sorted targets, one thread per target walking its
     ``window_spans``) → ``(acc (N, 3) sorted order, overflow () int64)``.
-    CPU tensors take the plain twin; CUDA tensors launch the kernel or
-    raise."""
+    ``overflow_out`` (a 0-d int64 tensor on the device) takes the
+    overflow added to what it holds, and is returned as ``overflow``: the
+    kernel adds into it in place of a fresh zero. CPU tensors take the
+    plain twin; CUDA tensors launch the kernel or raise."""
     kw = dict(d=d, offsets=offsets, z_hw=z_hw, window=window,
               block_size=block_size, eps=eps, cutoff2=cutoff2)
     if psort.device.type == "cpu":
-        return window_sweep_plain(psort, csort, cell_start, **kw)
+        acc, overflow = window_sweep_plain(psort, csort, cell_start, **kw)
+        if overflow_out is None:
+            return acc, overflow
+        return acc, overflow_out.add_(overflow)
     _build.require_cuda(psort, "window_sweep_kernel")
     dev = psort.device
     n = psort.shape[0]
@@ -228,7 +233,11 @@ def window_sweep_kernel(psort, csort, cell_start, *, d: int, offsets,
     _build.check(cell_start, "cell_start", (d * d * d + 1,), dev, torch.int32)
     offs = _offsets_on(offsets, dev)
     acc = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    if overflow_out is None:
+        overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    else:
+        _build.check(overflow_out, "overflow_out", (), dev, torch.int64)
+        overflow = overflow_out
     if n == 0:
         return acc, overflow
     _build.launch(

@@ -14,6 +14,14 @@ on the card); ``audit_short_range`` for the short-range engines' capacity
 audits; ``diagnostics``. Every tensor lives on the device given to
 ``initialize``: the CUDA card unless the caller passes ``device="cpu"``.
 
+The spatial hash's window engine adds the rows its windows could not
+cover to a 0-d device tensor kept per installed state, inside the captured
+step too, so counting adds no host read; the facade publishes it as the
+counter ``hash.window_overflow_rows`` (``utils.profiling``), and
+``audit_short_range`` and ``diagnostics`` report it. At ``hash_window`` 0
+the window covers every row and the count stays 0; an explicit
+``hash_window`` runs as given and the count says what it dropped.
+
 On the card ``update()`` and ``run_steps`` are one device program, as the
 JAX facade's jitted step and fused n-step program are: ONE Verlet step
 captured as a CUDA graph and replayed once a step (``ops/step_graph.py``),
@@ -115,7 +123,7 @@ from nbody_tpu_torch.parallel.step import (
 )
 from nbody_tpu_torch.state import ParticleState, SimulationState
 from nbody_tpu_torch.types import ForceMethod, SimulationConfig
-from nbody_tpu_torch.utils.profiling import profile_phase
+from nbody_tpu_torch.utils.profiling import profile_phase, set_counter
 from nbody_tpu_torch.utils.serialization import Serializer
 
 
@@ -182,6 +190,9 @@ class ParticleSystem:
         # sharded state carries zero-mass padding rows)
         self._mesh = None
         self._n_logical: Optional[int] = None
+        # the rows the spatial hash window engine could not cover since the
+        # state was set: a 0-d int64 tensor on the device
+        self._window_overflow = None
 
     # ---- lifecycle -------------------------------------------------------
 
@@ -203,6 +214,7 @@ class ParticleSystem:
         strategy for it and compute a(t)."""
         self._n_logical = state.n
         self._mesh = None
+        self._window_overflow = None
         if self._config.shard_devices > 1:
             self._mesh = _make_mesh(self._config, self._device)
         self._rebuild_strategy(state.pos)
@@ -231,7 +243,8 @@ class ParticleSystem:
         """Build everything the config selects, once per strategy: the
         plain and the sorted force, the table route and the Verlet step.
         ``pos`` feeds the hash's ``hash_engine="auto"`` choice, so a live
-        setter re-resolves it from the current state."""
+        setter re-resolves it from the current state; the window engine's
+        overflow count carries over to the new strategy."""
         cfg = self._config
         self._graphs = {}
         # The hash's engine choice reads positions on the host: here,
@@ -245,8 +258,17 @@ class ParticleSystem:
             self._sorted_force = self._table_params = None
             self._step, self._sorted_step = self._make_steps(cfg.dt)
             return
-        self._force_fn = make_force_fn(cfg, pos_hint=hint)
-        self._sorted_force = make_sorted_force_fn(cfg, pos_hint=hint)
+        count = None
+        if hint is not None:
+            if self._window_overflow is None:
+                self._window_overflow = torch.zeros(
+                    (), dtype=torch.int64, device=self._device)
+            count = self._window_overflow
+            set_counter("hash.window_overflow_rows", count)
+        self._force_fn = make_force_fn(cfg, pos_hint=hint,
+                                       hash_overflow=count)
+        self._sorted_force = make_sorted_force_fn(cfg, pos_hint=hint,
+                                                  hash_overflow=count)
         self._table_params = None
         knob = _resort_knob(cfg)
         if knob is not None:
@@ -625,7 +647,11 @@ class ParticleSystem:
         (hash window engine), or change ``bh_max_level`` (Barnes-Hut)).
         The hash audit reads the engine parameters resolved on the live
         closure, so it measures the configuration that runs. Keys as the
-        JAX package's ``audit_short_range``."""
+        JAX package's ``audit_short_range``; where the window engine runs
+        on one device, also its ``block`` and the rows its force
+        evaluations could not cover since the state was set
+        (``window_overflow_rows``; ``overflow`` is the current positions'
+        alone)."""
         self._require_init()
         cfg = self._config
         # sharded: the logical rows, gathered, with the single-device
@@ -660,6 +686,7 @@ class ParticleSystem:
                 out["window"] = p["window"]
             out["overflow"] = int(overflow)
             out["engine"] = p["engine"]
+            out.update(self._window_figures())
         elif cfg.force_method == ForceMethod.BARNES_HUT:
             from nbody_tpu_torch.ops.barnes_hut import (
                 _near_field,
@@ -688,6 +715,17 @@ class ParticleSystem:
             out["near_engine"] = p["near_engine"]
         return out
 
+    def _window_figures(self) -> dict:
+        """The window engine's window, block and the rows it could not
+        cover since the state was set, where it runs on one device (where
+        its overflow is counted); else nothing."""
+        p = getattr(self._force_fn, "engine_params", None)
+        if self._window_overflow is None or p is None or (
+                p.get("engine") != "window"):
+            return {}
+        return {"window": p["window"], "block": p["block"],
+                "window_overflow_rows": int(self._window_overflow)}
+
     def synchronize(self) -> None:
         """Wait for outstanding device work (timing helper; the JAX
         facade's ``block_until_ready``)."""
@@ -705,12 +743,14 @@ class ParticleSystem:
         (``global_device_info``; a collective with a process group up),
         on the CPU the processes, and ``force_distribution`` the sharded
         strategy (``parallel.step.make_sharded_force_fn``) or
-        "single-device"."""
+        "single-device". Where the spatial hash's window engine runs on one
+        device, also its ``window``, ``block`` and
+        ``window_overflow_rows`` (as ``audit_short_range``)."""
         self._require_init()
         n = self.particle_count
         cuda = self._device.type == "cuda"
         sharded = self._mesh is not None
-        return {
+        out = {
             "particle_count": n,
             "shard_devices": self._mesh.size if sharded else 1,
             "force_distribution": (self._force_fn.distribution if sharded
@@ -726,3 +766,5 @@ class ParticleSystem:
             "devices": (global_device_info()["global_devices"] if cuda
                         else process_world()[1]),
         }
+        out.update(self._window_figures())
+        return out

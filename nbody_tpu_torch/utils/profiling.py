@@ -41,6 +41,14 @@ does not list gets its span and no mark.
 A phase made with ``timed=False`` (the integrator's drift and kick, the
 captured graphs' copies, the readout) exists only in the trace setting;
 off and on it costs one check of the setting, as every phase does off.
+
+Counters (``set_counter``, ``read_counter``), beside the phases and
+whatever the setting: named figures the program publishes as it runs, each
+a host number or a 0-d device tensor that the program keeps adding to
+(inside captured steps too), resolved to a number only when read. The
+facade publishes ``hash.window_overflow_rows``: the rows the spatial hash
+window engine could not cover since the state was set; the latest facade
+to publish a name holds it.
 """
 
 from __future__ import annotations
@@ -280,6 +288,29 @@ def _mark(device: torch.device, phase: int, edge: int) -> None:
     from nbody_tpu_torch.ops import _build
 
     _build.launch("nbt_phase_mark", device, phase, edge)
+
+
+_COUNTERS: Dict[str, Any] = {}
+_COUNTERS_LOCK = threading.Lock()
+
+
+def set_counter(name: str, value) -> None:
+    """Publish ``value`` (a number, or a 0-d tensor read when the counter
+    is) under ``name``."""
+    with _COUNTERS_LOCK:
+        _COUNTERS[name] = value
+
+
+def read_counter(name: str) -> Optional[float]:
+    """The counter's value now (a device tensor is copied to the host
+    here, so this waits for the work that adds to it), or None when
+    nothing published it."""
+    with _COUNTERS_LOCK:
+        value = _COUNTERS.get(name)
+    if isinstance(value, torch.Tensor):
+        with host_span("profiling.resolve"):
+            return value.item()
+    return value
 
 
 def phase_times(events: list) -> Dict[Optional[str], float]:

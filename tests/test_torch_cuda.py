@@ -682,6 +682,85 @@ def test_window_sweep_kernel_is_deterministic(dev, form):
     assert torch.equal(a1, a2) and int(o1) == int(o2)
 
 
+def test_window_sweep_kernel_adds_into_overflow_out(dev):
+    """K7 with ``overflow_out`` adds each launch's overflow to the tensor
+    it is given (no fresh zero) and returns it; the forces are bit for
+    bit those of a launch without it."""
+    p, m = (t.to(dev) for t in _sphere(20000, 4.0, seed=4))
+    g = build_sorted_grid(p, m, bin_particles(p, 4)[2], 16, with_csort=True)
+    kw = _k7_kw("hash", 16, 256, 64)
+    args = (g.psort, g.csort, g.cell_start)
+    acc, over = window_sweep_kernel(*args, **kw)
+    assert int(over) > 0
+    total = torch.full((), 3, dtype=torch.int64, device=dev)
+    for k in (1, 2):
+        acc_k, got = window_sweep_kernel(*args, overflow_out=total, **kw)
+        assert got is total and int(total) == 3 + k * int(over)
+        assert torch.equal(acc_k, acc)
+
+
+@pytest.mark.parametrize("mass,steps", [(1, 200), (1_000_000, 60)],
+                         ids=["cell_mass", "source_mass"])
+def test_hash1m_sphere_through_the_facade(dev, mass, steps):
+    """The benchmark's 1M spatial hash (``portbench/configs/
+    hash1m-sphere.json``: cell 1.0, cutoff 2.0, ``hash_window`` unset,
+    the radius-10 sphere at rest) through ``initialize`` / ``set_state`` /
+    ``run_steps``, at the cell's total mass 1 and at the source's mass 1
+    a row, whose sphere collapses, so that the JAX package's window of 2048
+    rows drops more after its 60 steps than at the start: the window is
+    every row, the graphed steps add no row to the overflow counter, and
+    the accelerations at 4096 sampled rows are the plain reference's
+    (``portbench/reference/hash.py``, float64) within the cell's
+    ``acc_gap`` limit (the largest row gap less its cutoff band, over the
+    largest reference acceleration)."""
+    from nbody_tpu_torch import ParticleSystem, SimulationState
+    from nbody_tpu_torch.ops.spatial_hash import spatial_hash_forces
+    from nbody_tpu_torch.utils.profiling import read_counter
+    from portbench import check, core
+    from portbench.reference import hash as hash_ref
+
+    conf = core.load_json("configs", "hash1m-sphere")
+    cfg = core.simulation_config(conf["simulation"])
+    assert cfg.hash_window == 0
+    n = cfg.particle_count
+    pos, vel, m = core.make_scene({**conf["scene"], "total_mass": mass}, n,
+                                  2 ** 31 + 24, dev)
+    ps = ParticleSystem()
+    ps.initialize(cfg, device=dev)
+    ps.set_state(SimulationState(
+        pos=pos.cpu().numpy(), vel=vel.cpu().numpy(),
+        mass=m.cpu().numpy(), dt=cfg.dt, G=cfg.G,
+        softening=cfg.softening, force_method=cfg.force_method), device=dev)
+    p = ps._force_fn.engine_params
+    assert (p["engine"], p["window"], p["block"]) == ("window", n, 256)
+
+    def jax_rule():
+        st = ps.state
+        return int(spatial_hash_forces(
+            st.pos, st.mass, cfg.G, cfg.softening, window=2048,
+            block_size=256, return_overflow=True)[1])
+
+    start = jax_rule()
+    for _ in range(2):
+        ps.run_steps(steps // 2)
+    ps.synchronize()
+    assert "sorted" in ps.step_graphs
+    audit = ps.audit_short_range()
+    assert (audit["overflow"], audit["window_overflow_rows"]) == (0, 0)
+    assert read_counter("hash.window_overflow_rows") == 0
+    if mass > 1:
+        assert jax_rule() > start > 0
+    st = ps.state
+    t = check.sample_rows(n, 24, 4096).to(dev)
+    want, ok, band, _ = hash_ref.accelerations(st.pos, st.mass, t,
+                                               conf["simulation"])
+    diff = torch.linalg.vector_norm(st.acc[t].double() - want, dim=1)
+    gap = float(torch.clamp(diff - band, min=0.0)[ok].max()
+                / torch.linalg.vector_norm(want, dim=1)[ok].max())
+    assert gap <= core.load_json("limits", "hash1m-sphere.run")["acc_gap"][
+        "limit"]
+
+
 @pytest.mark.parametrize("engine", ["window", "tiles"])
 def test_spatial_hash_card_matches_cpu(dev, engine):
     """The hash on the card (K7, or K2 + K4) vs on the CPU (plain twins),

@@ -58,8 +58,10 @@ def _brute(pos, mass, coords, cutoff):
                          [(_dense, 1.0, "window"), (_sparse, 2.0, "tiles")],
                          ids=["dense", "sparse"])
 def test_engine_params_match_jax(scene, cell, engine):
-    """The same engine, tile_d, tile_k, window and block from the same
-    positions (and without a probe), at ≤ 150K and 1M particles."""
+    """The same engine, tile_d, tile_k and block from the same positions
+    (and without a probe), at ≤ 150K and 1M particles; the window, at
+    ``hash_window`` 0, is every row where the JAX package's is 1024 or
+    2048 (``hash_window_defaults``)."""
     pos, _ = scene()
     for n in (pos.shape[0], 1_000_000):
         jc = JConfig(particle_count=n, spatial_hash_cell_size=cell)
@@ -68,9 +70,10 @@ def test_engine_params_match_jax(scene, cell, engine):
             want = jsh.hash_engine_params(jc, hint)
             got = tsh.hash_engine_params(
                 tc, None if hint is None else torch.from_numpy(hint))
-            for key in ("engine", "tile_d", "tile_k", "window", "block",
+            for key in ("engine", "tile_d", "tile_k", "block",
                         "occupancy"):
                 assert got[key] == want[key], key
+            assert got["window"] == n
     assert tsh.hash_engine_params(tc, pos)["engine"] == engine
 
 
@@ -184,3 +187,118 @@ def test_build_spatial_grid_and_cell_audit():
     assert int(g2.overflow) == 100 - 16
     c = torch.tensor([[0, 0, 0], [1, 2, 3], [7, 7, 7]], dtype=torch.int32)
     assert tsh.cell_index(c, 8).tolist() == [0, (1 * 8 + 2) * 8 + 3, 511]
+
+
+# A ball where the JAX package's window at ≤ 150K particles, (1024, 128),
+# drops pairs: ~1240 rows for the busiest (block, offset).
+_CROWDED = dict(n=2048, radius=0.9, seed=21)
+
+
+def _facade(pos, mass, **cfg):
+    from nbody_tpu_torch import ParticleSystem, SimulationState
+    from nbody_tpu_torch.types import ForceMethod, SimulationConfig
+
+    ps = ParticleSystem()
+    ps.initialize(SimulationConfig(
+        particle_count=pos.shape[0], force_method=ForceMethod.SPATIAL_HASH,
+        **cfg), device="cpu")
+    ps.set_state(SimulationState(
+        pos=pos, vel=np.zeros_like(pos), mass=mass, dt=1e-3, G=G,
+        softening=EPS, force_method=ForceMethod.SPATIAL_HASH))
+    return ps
+
+
+def _window_overflow(pos, mass, window, block):
+    return int(tsh.spatial_hash_forces(
+        torch.as_tensor(pos), torch.as_tensor(mass), G, EPS, cutoff=CUT,
+        cell_size=1.0, window=window, block_size=block,
+        return_overflow=True)[1])
+
+
+def test_the_default_window_drops_nothing_where_the_jax_default_does():
+    """On a ball the JAX package's (1024, 128) overflows, the port's window
+    at ``hash_window`` 0 is every row (the other keys the JAX package's);
+    through the facade its a(0) drops nothing, equals the f64 brute force
+    and the benchmark's plain reference (``portbench/reference/hash.py``)
+    within rtol 1e-4, atol 2e-5·max|a|, and the audit and the diagnostics
+    read it all."""
+    from portbench.reference import hash as hash_ref
+
+    pos, mass = _dense(**_CROWDED)
+    n = pos.shape[0]
+    jc = JConfig(particle_count=n, spatial_hash_cell_size=1.0)
+    want = jsh.hash_engine_params(jc, pos)
+    got = tsh.hash_engine_params(config_from_reference(jc),
+                                 torch.from_numpy(pos))
+    assert (want["engine"], want["window"], want["block"]) == (
+        "window", 1024, 128)
+    assert _window_overflow(pos, mass, 1024, 128) > 0
+    assert got["window"] == n
+    for key in ("engine", "block", "tile_d", "tile_k", "occupancy"):
+        assert got[key] == want[key], key
+
+    ps = _facade(pos, mass)
+    audit = ps.audit_short_range()
+    assert audit == {"method": "spatial-hash", "overflow": 0, "window": n,
+                     "engine": "window", "block": 128,
+                     "window_overflow_rows": 0}
+    diag = ps.diagnostics()
+    assert (diag["window"], diag["block"], diag["window_overflow_rows"]) == (
+        n, 128, 0)
+    acc = ps.state.acc.numpy()
+    tp, tm = torch.from_numpy(pos), torch.from_numpy(mass)
+    coords = tsh.hash_bin(tp, 1.0, 64)[2].numpy()
+    _close(acc, _brute(pos, mass, coords, CUT))
+    sim = {"spatial_hash_cell_size": 1.0, "spatial_hash_cutoff": CUT,
+           "softening": EPS, "G": G}
+    ref = hash_ref.accelerations(tp, tm, torch.arange(n), sim)[0]
+    _close(acc, ref.numpy())
+
+
+def test_the_default_window_follows_a_scene_that_crowds():
+    """A heavy ball collapsing under its own short-range pull: a window of
+    384 rows covers it at step 0 and drops pairs 10 steps on; the default
+    window drops nothing through those steps (the counter
+    ``hash.window_overflow_rows`` reads 0) and a(t) equals the f64 brute
+    force."""
+    from nbody_tpu_torch.utils.profiling import read_counter
+
+    pos, _ = _dense(n=1024, radius=2.0, seed=21)
+    mass = np.full(pos.shape[0], 20.0, np.float32)
+    assert _window_overflow(pos, mass, 384, 128) == 0
+    ps = _facade(pos, mass)
+    ps.run_steps(10)
+    st = ps.state
+    now = st.pos.numpy()
+    assert _window_overflow(now, mass, 384, 128) > 0
+    assert read_counter("hash.window_overflow_rows") == 0
+    assert ps.audit_short_range()["window_overflow_rows"] == 0
+    coords = tsh.hash_bin(st.pos, 1.0, 64)[2].numpy()
+    _close(st.acc.numpy(), _brute(now, mass, coords, CUT))
+
+
+def test_an_explicit_window_is_honoured_and_counted():
+    """An explicit ``hash_window`` too small for the scene runs as given:
+    a(0)'s dropped rows are counted (the counter
+    ``hash.window_overflow_rows`` and the audit), each step adds its own,
+    the window stays, and a later state starts its count afresh."""
+    from nbody_tpu_torch.utils.profiling import read_counter
+
+    pos, mass = _dense(**_CROWDED)
+    ps = _facade(pos, mass, hash_window=256)
+    p = ps._force_fn.engine_params
+    assert (p["window"], p["block"]) == (256, 256)
+    rows = _window_overflow(pos, mass, 256, 256)
+    assert rows > 0
+    assert read_counter("hash.window_overflow_rows") == rows
+    audit = ps.audit_short_range()
+    assert (audit["window"], audit["overflow"],
+            audit["window_overflow_rows"]) == (256, rows, rows)
+    ps.run_steps(2)
+    assert ps._force_fn.engine_params == p
+    total = read_counter("hash.window_overflow_rows")
+    assert total > rows
+    assert ps.audit_short_range()["window_overflow_rows"] == total
+    ps.set_state(ps.get_state())
+    again = _window_overflow(ps.positions(), mass, 256, 256)
+    assert ps.audit_short_range()["window_overflow_rows"] == again > 0

@@ -320,3 +320,20 @@ def test_every_device_phase_has_a_mark():
     slots = int(re.search(r"kMaxPhases = (\d+);", cu).group(1))
     assert len(tprof.PHASES) <= slots
     assert re.search(r"__global__\s+void\s+nbody_phase_mark\s*\(", cu)
+
+
+def test_counters_resolve_device_values_when_read(monkeypatch):
+    """A counter holds a number or a 0-d tensor the program keeps adding
+    to; it is resolved when read, so a read sees every addition made
+    before it; the latest publisher of a name holds it; an unpublished
+    name reads None."""
+    monkeypatch.setattr(tprof, "_COUNTERS", {})
+    assert tprof.read_counter("hash.window_overflow_rows") is None
+    total = torch.zeros((), dtype=torch.int64)
+    tprof.set_counter("hash.window_overflow_rows", total)
+    total.add_(7)
+    assert tprof.read_counter("hash.window_overflow_rows") == 7
+    total.add_(5)
+    assert tprof.read_counter("hash.window_overflow_rows") == 12
+    tprof.set_counter("hash.window_overflow_rows", 3)
+    assert tprof.read_counter("hash.window_overflow_rows") == 3

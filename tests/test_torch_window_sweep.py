@@ -265,3 +265,25 @@ def test_window_spans_of_a_cell_across_blocks():
     assert blocks.shape[0] >= 5
     spans = {tuple(torch.cat([lo[r], hi[r]]).tolist()) for r in rows}
     assert len(spans) > 1 and int(over) > 0
+
+
+@pytest.mark.parametrize("form", ["kernel", "closure"])
+def test_overflow_out_accumulates_across_calls(form):
+    """``overflow_out`` takes each call's overflow added to what it holds
+    and comes back as the overflow; the accelerations are those of a call
+    without it, bit for bit (the kernel's wrapper and the custom-closure
+    sweep alike)."""
+    tg, _, d = _grids(1500, 3, 4.0, seed=2)
+    kw = dict(d=d, xy_offsets=tsw.xy_ball(1), z_halfwidth=1, window=64,
+              block_size=128)
+    if form == "kernel":
+        kw.update(eps=0.1, cutoff2=1.44)
+    else:
+        kw.update(pair_weight=lambda r2, m: m / (r2 + 0.01))
+    acc, over = tsw.window_sweep(tg, **kw)
+    assert int(over) > 0
+    total = torch.full((), 5, dtype=torch.int64)
+    for k in (1, 2):
+        acc_k, got = tsw.window_sweep(tg, overflow_out=total, **kw)
+        assert got is total and int(total) == 5 + k * int(over)
+        assert torch.equal(acc_k, acc)
