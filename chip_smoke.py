@@ -47,7 +47,11 @@ From the root of a checkout, on a machine with a CUDA card and nvcc:
      ``conv3d`` with TF32 off its yardstick at both) and timed at every
      level of a step, with their sum; the far field's downward pass on
      those levels' outputs (``far_down``, bit-equal to its twin, both
-     timed with their device times by graph replay); then frozen(fresh meta) against the
+     timed with their device times by graph replay); the sort's row
+     permutation (``payload_gather``) at the 1M BH tiles rows in the
+     scene's order, in sorted order and with the cell coordinates,
+     bit-equal to its twin, timed beside it and torch's row gather, each
+     with its device time by graph replay; then frozen(fresh meta) against the
      sorted step, bit for bit, at 1M for Barnes-Hut tiles and the sparse
      hash, and each audit against a host recount after a move;
      prints each kernel's bound (the larger of its operations over their
@@ -988,6 +992,7 @@ def kernel_checks(res, pos, mass, cfg):
           f"near_engine={p['near_engine']}")
     lo, cell, coords = bin_particles(pos, levels)
     grid = build_sorted_grid(pos, mass, coords, d)
+    payload_gather_check(res, label, pos, mass, coords, grid, d)
 
     # K2: placement + moments + counts; the table forms
     tk, mk, overflow = k2_check(res, label, grid, lo, cell, d=d, k=k)
@@ -1002,6 +1007,67 @@ def kernel_checks(res, pos, mass, cfg):
     far_down_check(res, label, pyr, cell, ws=ws, eps=eps, levels=levels)
 
     return overflow
+
+
+def payload_gather_check(res, label, pos, mass, coords, grid, d):
+    """The sort's row permutation at the 1M shapes of ``build_sorted_grid``
+    on ``label``'s rows: the scene's own order (a full permutation, the
+    plain step), the sorted rows as views of ``grid.psort`` (the sorted
+    step's carried state: the identity) and those with the cell
+    coordinates (the hash's form). The kernel against its plain twin bit
+    for bit, two calls bit-equal; kernel, twin and torch's one-call row
+    gather of the [pos | mass] table (``index``, the library yardstick)
+    timed, each with its device time by graph replay; recorded as
+    ``payload_gather``'s shapes. Bound: order, pos, mass and the ids read
+    and psort, ids (and the cell coordinates) written once."""
+    import torch
+
+    from nbody_tpu_torch.ops.payload_gather import (
+        payload_gather,
+        payload_gather_plain,
+    )
+    from nbody_tpu_torch.ops.sorted_window import cell_ids
+
+    sp, sm = grid.psort[:, :3], grid.psort[:, 3]
+    forms = (("scene order", pos, mass, coords, False),
+             ("sorted rows", sp, sm, coords[grid.order], False),
+             ("sorted rows, cell coordinates", sp, sm, coords[grid.order],
+              True))
+    for form, p, m, c, with_csort in forms:
+        ids = cell_ids(c, d)
+        order = torch.argsort(ids, stable=True)
+        args = (p, m, ids, order, d, None, with_csort)
+        got = payload_gather(*args)
+        want = payload_gather_plain(*args)
+        check(all((g is None and w is None) or torch.equal(g, w)
+                  for g, w in zip(got, want)),
+              f"payload_gather ({form}): kernel and plain twin differ")
+        check(all(g is None or torch.equal(g, a)
+                  for g, a in zip(got, payload_gather(*args))),
+              f"payload_gather ({form}): two calls differ")
+        table = torch.cat([p, m[:, None]], dim=-1)
+        n = ids.shape[0]
+        nbytes = n * (8 + 12 + 4 + 4 + 16 + 4 + (12 if with_csort else 0))
+        rec = dict(
+            max_abs_err=0.0, ms=time_ms(lambda: payload_gather(*args)),
+            device_ms=graph_ms(lambda: payload_gather(*args)),
+            plain_ms=time_ms(lambda: payload_gather_plain(*args)),
+            plain_device_ms=graph_ms(lambda: payload_gather_plain(*args)),
+            **bound(0, nbytes),
+            library_ms=time_ms(lambda: table[order]),
+            library_device_ms=graph_ms(lambda: table[order]),
+            identity_rows=int((order == torch.arange(
+                n, device=order.device)).sum()),
+        )
+        add_shape(res, "payload_gather", f"{label}, {form}", rec)
+        print(f"payload_gather {label}, {form} (N={n}, "
+              f"{rec['identity_rows']} rows in place): bit-equal to the plain "
+              f"twin, two calls bit-equal; kernel {rec['ms']:.4f} ms (device "
+              f"{rec['device_ms']:.4f} ms), plain {rec['plain_ms']:.4f} ms "
+              f"(device {rec['plain_device_ms']:.4f} ms), torch index "
+              f"{rec['library_ms']:.4f} ms (device "
+              f"{rec['library_device_ms']:.4f} ms), bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
 
 
 def k3_checks(res, label, pyr, cell, *, ws, eps, levels):
@@ -1767,12 +1833,30 @@ def table_launches(tp, cfg, knob, state0, steps, far):
         out, (stale, flags) = table_multi(tp, cfg, knob, steps, True)(state0)
         trace = (out, stale, flags)
         sorts = 1 + int(flags.sum())
-    want["tile_scatter"] = sorts
+    want["tile_scatter"] = want["payload_gather"] = sorts
     if far:
         want["segment_sum"] = steps - sorts
     if knob == "repair":
         want["tile_place"] = steps - sorts
     return want, trace
+
+
+def row_sorts(sf, cfg, knob, state0, steps):
+    """The sorts (payload gathers) of the row-space driver of ``knob``
+    over ``steps`` steps from ``state0``: one a step for repair, one a
+    chunk of the cadence, and for stale_frac the first step's and the
+    re-sorts of an eager traced run of the same steps (the schedule of the
+    captured run, bit for bit)."""
+    from nbody_tpu_torch.ops.integrator import make_adaptive_multi_step
+
+    if knob == "repair":
+        return steps
+    if knob == "cadence":
+        return len(range(0, steps, cfg.resort_every))
+    _, (_, resorted) = make_adaptive_multi_step(
+        sf, cfg.dt, steps, max_stale_frac=cfg.resort_stale_frac,
+        max_cadence=16, with_trace=True)(state0)
+    return 1 + int(resorted.sum())
 
 
 def compare_states(label, got, want, pos_rel, vel_rel, what):
@@ -1899,8 +1983,10 @@ def frozen_grid_path(label, mode, steps, far, drive, drive_row, smi, dev):
         check(tp is not None and tp.mode == mode,
               f"{label}: no {mode} table parameters on the card")
         info["tp"] = tp
+        row_want["payload_gather"] = row_sorts(ps._sorted_force, cfg, knob,
+                                               state0, steps)
         if not routed:
-            return {}, None
+            return {"payload_gather": row_want["payload_gather"]}, None
         want, trace = table_launches(tp, cfg, knob, state0, steps, far)
         info["want"] = want
         return want, trace
@@ -2185,7 +2271,8 @@ def cli_phase(res, wrappers, plains, none, keep, smi, dev, levels):
 
     def bh_want(evals):
         return {**none, "tile_scatter": evals, "far_taps": evals * levels,
-                "far_down": evals, "tile_sweep_plane": evals}
+                "far_down": evals, "tile_sweep_plane": evals,
+                "payload_gather": evals}
 
     def bench(label, argv, want, via_main=False):
         return cli_bench(label, argv, want, wrappers, plains, smi, keep,
@@ -2259,7 +2346,7 @@ def cli_phase(res, wrappers, plains, none, keep, smi, dev, levels):
     app, rec = bench("k5 CLI 1M spatial hash",
                      ["--particles", str(N), "--method", "spatial-hash",
                       "--benchmark", "--benchmark-steps", "30"],
-                     {**none, "window_sweep": 61})
+                     {**none, "window_sweep": 61, "payload_gather": 61})
     check_finite("k5 CLI 1M spatial hash", app.system.state)
     rate = rec["metrics"]["steps_per_sec"]
     readings["k5 CLI 1M spatial hash steps/s"] = rate
@@ -2475,7 +2562,8 @@ def render_phase(res, scene, wrappers, plains, none, keep, smi, dev, levels):
     r1_checks(res, scene)
     frames = [f"frame_{k:05d}.png" for k in range(29)]
     bh = {**none, "tile_scatter": 31, "far_taps": 31 * levels,
-          "far_down": 31, "tile_sweep_plane": 31, "pairwise_potential": 1}
+          "far_down": 31, "tile_sweep_plane": 31, "pairwise_potential": 1,
+          "payload_gather": 31}
     readings = {}
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "cli"
@@ -3022,6 +3110,10 @@ def kernel_wrappers():
     )
     from nbody_tpu_torch.ops.far_down import far_down, far_down_plain
     from nbody_tpu_torch.ops.far_taps import far_taps, far_taps_plain
+    from nbody_tpu_torch.ops.payload_gather import (
+        payload_gather,
+        payload_gather_plain,
+    )
     from nbody_tpu_torch.ops.render import render_points, render_points_plain
     from nbody_tpu_torch.ops.scatter import (
         segment_sum,
@@ -3061,12 +3153,14 @@ def kernel_wrappers():
         "render_points": render_points,
         "tile_sweep_slab": tile_sweep_slab,
         "pairwise_potential_cross": pairwise_potential_cross,
+        "payload_gather": payload_gather,
     }
     plains = [direct_forces, tile_scatter_plain, tile_place_plain,
               far_taps_plain, far_down_plain, tile_sweep_plane_plain,
               window_sweep_plain, pairwise_potential_plain,
               segment_sum_plain, bitonic_sort_pairs_plain,
-              T.table_drift_plain, T.table_kick_plain, render_points_plain]
+              T.table_drift_plain, T.table_kick_plain, render_points_plain,
+              payload_gather_plain]
     return wrappers, plains
 
 
@@ -3522,7 +3616,7 @@ def flagship_bh(res, F, wrappers, plains, none, keep, smi, dev, levels):
         label, 4 * F.BH_STEPS, lambda: F.run_bh(n, dev),
         {**none, "tile_scatter": forces, "far_taps": forces * levels,
          "far_down": forces, "tile_sweep_plane": forces,
-         "direct_forces": 1},
+         "direct_forces": 1, "payload_gather": forces},
         wrappers, plains, smi)
     keep(label, launches)
     p = bh["params"]
@@ -3580,7 +3674,7 @@ def flagship_galaxy(res, F, wrappers, plains, none, keep, smi, dev, levels):
             lambda: F.run_galaxy(n, frames, out, dev),
             {**none, "tile_scatter": forces, "far_taps": forces * levels,
              "far_down": forces, "tile_sweep_plane": forces,
-             "direct_forces": 1,
+             "direct_forces": 1, "payload_gather": forces,
              "render_points": frames + 1},
             wrappers, plains, smi)
         keep(label, launches)
@@ -4252,19 +4346,21 @@ def main() -> None:
 
     levels = bh_engine_params(bh_cfg)["levels"]
     bh_run = drive("1M BH tiles", 30, tile_scatter=30, far_taps=30 * levels,
-                   far_down=30, tile_sweep_plane=30)
+                   far_down=30, tile_sweep_plane=30, payload_gather=30)
     collapse_check(res, bh_run[2].state, bh_cfg, "1M BH tiles after 30 steps")
-    drive("1M dense hash", 30, window_sweep=30)
-    drive("1M sparse hash", 30, tile_scatter=30, tile_sweep_plane=30)
+    drive("1M dense hash", 30, window_sweep=30, payload_gather=30)
+    drive("1M sparse hash", 30, tile_scatter=30, tile_sweep_plane=30,
+          payload_gather=30)
     check(bh_engine_params(bhw_cfg)["near_engine"] == "window",
           "bh_max_level 5 at 1M must select the window engine")
     drive("1M BH window", 10, window_sweep=10, far_taps=10 * 5,
-          segment_sum=10)
+          segment_sum=10, payload_gather=10)
     drive("100K direct", 10, direct_forces=10)
     keep(MONOPOLE, run_monopole(
         bh_cfg, scene, 10,
         {**none, "segment_sum": 10, "tile_scatter": 10,
-         "tile_sweep_plane": 10}, wrappers, plains, smi))
+         "tile_sweep_plane": 10, "payload_gather": 10}, wrappers, plains,
+        smi))
     # g-j and the two knobs' mirrors on the other scene
     rates = {}
     for label, mode in FROZEN_PATHS:
@@ -4343,8 +4439,8 @@ def main() -> None:
         steps, chunk,
         {**none, "pairwise_potential": 1 + steps // chunk,
          "tile_scatter": steps + 1, "far_taps": (steps + 1) * levels,
-         "far_down": steps + 1, "tile_sweep_plane": steps + 1}, wrappers,
-        plains, smi, dev))
+         "far_down": steps + 1, "tile_sweep_plane": steps + 1,
+         "payload_gather": steps + 1}, wrappers, plains, smi, dev))
 
     # Phase 6 (k): the CLI entry point
     readings = cli_phase(res, wrappers, plains, none, keep, smi, dev, levels)
@@ -4416,6 +4512,10 @@ def main() -> None:
             "nbody_tpu_torch/csrc/pair_potential.cu",
             "nbody_tpu/ops/direct.py:257 (K5; its cross form replaces the "
             "XLA ring energy nbody_tpu/parallel/step.py:201)"),
+        # no TPU kernel: the XLA gather of the JAX cell sort
+        "payload_gather": ("nbody_tpu_torch/csrc/payload_gather.cu",
+                           "nbody_tpu/ops/sorted_window.py:130 "
+                           "(build_sorted_grid's payload gather, XLA ops)"),
     }
     names = {"tile_sweep_slab": "K4 slab",
              "pairwise_potential_cross": "K5 cross"}

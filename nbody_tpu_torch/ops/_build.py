@@ -42,6 +42,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _D = ctypes.c_double
+_LL = ctypes.c_longlong
 # C signature of every entry point (each returns int = cudaError_t).
 SIGNATURES = {
     # tgt, nt, src_pos, src_mass, ns, range (rows), G, eps2, acc, scratch,
@@ -96,6 +97,10 @@ SIGNATURES = {
     # chunks, img, u8, pts, key, rgb, rec, meta, list, tmp, stream
     "nbt_render_points": (_P, _P, _I, _P, _D, _D, _I, _I, _I, _I, _P, _P,
                           _P, _P, _P, _P, _P, _P, _P, _P),
+    # order, n, pos, pos row stride, mass, mass stride, ids, d, extra, extra
+    # row stride, e, psort, ids_out, csort, extra_out, stream
+    "nbt_payload_gather": (_P, _LL, _P, _LL, _P, _LL, _P, _I, _P, _LL, _I,
+                           _P, _P, _P, _P, _P),
     # phase (an index of utils.profiling.PHASES), edge (0 entry, 1 exit),
     # stream
     "nbt_phase_mark": (_I, _I, _P),
@@ -268,9 +273,11 @@ def ptr(t: torch.Tensor | None) -> int | None:
 
 
 def check(t: torch.Tensor, name: str, shape: tuple, device: torch.device,
-          dtype=torch.float32) -> None:
+          dtype=torch.float32, *, strided_rows: bool = False) -> int:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
-    ``device`` — the kernels take nothing else."""
+    ``device`` — the kernels take nothing else; with ``strided_rows`` its
+    rows may lie at any stride, each row contiguous. Returns the row
+    stride (0 for a 0-d tensor)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
     if t.device != device:
@@ -279,8 +286,12 @@ def check(t: torch.Tensor, name: str, shape: tuple, device: torch.device,
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
+    if strided_rows:
+        if t.dim() == 2 and t.shape[1] > 1 and t.stride(1) != 1:
+            raise ValueError(f"{name}: columns must be contiguous")
+    elif not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+    return t.stride(0) if t.dim() else 0
 
 
 def require_cuda(t: torch.Tensor, what: str) -> None:

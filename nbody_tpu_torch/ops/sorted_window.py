@@ -1,14 +1,14 @@
 """Cell-sorted particle arrays and the sorted-window sweep engine.
 
 PyTorch counterpart of ``nbody_tpu/ops/sorted_window.py``: bin, stable
-argsort by linear cell id, one payload gather (a caller's ``extra``
-columns ride it), the per-cell segment index and the per-row cell
-coordinates; and ``window_sweep``, the short-range engine shared by the
-spatial hash and the Barnes-Hut "window" near field (kernel K7,
-``ops/window_sweep.py``; a caller's ``pair_weight`` closure runs on its
-plain sweep). Cell ids stay int32 throughout (the JAX package's f32 id
-columns, bitcast routes and recomputed ids exist for TPU reasons and are
-not ported).
+argsort by linear cell id, one payload gather with the sorted ids and the
+per-row cell coordinates (``ops/payload_gather.py``; a caller's ``extra``
+columns ride it), the per-cell segment index; and ``window_sweep``, the
+short-range engine shared by the spatial hash and the Barnes-Hut "window"
+near field (kernel K7, ``ops/window_sweep.py``; a caller's
+``pair_weight`` closure runs on its plain sweep). Cell ids stay int32
+throughout (the JAX package's f32 id columns, bitcast routes and
+recomputed ids exist for TPU reasons and are not ported).
 
 The sweep: rows sorted by row-major cell id (x major, z fastest) make the
 sources of any contiguous z-run of cells contiguous, so a block of sorted
@@ -24,6 +24,7 @@ import dataclasses
 
 import torch
 
+from nbody_tpu_torch.ops.payload_gather import payload_gather
 from nbody_tpu_torch.ops.window_sweep import (
     window_sweep_kernel,
     window_sweep_plain,
@@ -91,41 +92,35 @@ def build_sorted_grid(
     with_csort: bool = False, with_cell_start: bool = True,
     extra: torch.Tensor | None = None,
 ) -> SortedGrid:
-    """Stable sort by cell id and ONE payload gather. ``jnp.argsort`` is
-    stable too, so ``order``, ids and ranks match the JAX package's
-    ``build_sorted_grid`` exactly on the same ids. ``d`` is the ids'
-    stride (the hash window engine bins into ``dims`` ≤ cap cells per axis
-    but strides its ids by the static cap).
+    """Stable sort by cell id and ONE payload gather (``payload_gather``:
+    kernel ``csrc/payload_gather.cu`` on the card, the torch composition on
+    the CPU). ``jnp.argsort`` is stable too, so ``order``, ids and ranks
+    match the JAX package's ``build_sorted_grid`` exactly on the same ids.
+    ``d`` is the ids' stride (the hash window engine bins into ``dims`` ≤
+    cap cells per axis but strides its ids by the static cap).
 
-    ``extra`` (N, E) rides the same gather as [pos | mass] (one (N, 4 + E)
-    row gather, split after it) and comes back as ``SortedGrid.extra``.
-    ``with_cell_start=False`` leaves the full (d³ + 1,) segment index
-    unbuilt (``cell_start`` None): the window sweep and kernel K2 read it,
-    so their engines keep the default."""
+    ``extra`` (N, E) rides the same gather as [pos | mass] and comes back
+    as ``SortedGrid.extra``. ``with_cell_start=False`` leaves the full
+    (d³ + 1,) segment index unbuilt (``cell_start`` None): the window sweep
+    and kernel K2 read it, so their engines keep the default."""
     ids = cell_ids(coords, d)
     order = torch.argsort(ids, stable=True)
-    parts = [pos, mass[:, None]]
-    if extra is not None:
-        parts.append(extra.to(pos.dtype))
-    payload = torch.cat(parts, dim=-1)[order]
-    psort = payload if extra is None else payload[:, :4].contiguous()
-    ids_sorted = ids[order]
+    psort, ids_sorted, csort, extra_sorted = payload_gather(
+        pos, mass, ids, order, d,
+        extra=None if extra is None else extra.to(pos.dtype),
+        with_csort=with_csort)
     cell_start = None
     if with_cell_start:
         cells = torch.arange(d * d * d + 1, dtype=torch.int32,
                              device=pos.device)
         cell_start = cell_starts_at(ids_sorted, cells)
-    csort = None
-    if with_csort:
-        cyx = ids_sorted // d
-        csort = torch.stack([cyx // d, cyx % d, ids_sorted % d], dim=-1)
     return SortedGrid(
         order=order,
         psort=psort,
         ids=ids_sorted,
         cell_start=cell_start,
         csort=csort,
-        extra=None if extra is None else payload[:, 4:],
+        extra=extra_sorted,
     )
 
 

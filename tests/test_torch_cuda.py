@@ -35,6 +35,10 @@ from nbody_tpu_torch.ops.direct import (
 )
 from nbody_tpu_torch.ops.far_down import MAX_LEVELS, far_down, far_down_plain
 from nbody_tpu_torch.ops.far_taps import far_taps, far_taps_plain
+from nbody_tpu_torch.ops.payload_gather import (
+    payload_gather,
+    payload_gather_plain,
+)
 from nbody_tpu_torch.ops import integrator as tint
 from nbody_tpu_torch.ops import table_step as T
 from nbody_tpu_torch.ops.forces import make_table_step_params
@@ -518,6 +522,105 @@ def test_far_down_refuses_what_the_kernel_does_not_take(dev):
             far_down(*args)
     assert far_down.launches == before
     assert far_down(outs, cell.reshape(1)).shape == (8, 19, 64)
+
+
+def _permutation(kind, n, rng):
+    """An identity, a near-identity (a tenth of the rows swapped with
+    their neighbour: the sorted step's carried rows, already in the last
+    step's cell order) or a full random permutation of n rows."""
+    order = np.arange(n)
+    if kind == "near":
+        for a in rng.choice(max(n - 1, 1), size=n // 10, replace=False):
+            if a + 1 < n:
+                order[[a, a + 1]] = order[[a + 1, a]]
+    elif kind == "random":
+        order = rng.permutation(n)
+    return torch.from_numpy(order.astype(np.int64))
+
+
+@pytest.mark.parametrize("perm", ["identity", "near", "random"])
+@pytest.mark.parametrize("n", [1, 1000, 1 << 20])
+def test_payload_gather_kernel(dev, n, perm):
+    """The sort's row permutation (one launch) vs its plain twin (cat,
+    row gathers, // and %), bit for bit, for no extra columns and E 3 and
+    4, with and without the cell coordinates; positions and masses as
+    their own tensors and as views of one (N, 4) table (the sorted step's
+    rows), extra columns as a strided view; N 1, N not a multiple of the
+    block and 1M."""
+    rng = np.random.default_rng(n)
+    d = 64
+    ids = torch.from_numpy(rng.integers(0, d ** 3, n).astype(np.int32))
+    order = _permutation(perm, n, rng)
+    table = torch.from_numpy(rng.normal(size=(n, 6)).astype(np.float32))
+    ids, order, table = ids.to(dev), order.to(dev), table.to(dev)
+    for pos, mass in ((table[:, :3].contiguous(), table[:, 3].contiguous()),
+                      (table[:, :3], table[:, 3])):
+        for e in (None, 3, 4):
+            extra = None if e is None else table[:, 6 - e:]
+            for with_csort in (False, True):
+                before = payload_gather.launches
+                got = payload_gather(pos, mass, ids, order, d, extra,
+                                     with_csort)
+                assert payload_gather.launches == before + 1
+                want = payload_gather_plain(pos, mass, ids, order, d, extra,
+                                            with_csort)
+                for g, w in zip(got, want):
+                    assert (g is None) == (w is None)
+                    if g is not None:
+                        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_payload_gather_refuses_what_the_kernel_does_not_take(dev):
+    """The wrapper raises, launching nothing, on float64 positions, int64
+    ids, int32 order, a CPU/CUDA mix, a wrong length, strided columns and
+    a one-dimensional extra."""
+    n = 100
+    pos = torch.rand(n, 3, device=dev)
+    mass = torch.rand(n, device=dev)
+    ids = torch.randint(0, 512, (n,), dtype=torch.int32, device=dev)
+    order = torch.randperm(n, device=dev)
+    before = payload_gather.launches
+    bad = [
+        (pos.double(), mass, ids, order),
+        (pos, mass, ids.long(), order),
+        (pos, mass, ids, order.int()),
+        (pos, mass.cpu(), ids, order),
+        (pos[:-1], mass, ids, order),
+        (torch.rand(3, n, device=dev).T, mass, ids, order),
+    ]
+    for args in bad:
+        with pytest.raises((ValueError, TypeError)):
+            payload_gather(*args, 8)
+    with pytest.raises(ValueError):
+        payload_gather(pos, mass, ids, order, 8, extra=mass)
+    assert payload_gather.launches == before
+    assert payload_gather(pos, mass, ids, order, 8)[0].shape == (n, 4)
+
+
+@pytest.mark.parametrize("engine", ["bh tiles", "hash window"])
+def test_payload_gather_on_the_graphed_sorted_step(dev, engine,
+                                                   monkeypatch):
+    """``run_steps`` on a captured sorted step launches the payload gather
+    once a step, and its state equals, bit for bit, the eager steps of the
+    plain route (``build_sorted_grid`` through the plain twin)."""
+    from nbody_tpu_torch.ops import sorted_window
+
+    steps = 6
+    ps = _graph_system(dev, engine)
+    assert ps._sorted_step is not None
+    state0 = ps.state
+    with monkeypatch.context() as m:
+        m.setattr(sorted_window, "payload_gather", payload_gather_plain)
+        calls = payload_gather_plain.calls
+        want = ps._multi_step(steps, graphed=False)(state0)
+        assert payload_gather_plain.calls == calls + steps
+    before, calls = payload_gather.launches, payload_gather_plain.calls
+    ps.run_steps(steps)
+    torch.cuda.synchronize()
+    assert payload_gather.launches == before + steps
+    assert payload_gather_plain.calls == calls
+    assert ps.step_graphs["sorted"].replays == steps - 1
+    _same_state(ps.state, want, f"{engine} run_steps")
 
 
 def test_scatter_kernel_at_k40(dev):

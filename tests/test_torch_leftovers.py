@@ -97,34 +97,56 @@ def test_morton_codes_equal_jax():
 # --- the extra payload on the sort gather ----------------------------------
 
 
-@pytest.mark.parametrize("with_cell_start", [True, False])
-def test_build_sorted_grid_extra_matches_jax(with_cell_start):
+@pytest.mark.parametrize("with_cell_start,rows",
+                         [(True, "own"), (False, "own"), (True, "views")],
+                         ids=["True", "False", "views"])
+def test_build_sorted_grid_extra_matches_jax(with_cell_start, rows):
     """``extra`` rides the payload gather: order, psort, ids and
     ``SortedGrid.extra`` equal JAX's exactly; ``with_cell_start=False``
-    leaves the segment index unbuilt in both, and built it is JAX's."""
+    leaves the segment index unbuilt in both, and built it is JAX's.
+    CPU tensors take the payload gather's plain twin, never the kernel;
+    with ``rows="views"`` positions and masses are views of one (N, 4)
+    table (the sorted step's carried rows) and the cell coordinates are
+    built too, all equal to JAX's."""
+    from nbody_tpu_torch.ops.payload_gather import (
+        payload_gather,
+        payload_gather_plain,
+    )
+
     d = 8
     pos, mass, extra = _sphere(600, 4.0, 1)
     coords = np.clip(((pos - pos.min(0)) / 1.0).astype(np.int32), 0, d - 1)
+    with_csort = rows == "views"
     want = jsw.build_sorted_grid(
         jnp.asarray(pos), jnp.asarray(mass), jnp.asarray(coords), d,
         with_cell_start=with_cell_start, extra=jnp.asarray(extra))
+    tpos, tmass = torch.from_numpy(pos), torch.from_numpy(mass)
+    if rows == "views":
+        table = torch.cat([tpos, tmass[:, None]], dim=-1)
+        tpos, tmass = table[:, :3], table[:, 3]
+    calls, launches = payload_gather_plain.calls, payload_gather.launches
     got = tsw.build_sorted_grid(
-        torch.from_numpy(pos), torch.from_numpy(mass),
-        torch.from_numpy(coords), d, with_cell_start=with_cell_start,
-        extra=torch.from_numpy(extra))
+        tpos, tmass, torch.from_numpy(coords), d,
+        with_cell_start=with_cell_start, extra=torch.from_numpy(extra),
+        with_csort=with_csort)
+    assert payload_gather_plain.calls == calls + 1
+    assert payload_gather.launches == launches
     np.testing.assert_array_equal(got.order.numpy(), np.asarray(want.order))
     np.testing.assert_array_equal(got.psort.numpy(), np.asarray(want.psort))
     np.testing.assert_array_equal(got.ids.numpy(), np.asarray(want.ids))
     np.testing.assert_array_equal(got.extra.numpy(), np.asarray(want.extra))
     assert got.psort.is_contiguous()
+    if with_csort:
+        np.testing.assert_array_equal(got.csort.numpy(),
+                                      np.asarray(want.csort))
+    else:
+        assert got.csort is None
     if with_cell_start:
         np.testing.assert_array_equal(got.cell_start.numpy(),
                                       np.asarray(want.cell_start))
     else:
         assert got.cell_start is None and want.cell_start is None
-    plain = tsw.build_sorted_grid(torch.from_numpy(pos),
-                                  torch.from_numpy(mass),
-                                  torch.from_numpy(coords), d)
+    plain = tsw.build_sorted_grid(tpos, tmass, torch.from_numpy(coords), d)
     assert plain.extra is None and torch.equal(plain.psort, got.psort)
 
 
